@@ -1,0 +1,102 @@
+"""Numerics-policy switches for approximategps_tpu_torch.
+
+The PyTorch counterpart of ``approximategps_tpu/config.py``, cut to the
+knobs the SVGP serving path reads.  Like the JAX package, this holds only
+switches that must agree across a whole computation (solve strategy,
+factorization and data-term routes), never model options.
+
+Value names differ from the JAX package where they named TPU machinery:
+``use_pallas`` is ``use_kernels``, the ``"pallas"`` / ``"xla"`` routes are
+``"auto"`` / ``"plain"``, and the ``"mxu"`` distance mode is ``"matmul"``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+from typing import Iterator
+
+import torch
+
+
+@dataclasses.dataclass
+class _Config:
+    # Pairwise-distance implementation for Gram matrices:
+    #   "broadcast": exact (x - z)**2 broadcasting
+    #   "matmul":    |x|^2 + |z|^2 - 2 x z^T on centred inputs
+    #   "auto":      broadcast below gram_auto_threshold (N*M*D), else matmul
+    gram_mode: str = os.environ.get("AGP_GRAM_MODE", "auto")
+    gram_auto_threshold: int = 1 << 22
+    # Whether the hand-written CUDA kernels may serve at all.  A wrapper
+    # given a CPU tensor runs its plain PyTorch version instead.
+    use_kernels: bool = os.environ.get("AGP_USE_KERNELS", "1") == "1"
+    # SVGP projection strategy (see resolve_solve_mode):
+    #   "triangular": triangular solves against chol(Kuu)
+    #   "inv_matmul": precompute Lk⁻¹ once; builds the S-correction cache
+    #                 that both serving kernels consume
+    #   "auto":       inv_matmul on the kernel device at M >= 512
+    solve_mode: str = os.environ.get("AGP_SOLVE_MODE", "auto")
+    # (L, L⁻¹) factorization route: "auto" (kernel) or "plain" (cuSOLVER /
+    # LAPACK through torch.linalg).
+    chol_mode: str = os.environ.get("AGP_CHOL_MODE", "auto")
+    # Gram-fused posterior build: "auto" generates Kuu inside the (L, L⁻¹)
+    # kernel (ops/panel_chol.gram_chol_inv); "off" builds Kuu first.
+    gram_chol: str = os.environ.get("AGP_GRAM_CHOL", "auto")
+    # Serving data term: "auto" (fused epilogue kernel) or "plain" (Gram +
+    # diag_quad_sym in PyTorch).
+    data_term_mode: str = os.environ.get("AGP_DATA_TERM_MODE", "auto")
+    # Largest test-point tile one CUDA block of the epilogue owns (16, 8 or
+    # 4); the wrapper halves it until the (block_b, M) K tile fits shared
+    # memory, and the sweep raises on CUDA where none fits.
+    epilogue_block_b: int = int(os.environ.get("AGP_EPILOGUE_BLOCK_B", "16"))
+    # Largest M for which the posterior build forms the S-correction matrix
+    # S = Lk⁻ᵀ(BBᵀ−I)Lk⁻¹ (the cache the fused epilogue consumes).
+    s_corr_max_m: int = int(os.environ.get("AGP_S_CORR_MAX_M", "4096"))
+
+
+config = _Config()
+
+
+def kernel_device(t: torch.Tensor) -> bool:
+    """The one device gate: True where the hand-written kernels serve — a
+    CUDA tensor in f32 or f64.  Takes the place of the JAX package's
+    ``jax.default_backend() == "tpu"`` checks."""
+    return t.is_cuda and t.dtype in (torch.float32, torch.float64)
+
+
+def kernels_take(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper may be called for ``t``: kernels allowed,
+    and ``t`` either on the kernel device or on the CPU, where the wrapper
+    runs the kernel's plain version."""
+    return config.use_kernels and (t.device.type == "cpu" or kernel_device(t))
+
+
+def resolve_solve_mode(t: torch.Tensor, size: int | None = None) -> str:
+    """The effective solve_mode: "auto" becomes "inv_matmul" on the kernel
+    device at M >= 512 (``size`` = M) and "triangular" otherwise, as the
+    JAX package does on the TPU.  Without it no S-correction cache is built
+    and neither serving kernel runs."""
+    mode = config.solve_mode
+    if mode != "auto":
+        return mode
+    if kernel_device(t) and (size is None or size >= 512):
+        return "inv_matmul"
+    return "triangular"
+
+
+def set_config(**kwargs) -> None:
+    for k, v in kwargs.items():
+        if not hasattr(config, k):
+            raise AttributeError(f"unknown config key: {k}")
+        setattr(config, k, v)
+
+
+@contextlib.contextmanager
+def config_context(**kwargs) -> Iterator[None]:
+    old = {k: getattr(config, k) for k in kwargs}
+    set_config(**kwargs)
+    try:
+        yield
+    finally:
+        set_config(**old)

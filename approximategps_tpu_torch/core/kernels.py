@@ -1,0 +1,287 @@
+"""Kernel library and Gram construction (PyTorch port of
+``approximategps_tpu/core/kernels.py``, the parts the SVGP serving path
+reads).
+
+Kernels are plain dataclasses whose hyperparameters are tensors or floats.
+Gram matrices come from pairwise squared distances, computed by exact
+broadcasting or by the ``|x|² + |z|² − 2·x zᵀ`` matmul identity on centred
+inputs.
+
+A CUDA kernel cannot call a Python function, so where the JAX package
+identifies a stationary map by its ``staticmethod``, the port gives each map
+a :class:`KernelMap`: an integer id the CUDA side switches on, beside the
+PyTorch function the plain versions use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..config import config
+
+__all__ = [
+    "Kernel",
+    "StationaryKernel",
+    "SqExponentialKernel",
+    "SEKernel",
+    "RBFKernel",
+    "Matern12Kernel",
+    "ExponentialKernel",
+    "Matern32Kernel",
+    "Matern52Kernel",
+    "ScaledKernel",
+    "InputScaledKernel",
+    "with_lengthscale",
+    "pairwise_sq_dist",
+    "as_points",
+    "KernelMapId",
+    "KernelMap",
+    "unwrap_stationary",
+]
+
+
+def as_points(X) -> torch.Tensor:
+    """Canonicalize inputs to shape (N, D)."""
+    X = torch.as_tensor(X)
+    if X.ndim == 0:
+        return X.reshape(1, 1)
+    if X.ndim == 1:
+        return X[:, None]
+    if X.ndim == 2:
+        return X
+    raise ValueError(f"kernel inputs must be (N,) or (N, D); got shape {tuple(X.shape)}")
+
+
+def _resolve_gram_mode(n: int, m: int, d: int) -> str:
+    mode = config.gram_mode
+    if mode == "auto":
+        return "matmul" if n * m * d >= config.gram_auto_threshold else "broadcast"
+    return mode
+
+
+def pairwise_sq_dist(X, Z, mode: str | None = None) -> torch.Tensor:
+    """Pairwise squared Euclidean distances, shape (N, M).
+
+    ``broadcast`` is exact (differences squared); ``matmul`` uses the
+    |x|²-identity on inputs centred on the joint mean, whose error scales
+    with eps·max|x−c|² rather than eps·max|x|²."""
+    X = as_points(X)
+    Z = as_points(Z)
+    if mode is None:
+        mode = _resolve_gram_mode(X.shape[0], Z.shape[0], X.shape[1])
+    if mode == "broadcast":
+        diff = X[:, None, :] - Z[None, :, :]
+        return torch.sum(diff * diff, dim=-1)
+    if mode != "matmul":
+        raise ValueError(f"unknown distance mode {mode!r}")
+    center = 0.5 * (X.mean(dim=0) + Z.mean(dim=0))
+    X = X - center
+    Z = Z - center
+    xz = X @ Z.T
+    x2 = torch.sum(X * X, dim=-1)
+    z2 = torch.sum(Z * Z, dim=-1)
+    r2 = x2[:, None] + z2[None, :] - 2.0 * xz
+    return torch.clamp(r2, min=0.0)
+
+
+class KernelMapId(enum.IntEnum):
+    """Ids of the stationary maps the CUDA kernels implement; the values
+    must match ``csrc/kernel_maps.cuh``."""
+
+    SE = 0
+    MATERN12 = 1
+    MATERN32 = 2
+    MATERN52 = 3
+
+
+class KernelMap(NamedTuple):
+    """A parameter-free stationary map g(r²): the id the CUDA side switches
+    on, and the PyTorch function the plain versions use."""
+
+    id: KernelMapId
+    k_of_r2: Callable[[torch.Tensor], torch.Tensor]
+
+
+class Kernel:
+    """Base class: ``gram(X, Z)`` (cross-covariance) and ``diag(X)``."""
+
+    def gram(self, X, Z=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def diag(self, X) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __mul__(self, other):
+        if isinstance(other, Kernel):
+            return NotImplemented
+        return ScaledKernel(self, other)
+
+    __rmul__ = __mul__
+
+
+class StationaryKernel(Kernel):
+    """Kernels of the form k(x, z) = g(||x - z||²).  Subclasses define
+    ``k_of_r2`` as a staticmethod and name their map in ``map_id``."""
+
+    map_id: KernelMapId
+
+    @staticmethod
+    def k_of_r2(r2: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def kernel_map(self) -> KernelMap:
+        return KernelMap(self.map_id, type(self).k_of_r2)
+
+    def gram(self, X, Z=None) -> torch.Tensor:
+        X = as_points(X)
+        symmetric = Z is None
+        Z = X if symmetric else as_points(Z)
+        mode = _resolve_gram_mode(X.shape[0], Z.shape[0], X.shape[1])
+        if symmetric:
+            # symmetric Grams feed Cholesky factorizations: the matmul
+            # identity's eps·max|x−c|² error breaks PSD-ness for data spans
+            # ≫ √jitter, so they always take exact broadcast distances
+            mode = "broadcast"
+        return self.k_of_r2(pairwise_sq_dist(X, Z, mode))
+
+    def diag(self, X) -> torch.Tensor:
+        X = as_points(X)
+        z = torch.zeros((), dtype=X.dtype, device=X.device)
+        return self.k_of_r2(z).expand(X.shape[0]).clone()
+
+
+def _safe_r(r2: torch.Tensor) -> torch.Tensor:
+    """sqrt(r2), exactly 0 at r2 = 0."""
+    return torch.where(r2 > 0, torch.sqrt(torch.clamp(r2, min=0.0)), torch.zeros_like(r2))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SqExponentialKernel(StationaryKernel):
+    """k(x,z) = exp(-||x-z||² / 2)."""
+
+    map_id = KernelMapId.SE
+
+    @staticmethod
+    def k_of_r2(r2):
+        return torch.exp(-0.5 * r2)
+
+
+SEKernel = SqExponentialKernel
+RBFKernel = SqExponentialKernel
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Matern12Kernel(StationaryKernel):
+    """k(x,z) = exp(-||x-z||)."""
+
+    map_id = KernelMapId.MATERN12
+
+    @staticmethod
+    def k_of_r2(r2):
+        return torch.exp(-_safe_r(r2))
+
+
+ExponentialKernel = Matern12Kernel
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Matern32Kernel(StationaryKernel):
+    """k(x,z) = (1 + √3 r) exp(-√3 r)."""
+
+    map_id = KernelMapId.MATERN32
+
+    @staticmethod
+    def k_of_r2(r2):
+        t = math.sqrt(3.0) * _safe_r(r2)
+        return (1.0 + t) * torch.exp(-t)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Matern52Kernel(StationaryKernel):
+    """k(x,z) = (1 + √5 r + 5r²/3) exp(-√5 r)."""
+
+    map_id = KernelMapId.MATERN52
+
+    @staticmethod
+    def k_of_r2(r2):
+        t = math.sqrt(5.0) * _safe_r(r2)
+        return (1.0 + t + (5.0 / 3.0) * r2) * torch.exp(-t)
+
+
+def _as_param(v) -> torch.Tensor:
+    """A hyperparameter as a tensor; Python and numpy numbers become f64 so
+    that no precision is lost before the cast to the inputs' dtype."""
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(v, dtype=torch.float64)
+
+
+def _param(v, like: torch.Tensor) -> torch.Tensor:
+    v = _as_param(v).to(dtype=like.dtype)
+    # a 0-dim CPU tensor combines with a CUDA tensor without a copy
+    return v if v.ndim == 0 else v.to(device=like.device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScaledKernel(Kernel):
+    """variance * inner."""
+
+    inner: Kernel
+    variance: torch.Tensor | float = 1.0
+
+    def gram(self, X, Z=None):
+        K = self.inner.gram(X, Z)
+        return _param(self.variance, K) * K
+
+    def diag(self, X):
+        d = self.inner.diag(X)
+        return _param(self.variance, d) * d
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class InputScaledKernel(Kernel):
+    """inner(s*x, s*z); ``scale`` is scalar or (D,) for ARD."""
+
+    inner: Kernel
+    scale: torch.Tensor | float = 1.0
+
+    def _tx(self, X):
+        X = as_points(X)
+        return X * _param(self.scale, X)
+
+    def gram(self, X, Z=None):
+        return self.inner.gram(self._tx(X), None if Z is None else self._tx(Z))
+
+    def diag(self, X):
+        return self.inner.diag(self._tx(X))
+
+
+def with_lengthscale(kernel: Kernel, lengthscale) -> Kernel:
+    """k((x - z) / lengthscale); ``lengthscale`` scalar or (D,)."""
+    return InputScaledKernel(kernel, 1.0 / _as_param(lengthscale))
+
+
+def unwrap_stationary(kern: Kernel):
+    """Decompose ``σ²·(base ∘ ScaleTransform(s))`` nests into
+    ``(KernelMap, input_scale, variance)``, or None if the kernel is not a
+    (possibly scaled) parameter-free stationary kernel.  ``input_scale`` and
+    ``variance`` are None where no wrapper supplies them."""
+    variance = None
+    scale = None
+    while True:
+        if isinstance(kern, ScaledKernel):
+            v = _as_param(kern.variance)
+            variance = v if variance is None else variance * v
+            kern = kern.inner
+        elif isinstance(kern, InputScaledKernel):
+            s = _as_param(kern.scale)
+            scale = s if scale is None else scale * s
+            kern = kern.inner
+        else:
+            break
+    if not isinstance(kern, StationaryKernel):
+        return None
+    return kern.kernel_map(), scale, variance

@@ -1,0 +1,119 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Marked ``gpu``: without a CUDA device every test skips.  Run them on a
+machine with one with
+``python -m pytest --noconftest -q tests/test_torch_cuda.py`` (the
+repository's ``conftest.py`` sets up JAX, which these tests do not use).
+f64 tolerances as in the CPU tests: L 1e-10, J 1e-7 (amplified by
+cond(K)), epilogue and slice 1e-9."""
+
+import numpy as np
+import pytest
+import torch
+
+import approximategps_tpu_torch as tgp
+from approximategps_tpu_torch.core import kernels as tk
+from approximategps_tpu_torch.ops import panel_chol, svgp_epilogue
+
+pytestmark = pytest.mark.gpu
+
+MAPS = [tk.SqExponentialKernel, tk.Matern12Kernel, tk.Matern32Kernel, tk.Matern52Kernel]
+MAP_IDS = ["se", "m12", "m32", "m52"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only there")
+    return torch.device("cuda", 0)
+
+
+def _t(a, dev, dtype=torch.float64):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_gram_chol_inv_matches_plain(cls, cuda):
+    Z = _t(1.2 * np.random.default_rng(0).standard_normal((200, 3)), cuda)  # 200: ragged panels
+    kmap = cls().kernel_map()
+    before = panel_chol.gram_chol_inv.launches
+    L, J = panel_chol.gram_chol_inv(Z, 1.7, 1e-6, kmap)
+    L0, J0 = panel_chol.gram_chol_inv_plain(Z, 1.7, 1e-6, kmap)
+    assert panel_chol.gram_chol_inv.launches == before + 1
+    assert L.shape == J.shape == (200, 200)
+    torch.testing.assert_close(L, L0, atol=1e-10, rtol=0)
+    torch.testing.assert_close(J, J0, atol=1e-7, rtol=0)
+    assert not torch.triu(L, 1).any() and not torch.triu(J, 1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_svgp_epilogue_matches_plain(cls, dtype, cuda):
+    rng = np.random.default_rng(1)
+    M, B = 100, 1001
+    R = rng.standard_normal((M, M)) / np.sqrt(M)
+    args = [_t(a, cuda, dtype) for a in (
+        rng.standard_normal((B, 4)) + 3.0, rng.standard_normal((M, 4)) + 3.0,
+        R @ R.T + 0.1 * np.eye(M), rng.standard_normal(M))]
+    kmap = cls().kernel_map()
+    before = svgp_epilogue.svgp_data_epilogue.launches
+    mu, var = svgp_epilogue.svgp_data_epilogue(*args, kmap)
+    mu0, var0 = svgp_epilogue.svgp_data_epilogue_plain(*args, kmap)
+    assert svgp_epilogue.svgp_data_epilogue.launches == before + 1
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(mu, mu0, atol=tol, rtol=0)
+    torch.testing.assert_close(var, var0, atol=tol, rtol=0)
+
+
+def test_torch_cuda_wrappers_raise_on_what_they_do_not_take(cuda):
+    kmap = tk.SqExponentialKernel().kernel_map()
+    with pytest.raises(ValueError):
+        panel_chol.gram_chol_inv(torch.zeros((64, 3), dtype=torch.bfloat16, device=cuda),
+                                 1.0, 1e-6, kmap)
+    with pytest.raises(ValueError):
+        panel_chol.gram_chol_inv(torch.zeros((64, 65), device=cuda), 1.0, 1e-6, kmap)
+    x = torch.zeros((10, 2), device=cuda)
+    with pytest.raises(ValueError):
+        svgp_epilogue.svgp_data_epilogue(x, torch.zeros((4, 2)), torch.eye(4, device=cuda),
+                                         torch.zeros(4, device=cuda), kmap)
+
+
+def _posterior(dev, dtype, parametrization=None):
+    rng = np.random.default_rng(2)
+    M = 512
+    kernel = 0.9 * tgp.with_lengthscale(tgp.Matern52Kernel(), 0.8)
+    fz = tgp.GP(kernel)(_t(rng.standard_normal((M, 3)), dev, dtype), 1e-6)
+    A = 0.6 * np.eye(M) + 0.01 * np.tril(rng.standard_normal((M, M)))
+    q = tgp.MultivariateNormal(_t(0.3 * rng.standard_normal(M), dev, dtype), _t(A, dev, dtype))
+    sva = tgp.SparseVariationalApproximation(fz, q, parametrization or tgp.NonCentered())
+    return tgp.posterior(sva)
+
+
+def test_torch_cuda_slice_runs_through_both_kernels(cuda):
+    xs = _t(np.random.default_rng(3).standard_normal((5000, 3)), cuda)
+    c0, c1 = panel_chol.gram_chol_inv.launches, svgp_epilogue.svgp_data_epilogue.launches
+    post = _posterior(cuda, torch.float64)
+    mu, var = post.predict_blocks(xs, block_size=2048)
+    assert panel_chol.gram_chol_inv.launches == c0 + 1
+    assert svgp_epilogue.svgp_data_epilogue.launches == c1 + 3
+    with tgp.config_context(use_kernels=False):
+        mu0, var0 = _posterior(cuda, torch.float64).mean_and_var(xs)
+    torch.testing.assert_close(mu, mu0, atol=1e-9, rtol=0)
+    torch.testing.assert_close(var, var0, atol=1e-9, rtol=0)
+
+
+def test_torch_cuda_sweep_raises_where_the_epilogue_tile_does_not_fit(cuda):
+    """No tiling over M yet: the sweep raises instead of serving the
+    blocks through the plain route."""
+    post = _posterior(cuda, torch.float32)
+    xs = torch.zeros((100, 3), device=cuda)
+    with tgp.config_context(epilogue_block_b=2):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            post.predict_blocks(xs)
+
+
+def test_torch_cuda_unported_factorization_raises(cuda):
+    """Centered needs the (L, L⁻¹) kernel of a given matrix, which the port
+    has not got yet: it raises instead of quietly using cuSOLVER."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _posterior(cuda, torch.float32, tgp.Centered())

@@ -1,0 +1,63 @@
+"""Properties of the PyTorch port as a whole: it never imports JAX, its
+kernel modules import without a CUDA compiler, and ``chip_smoke.py``
+refuses to report a result without a CUDA device."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "approximategps_tpu_torch"
+
+
+def _run(code_or_args, env=None, cwd=REPO):
+    args = code_or_args if isinstance(code_or_args, list) else [sys.executable, "-c", code_or_args]
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True, timeout=120)
+
+
+def test_torch_port_imports_no_jax():
+    proc = _run(
+        "import sys, approximategps_tpu_torch as t\n"
+        "t.posterior, t.build_svgp, t.convert.from_jax_params\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    for path in PKG.rglob("*.py"):
+        if "_build" in path.relative_to(PKG).parts:
+            continue  # build outputs, not sources
+        for line in path.read_text().splitlines():
+            assert not re.match(r"\s*(import|from)\s+jax\b", line), (path, line)
+            assert "torch.compile" not in line, (path, line)
+
+
+def test_torch_kernel_modules_import_without_nvcc(tmp_path):
+    """Importing the ops modules builds nothing; a first launch with no
+    nvcc and no built library raises instead of falling back."""
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
+    proc = _run(
+        "import approximategps_tpu_torch.ops as ops\n"
+        "from approximategps_tpu_torch.ops import _build\n"
+        "assert _build.load_library.cache_info().currsize == 0\n"
+        "try:\n"
+        "    _build._nvcc()\n"
+        "except RuntimeError as e:\n"
+        "    assert 'nvcc' in str(e)\n"
+        "else:\n"
+        "    raise SystemExit('nvcc was found')\n",
+        env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_torch_chip_smoke_refuses_without_cuda():
+    assert not torch.cuda.is_available()
+    proc = _run([sys.executable, str(REPO / "chip_smoke.py")])
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "no CUDA device" in proc.stderr
