@@ -1,16 +1,18 @@
 """approximategps_tpu_torch — the PyTorch / CUDA port of approximategps_tpu.
 
-A second package beside the JAX one, which stays the reference.  This
-slice carries the SVGP serving path: a NonCentered posterior built from
-given parameters (``posterior``), then a mean-and-variance sweep over a large
-test set (``SVGPPosterior.predict_blocks``).  Two hand-written CUDA kernels
-for Hopper (``csrc/``) carry it on the GPU, each beside a plain PyTorch
-version that CPU tensors take:
+A second package beside the JAX one, which stays the reference.  It
+carries the SVGP serving path (``posterior``, then
+``SVGPPosterior.predict_blocks``) and the SVGP training path: the minibatch
+``elbo`` and the full-data ``streaming_elbo`` with their gradients, and
+``adam_fit``.  Hand-written CUDA kernels for Hopper (``csrc/``) carry them on
+the GPU, each beside a plain PyTorch version that CPU tensors take:
 
 - ``ops.panel_chol.gram_chol_inv``: (L, L⁻¹) with the Kuu Gram generated
   inside the factorization;
+- ``ops.panel_chol.chol_inv``: (L, L⁻¹) of a given SPD matrix;
 - ``ops.svgp_epilogue.svgp_data_epilogue``: (mean, var) without the (M, B)
-  cross-covariance in device memory.
+  cross-covariance in device memory, and its backward
+  (``svgp_data_epilogue_bwd``), which rebuilds it tile by tile.
 
 The kernels are built with ``nvcc`` at first use (``ops/_build.py``).
 """
@@ -21,6 +23,9 @@ from .config import config, config_context, set_config
 from .core import (
     GP,
     AbstractGP,
+    GaussianLikelihood,
+    LatentFiniteGP,
+    LatentGP,
     ExponentialKernel,
     FiniteGP,
     InputScaledKernel,
@@ -42,9 +47,12 @@ from .models import (
     SparseVariationalApproximation,
     SVGPPosterior,
     approx_lml,
+    elbo,
     posterior,
+    prior_kl,
+    streaming_elbo,
 )
-from .utils import SVGPParams, build_svgp, init_svgp_params
+from .utils import SVGPParams, adam_fit, build_svgp, init_svgp_params
 
 __all__ = [
     "config",
@@ -53,6 +61,9 @@ __all__ = [
     "GP",
     "AbstractGP",
     "FiniteGP",
+    "LatentGP",
+    "LatentFiniteGP",
+    "GaussianLikelihood",
     "Kernel",
     "StationaryKernel",
     "SqExponentialKernel",
@@ -72,7 +83,11 @@ __all__ = [
     "SVGPPosterior",
     "posterior",
     "approx_lml",
+    "elbo",
+    "prior_kl",
+    "streaming_elbo",
     "SVGPParams",
     "init_svgp_params",
     "build_svgp",
+    "adam_fit",
 ]

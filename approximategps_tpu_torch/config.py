@@ -1,7 +1,7 @@
 """Numerics-policy switches for approximategps_tpu_torch.
 
 The PyTorch counterpart of ``approximategps_tpu/config.py``, cut to the
-knobs the SVGP serving path reads.  Like the JAX package, this holds only
+knobs the SVGP serving and training paths read.  Like the JAX package, this holds only
 switches that must agree across a whole computation (solve strategy,
 factorization and data-term routes), never model options.
 
@@ -37,14 +37,18 @@ class _Config:
     #                 that both serving kernels consume
     #   "auto":       inv_matmul on the kernel device at M >= 512
     solve_mode: str = os.environ.get("AGP_SOLVE_MODE", "auto")
-    # (L, L⁻¹) factorization route: "auto" (kernel) or "plain" (cuSOLVER /
-    # LAPACK through torch.linalg).
+    # (L, L⁻¹) factorization route of chol_with_inv and the posterior build:
+    # "auto" (the kernels) or "plain" (cuSOLVER / LAPACK through
+    # torch.linalg).
     chol_mode: str = os.environ.get("AGP_CHOL_MODE", "auto")
     # Gram-fused posterior build: "auto" generates Kuu inside the (L, L⁻¹)
     # kernel (ops/panel_chol.gram_chol_inv); "off" builds Kuu first.
     gram_chol: str = os.environ.get("AGP_GRAM_CHOL", "auto")
-    # Serving data term: "auto" (fused epilogue kernel) or "plain" (Gram +
-    # diag_quad_sym in PyTorch).
+    # SVGP data term: "auto" takes the fused epilogue kernel where the caller
+    # prefers it (the serving sweep and the streaming ELBO, whose plain
+    # blocks would recompute the (M, B) Gram in the backward anyway) and
+    # the plain route for the minibatch ELBO; "plain" takes the Gram and
+    # diag_quad_sym in PyTorch everywhere.
     data_term_mode: str = os.environ.get("AGP_DATA_TERM_MODE", "auto")
     # Largest test-point tile one CUDA block of the epilogue owns (16, 8 or
     # 4); the wrapper halves it until the (block_b, M) K tile fits shared

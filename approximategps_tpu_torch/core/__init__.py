@@ -1,8 +1,9 @@
-"""Core math: kernels, GP objects, distributions, dense linear algebra."""
+"""Core math: kernels, GP objects, distributions, likelihoods, quadrature,
+dense linear algebra."""
 
-from . import distributions, gp, kernels, linalg, means
-from .distributions import MultivariateNormal
-from .gp import GP, AbstractGP, FiniteGP
+from . import distributions, gp, kernels, likelihoods, linalg, means, quadrature
+from .distributions import MultivariateNormal, kl_divergence
+from .gp import GP, AbstractGP, FiniteGP, LatentFiniteGP, LatentGP
 from .kernels import (
     ExponentialKernel,
     InputScaledKernel,
@@ -21,5 +22,12 @@ from .kernels import (
     pairwise_sq_dist,
     unwrap_stationary,
     with_lengthscale,
+)
+from .likelihoods import GaussianLikelihood, Likelihood
+from .quadrature import (
+    Analytic,
+    DefaultExpectationMethod,
+    GaussHermite,
+    expected_loglikelihood,
 )
 from .means import ConstMean, FunctionMean, ZeroMean

@@ -1,5 +1,5 @@
 """Gaussian distributions (port of ``approximategps_tpu/core/distributions.py``:
-``MultivariateNormal`` only)."""
+``MultivariateNormal`` and the closed-form ``kl_divergence``)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,9 @@ import dataclasses
 
 import torch
 
-__all__ = ["MultivariateNormal"]
+from . import linalg
+
+__all__ = ["MultivariateNormal", "kl_divergence"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -33,3 +35,15 @@ class MultivariateNormal:
 
     def marginals(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self.mean, self.var()
+
+
+def kl_divergence(q: MultivariateNormal, p: MultivariateNormal) -> torch.Tensor:
+    """KL(q ‖ p) for multivariate Gaussians, closed form."""
+    Lq, Lp = q.scale_tril, p.scale_tril
+    # tr(Σp⁻¹ Σq) = ‖Lp⁻¹ Lq‖_F²
+    Mt = torch.linalg.solve_triangular(Lp, Lq, upper=False)
+    trace_term = torch.sum(Mt * Mt, dim=(-1, -2))
+    alpha = torch.linalg.solve_triangular(Lp, (p.mean - q.mean)[..., None], upper=False)[..., 0]
+    quad = torch.sum(alpha * alpha, dim=-1)
+    logdet_term = linalg.chol_logdet(Lp) - linalg.chol_logdet(Lq)
+    return 0.5 * (trace_term + quad - q.dim + logdet_term)

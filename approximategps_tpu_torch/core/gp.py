@@ -1,5 +1,5 @@
 """GP abstractions (port of ``approximategps_tpu/core/gp.py``: ``AbstractGP``,
-``GP`` and ``FiniteGP``).
+``GP``, ``FiniteGP``, ``LatentGP`` and ``LatentFiniteGP``).
 
 Noise convention for ``FiniteGP`` (AbstractGPs' ``f(x, Σy)``): a scalar σ²
 is isotropic σ²·I, an (N,) vector is diagonal, an (N, N) matrix is full.
@@ -15,9 +15,10 @@ import torch
 from . import linalg
 from .distributions import MultivariateNormal
 from .kernels import Kernel, as_points
+from .likelihoods import Likelihood, as_likelihood
 from .means import ZeroMean
 
-__all__ = ["AbstractGP", "GP", "FiniteGP"]
+__all__ = ["AbstractGP", "GP", "FiniteGP", "LatentGP", "LatentFiniteGP"]
 
 
 class AbstractGP:
@@ -102,3 +103,27 @@ class FiniteGP:
 
     def to_mvn(self) -> MultivariateNormal:
         return MultivariateNormal(self.mean(), self.scale_tril())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LatentGP:
+    """Prior plus likelihood: ``LatentGP(f, lik, jitter)(x)`` is the
+    ``LatentFiniteGP`` of ``f(x, jitter)``."""
+
+    f: AbstractGP
+    lik: Any
+    jitter: Any = 1e-8
+
+    def __call__(self, x) -> "LatentFiniteGP":
+        return LatentFiniteGP(self.f(x, self.jitter), as_likelihood(self.lik))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LatentFiniteGP:
+    """A latent FiniteGP and its observation likelihood."""
+
+    fx: FiniteGP
+    lik: Likelihood
+
+    def __len__(self) -> int:
+        return len(self.fx)

@@ -41,6 +41,7 @@ __all__ = [
     "as_points",
     "KernelMapId",
     "KernelMap",
+    "dk_from_k_for",
     "unwrap_stationary",
 ]
 
@@ -101,10 +102,13 @@ class KernelMapId(enum.IntEnum):
 
 class KernelMap(NamedTuple):
     """A parameter-free stationary map g(r²): the id the CUDA side switches
-    on, and the PyTorch function the plain versions use."""
+    on, the PyTorch function the plain versions use, and its derivative
+    g′(r²) for the hand-written pullbacks (``kernel_map_dr2`` in
+    ``csrc/kernel_maps.cuh``)."""
 
     id: KernelMapId
     k_of_r2: Callable[[torch.Tensor], torch.Tensor]
+    dk_of_r2: Callable[[torch.Tensor], torch.Tensor]
 
 
 class Kernel:
@@ -134,8 +138,14 @@ class StationaryKernel(Kernel):
     def k_of_r2(r2: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    @staticmethod
+    def dk_of_r2(r2: torch.Tensor) -> torch.Tensor:
+        """g′(r²), with the value at r² = 0 that the JAX package's autodiff
+        gives there (its double-where sqrt has a zero gradient at 0)."""
+        raise NotImplementedError
+
     def kernel_map(self) -> KernelMap:
-        return KernelMap(self.map_id, type(self).k_of_r2)
+        return KernelMap(self.map_id, type(self).k_of_r2, type(self).dk_of_r2)
 
     def gram(self, X, Z=None) -> torch.Tensor:
         X = as_points(X)
@@ -156,8 +166,11 @@ class StationaryKernel(Kernel):
 
 
 def _safe_r(r2: torch.Tensor) -> torch.Tensor:
-    """sqrt(r2), exactly 0 at r2 = 0."""
-    return torch.where(r2 > 0, torch.sqrt(torch.clamp(r2, min=0.0)), torch.zeros_like(r2))
+    """sqrt(r2), exactly 0 at r2 = 0, with a zero (not NaN) gradient there:
+    the double-where of the JAX package's ``_safe_r``."""
+    pos = r2 > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, r2, torch.ones_like(r2))),
+                       torch.zeros_like(r2))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -169,6 +182,16 @@ class SqExponentialKernel(StationaryKernel):
     @staticmethod
     def k_of_r2(r2):
         return torch.exp(-0.5 * r2)
+
+    @staticmethod
+    def dk_of_r2(r2):
+        return -0.5 * torch.exp(-0.5 * r2)
+
+    @staticmethod
+    def dk_from_k(k):
+        """g′(r²) through g(r²): lets a pullback reuse K instead of
+        rebuilding r² and rerunning the map."""
+        return -0.5 * k
 
 
 SEKernel = SqExponentialKernel
@@ -185,6 +208,11 @@ class Matern12Kernel(StationaryKernel):
     def k_of_r2(r2):
         return torch.exp(-_safe_r(r2))
 
+    @staticmethod
+    def dk_of_r2(r2):
+        r = _safe_r(r2)
+        return torch.where(r2 > 0, -0.5 * torch.exp(-r) / torch.where(r2 > 0, r, 1.0), 0.0)
+
 
 ExponentialKernel = Matern12Kernel
 
@@ -200,6 +228,11 @@ class Matern32Kernel(StationaryKernel):
         t = math.sqrt(3.0) * _safe_r(r2)
         return (1.0 + t) * torch.exp(-t)
 
+    @staticmethod
+    def dk_of_r2(r2):
+        t = math.sqrt(3.0) * _safe_r(r2)
+        return torch.where(r2 > 0, -1.5 * torch.exp(-t), 0.0)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Matern52Kernel(StationaryKernel):
@@ -211,6 +244,12 @@ class Matern52Kernel(StationaryKernel):
     def k_of_r2(r2):
         t = math.sqrt(5.0) * _safe_r(r2)
         return (1.0 + t + (5.0 / 3.0) * r2) * torch.exp(-t)
+
+    @staticmethod
+    def dk_of_r2(r2):
+        # at 0 only the r² term is left: 5/3
+        t = math.sqrt(5.0) * _safe_r(r2)
+        return torch.where(r2 > 0, (-5.0 / 6.0) * (1.0 + t) * torch.exp(-t), 5.0 / 3.0)
 
 
 def _as_param(v) -> torch.Tensor:
@@ -262,6 +301,15 @@ class InputScaledKernel(Kernel):
 def with_lengthscale(kernel: Kernel, lengthscale) -> Kernel:
     """k((x - z) / lengthscale); ``lengthscale`` scalar or (D,)."""
     return InputScaledKernel(kernel, 1.0 / _as_param(lengthscale))
+
+
+def dk_from_k_for(kmap: KernelMap):
+    """The g′(r²)-through-g(r²) shortcut of a map, or None: a pullback then
+    turns the map's derivative into one multiply on a K it already has."""
+    return _DK_FROM_K.get(kmap.id)
+
+
+_DK_FROM_K = {KernelMapId.SE: SqExponentialKernel.dk_from_k}
 
 
 def unwrap_stationary(kern: Kernel):

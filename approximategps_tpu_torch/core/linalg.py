@@ -1,5 +1,8 @@
 """Dense linear-algebra helpers (port of the parts of
-``approximategps_tpu/core/linalg.py`` the SVGP serving path reads)."""
+``approximategps_tpu/core/linalg.py`` the SVGP serving and training paths
+read): log-determinants, ``diag_quad_sym`` and ``chol_with_inv``, the last
+two as ``torch.autograd.Function``s with the JAX package's closed-form,
+matmul-only pullbacks."""
 
 from __future__ import annotations
 
@@ -10,6 +13,8 @@ from ..config import config, kernels_take
 __all__ = [
     "symmetrize",
     "safe_cholesky",
+    "tril_logdet",
+    "chol_logdet",
     "diag_quad_sym",
     "chol_with_inv",
     "chol_with_inv_plain",
@@ -25,14 +30,67 @@ def safe_cholesky(A: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cholesky(symmetrize(A))
 
 
+def tril_logdet(L: torch.Tensor) -> torch.Tensor:
+    """log|det L| for a triangular factor L."""
+    return torch.sum(torch.log(torch.abs(torch.diagonal(L, dim1=-2, dim2=-1))), dim=-1)
+
+
+def chol_logdet(L: torch.Tensor) -> torch.Tensor:
+    """logdet of A = L Lᵀ given its Cholesky factor."""
+    return 2.0 * tril_logdet(L)
+
+
+def _phi(X: torch.Tensor) -> torch.Tensor:
+    """tril with halved diagonal: the Cholesky-differential projector."""
+    return torch.tril(X) - 0.5 * torch.diag_embed(torch.diagonal(X, dim1=-2, dim2=-1))
+
+
+class _DiagQuadSym(torch.autograd.Function):
+    """diag(Kᵀ S K) with the pullback, for symmetric S and w = the output's
+    cotangent, K̄ = 2 (S K)∘w and S̄ = sym((K∘w) Kᵀ): the backward reuses the
+    forward's S K, so it pays one matmul where autograd would keep S K and
+    form it again."""
+
+    @staticmethod
+    def forward(ctx, S, K):
+        SK = S @ K
+        ctx.save_for_backward(K, SK)
+        return torch.sum(K * SK, dim=0)
+
+    @staticmethod
+    def backward(ctx, w):
+        K, SK = ctx.saved_tensors
+        S_bar = symmetrize((K * w) @ K.T) if ctx.needs_input_grad[0] else None
+        K_bar = 2.0 * SK * w if ctx.needs_input_grad[1] else None
+        return S_bar, K_bar
+
+
 def diag_quad_sym(S: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """diag(Kᵀ S K) for symmetric S: one (M, M)·(M, B) product and a
-    column reduce."""
+    column reduce, with a closed-form pullback."""
     if S.dtype != K.dtype:
         raise ValueError(
             f"diag_quad_sym requires S.dtype == K.dtype, got {S.dtype} vs {K.dtype}"
         )
-    return torch.sum(K * (S @ K), dim=0)
+    return _DiagQuadSym.apply(S, K)
+
+
+def _inv_chol_bwd_fused(L, J, L_bar, J_bar):
+    """Ā for (L, J = L⁻¹) = chol_with_inv(A) in one Φ-sandwich,
+
+        Ā = sym(Jᵀ Φ(Lᵀ tril(L̄) − J̄ Jᵀ) J),
+
+    3 matmuls with only J̄, 4 with both.  None stands for an absent
+    cotangent.  Plain ``torch.matmul``: the JAX package leaves it to XLA."""
+    inner = None
+    if L_bar is not None:
+        inner = L.transpose(-1, -2) @ torch.tril(L_bar)
+    if J_bar is not None:
+        t = J_bar @ J.transpose(-1, -2)
+        inner = -t if inner is None else inner - t
+    if inner is None:
+        return torch.zeros_like(L)
+    return symmetrize(J.transpose(-1, -2) @ (_phi(inner) @ J))
 
 
 def chol_with_inv_plain(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -44,18 +102,37 @@ def chol_with_inv_plain(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return L, torch.tril(J)
 
 
-def chol_with_inv(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(L, L⁻¹) of an SPD matrix (add jitter before calling).
+def _chol_with_inv_impl(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward of :func:`chol_with_inv`: the (L, L⁻¹) kernel
+    (``ops.panel_chol.chol_inv``, its plain version on the CPU) where kernels
+    serve, else torch.linalg."""
+    if config.chol_mode == "plain" or A.ndim != 2 or not kernels_take(A):
+        return chol_with_inv_plain(A)
+    from ..ops.panel_chol import chol_inv
 
-    Where the JAX package would take its Pallas ``pallas_chol_inv`` kernel
-    (kernels allowed, ``chol_mode="auto"``, the kernel device), the port
-    has no Hopper kernel yet and raises rather than quietly using cuSOLVER.
-    On the CPU, or under ``chol_mode="plain"``, it is the plain route."""
-    if A.is_cuda and config.chol_mode != "plain" and kernels_take(A):
-        raise NotImplementedError(
-            "chol_with_inv on CUDA needs the Hopper port of "
-            "ops/panel_chol.py::pallas_chol_inv (ROADMAP.md §2, row 4); "
-            "use a stationary kernel with the NonCentered parametrization, "
-            "or set chol_mode='plain'"
-        )
-    return chol_with_inv_plain(A)
+    return chol_inv(A)
+
+
+class _CholWithInv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A):
+        L, J = _chol_with_inv_impl(A)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(L, J)
+        return L, J
+
+    @staticmethod
+    def backward(ctx, L_bar, J_bar):
+        L, J = ctx.saved_tensors
+        return _inv_chol_bwd_fused(L, J, L_bar, J_bar)
+
+
+def chol_with_inv(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, L⁻¹) of an SPD matrix (add jitter before calling), with a
+    matmul-only pullback (:func:`_inv_chol_bwd_fused`).
+
+    Where kernels serve (kernels allowed, ``chol_mode="auto"``) a CUDA
+    tensor in f32 or f64 goes through the hand-written (L, L⁻¹) kernel and a
+    CPU tensor through its plain version; ``chol_mode="plain"`` takes
+    torch.linalg everywhere."""
+    return _CholWithInv.apply(A)

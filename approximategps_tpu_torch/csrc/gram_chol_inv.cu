@@ -1,21 +1,32 @@
-// Gram-fused (L, L^-1) factorization for the SVGP posterior build.
+// (L, L^-1) factorizations for the SVGP posterior build and the streaming
+// ELBO, in two forms that share one host loop.
 //
-// Replaces approximategps_tpu/ops/panel_chol.py::pallas_gram_chol_inv
-// (_gram_chol_inv_kernel, _gram_panel, _chol_inv_rest, _fused_factor_inv):
+// Gram-fused (kernel A): replaces approximategps_tpu/ops/panel_chol.py::
+// pallas_gram_chol_inv (_gram_chol_inv_kernel, _gram_panel, _chol_inv_rest,
+// _fused_factor_inv):
 //
 //     K = sig2 * g(r2(Zs, Zs)) + jitter * I,   L = chol(K),   J = L^-1,
 //
-// with K never written whole to device memory and exact zeros above the
-// diagonals of L and J.
+// with K never written whole to device memory.  sig2 and jitter are read
+// from a two-element device array (coef), so that the caller need not bring
+// a hyperparameter that lives on the card back to the host.
+//
+// Given matrix (kernel 4): replaces approximategps_tpu/ops/panel_chol.py::
+// pallas_chol_inv (_chol_inv_kernel): L = chol(sym(A)), J = L^-1 for an SPD
+// (M, M) matrix A.  Step (a) reads A's column panel, symmetrized on the fly
+// as 0.5 (A[r, c] + A[c, r]), where kernel A generates the Gram panel; (b)-(d)
+// are the same kernels.  Both forms give exact zeros above the diagonals of
+// L and J.
 //
 // What bounds it on the H100: the factorization is a chain of M/P dependent
 // panel steps (P = 64), so its time is the sum of each step's critical path,
 // not its ~M^3 / 1.5 FMAs.  The TPU kernel relies on its grid running in
 // order; CUDA blocks run in no order, so the host loop below launches, per
 // panel k (columns c0 = kP .. c0 + P):
-//   (a) panel_partial + panel_finish: the Gram column panel generated from
-//       Zs (exact broadcast differences, summed over d in a fixed order)
-//       minus L[c0:, :c0] L[c0:c0+P, :c0]^T, written into L's panel columns;
+//   (a) panel_partial + panel_finish: the panel of K (the Gram generated from
+//       Zs with exact broadcast differences summed over d in a fixed order,
+//       or A's panel read) minus L[c0:, :c0] L[c0:c0+P, :c0]^T, written into
+//       L's panel columns;
 //   (b) diag_factor_inv: one block factors AND inverts the P x P diagonal
 //       block (L_kk, X = L_kk^-1), which J's diagonal block receives;
 //   (c) panel_trsm: L[c0+P:, panel] = C X^T;
@@ -131,21 +142,28 @@ panel_partial(const T* __restrict__ L, T* __restrict__ W, int ld, int c0, int le
 
 // (a, finish) L[row, c0 + j] = K[row, c0 + j] - sum of the n_split partials,
 // one element per thread: block (tile, q) covers rows 4q .. 4q + 3 of the tile.
-template <typename T>
+// K is A's entry, symmetrized, when FROM_A, else the Gram entry from z and
+// coef = (sig2, jitter).
+template <typename T, bool FROM_A>
 __global__ void __launch_bounds__(NT)
-panel_finish(const T* __restrict__ z, T* L, const T* __restrict__ W, int ld, int M, int D,
-             int c0, int n_split, T sig2, T jitter, int kmap) {
+panel_finish(const T* __restrict__ z, const T* __restrict__ A, const T* __restrict__ coef,
+             T* L, const T* __restrict__ W, int ld, int M, int D, int c0, int n_split,
+             int kmap) {
   const int tile = blockIdx.x, ntiles = gridDim.x;
   const int e = blockIdx.y * NT + threadIdx.x;  // element of the 64 x 64 tile
   const int row = c0 + tile * P + e / P, col = c0 + e % P;
   T k;
   if (row < M && col < M) {
-    T r2 = T(0);
-    for (int d = 0; d < D; ++d) {
-      const T diff = z[(size_t)row * D + d] - z[(size_t)col * D + d];
-      r2 += diff * diff;
+    if (FROM_A) {
+      k = T(0.5) * (A[(size_t)row * M + col] + A[(size_t)col * M + row]);
+    } else {
+      T r2 = T(0);
+      for (int d = 0; d < D; ++d) {
+        const T diff = z[(size_t)row * D + d] - z[(size_t)col * D + d];
+        r2 += diff * diff;
+      }
+      k = coef[0] * agp::kernel_map(kmap, r2) + (row == col ? coef[1] : T(0));
     }
-    k = sig2 * agp::kernel_map(kmap, r2) + (row == col ? jitter : T(0));
   } else {
     k = row == col ? T(1) : T(0);  // padding: identity, uncoupled
   }
@@ -308,11 +326,12 @@ jrow_finish(T* J, const T* __restrict__ W, int ld, int c0, int len, int n_split)
   J[(size_t)(c0 + e / P) * ld + n * P + e % P] = t;
 }
 
-template <typename T>
-int gram_chol_inv(const T* z, T* L, T* J, T* W, int M, int Mp, int D, T sig2, T jitter,
-                  int kmap, cudaStream_t s) {
-  if (M < 1 || Mp < M || Mp % P != 0 || D < 1 || D > 64 || !agp::valid_kernel_map(kmap))
-    return cudaErrorInvalidValue;
+// The host loop; z and coef are read when !FROM_A, A when FROM_A.
+template <typename T, bool FROM_A>
+int chol_inv_loop(const T* z, const T* A, const T* coef, T* L, T* J, T* W, int M, int Mp,
+                  int D, int kmap, cudaStream_t s) {
+  if (M < 1 || Mp < M || Mp % P != 0) return cudaErrorInvalidValue;
+  if (!FROM_A && (D < 1 || D > 64 || !agp::valid_kernel_map(kmap))) return cudaErrorInvalidValue;
   cudaError_t err;
   const size_t bytes = (size_t)Mp * Mp * sizeof(T);
   if ((err = cudaMemsetAsync(L, 0, bytes, s)) != cudaSuccess) return err;
@@ -328,8 +347,8 @@ int gram_chol_inv(const T* z, T* L, T* J, T* W, int M, int Mp, int D, T sig2, T 
       n_split = (k + len - 1) / len;
       panel_partial<T><<<dim3(ntiles, n_split), NT, 0, s>>>(L, W, Mp, c0, len);
     }
-    panel_finish<T><<<dim3(ntiles, TILE / NT), NT, 0, s>>>(z, L, W, Mp, M, D, c0, n_split,
-                                                           sig2, jitter, kmap);
+    panel_finish<T, FROM_A><<<dim3(ntiles, TILE / NT), NT, 0, s>>>(z, A, coef, L, W, Mp, M, D,
+                                                                   c0, n_split, kmap);
     diag_factor_inv<T><<<1, NT, 0, s>>>(L, J, Mp, c0);
     if (ntiles > 1) panel_trsm<T><<<ntiles - 1, NT, 0, s>>>(L, J, Mp, c0);
     if (k > 0) {
@@ -350,27 +369,45 @@ extern "C" {
 
 const char* agp_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Elements of the scratch buffer gram_chol_inv needs at Mp (a multiple of 64).
+// Elements of the scratch buffer either factorization needs at Mp (a
+// multiple of 64).
 long long agp_gram_chol_inv_scratch(int Mp) {
   return (long long)scratch_tiles(Mp / P) * TILE;
 }
 
-// z: (M, D) row-major; L, J: (Mp, Mp) row-major outputs; W: scratch of
-// agp_gram_chol_inv_scratch(Mp) elements.  Returns a cudaError_t (0 on
-// success).
-int agp_gram_chol_inv_f32(const void* z, void* L, void* J, void* W, int M, int Mp, int D,
-                          double sig2, double jitter, int kmap, void* stream) {
-  return gram_chol_inv<float>(static_cast<const float*>(z), static_cast<float*>(L),
-                              static_cast<float*>(J), static_cast<float*>(W), M, Mp, D,
-                              float(sig2), float(jitter), kmap,
-                              static_cast<cudaStream_t>(stream));
+// z: (M, D) row-major; coef: (sig2, jitter) on the device; L, J: (Mp, Mp)
+// row-major outputs; W: scratch of agp_gram_chol_inv_scratch(Mp) elements.
+// Returns a cudaError_t (0 on success).
+int agp_gram_chol_inv_f32(const void* z, const void* coef, void* L, void* J, void* W, int M,
+                          int Mp, int D, int kmap, void* stream) {
+  return chol_inv_loop<float, false>(static_cast<const float*>(z), nullptr,
+                                     static_cast<const float*>(coef), static_cast<float*>(L),
+                                     static_cast<float*>(J), static_cast<float*>(W), M, Mp, D,
+                                     kmap, static_cast<cudaStream_t>(stream));
 }
 
-int agp_gram_chol_inv_f64(const void* z, void* L, void* J, void* W, int M, int Mp, int D,
-                          double sig2, double jitter, int kmap, void* stream) {
-  return gram_chol_inv<double>(static_cast<const double*>(z), static_cast<double*>(L),
-                               static_cast<double*>(J), static_cast<double*>(W), M, Mp, D,
-                               sig2, jitter, kmap, static_cast<cudaStream_t>(stream));
+int agp_gram_chol_inv_f64(const void* z, const void* coef, void* L, void* J, void* W, int M,
+                          int Mp, int D, int kmap, void* stream) {
+  return chol_inv_loop<double, false>(static_cast<const double*>(z), nullptr,
+                                      static_cast<const double*>(coef), static_cast<double*>(L),
+                                      static_cast<double*>(J), static_cast<double*>(W), M, Mp,
+                                      D, kmap, static_cast<cudaStream_t>(stream));
+}
+
+// A: (M, M) row-major SPD (its symmetric part is factored); L, J: (Mp, Mp)
+// row-major outputs; W: scratch of agp_gram_chol_inv_scratch(Mp) elements.
+int agp_chol_inv_f32(const void* A, void* L, void* J, void* W, int M, int Mp, void* stream) {
+  return chol_inv_loop<float, true>(nullptr, static_cast<const float*>(A), nullptr,
+                                    static_cast<float*>(L), static_cast<float*>(J),
+                                    static_cast<float*>(W), M, Mp, 0, 0,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+int agp_chol_inv_f64(const void* A, void* L, void* J, void* W, int M, int Mp, void* stream) {
+  return chol_inv_loop<double, true>(nullptr, static_cast<const double*>(A), nullptr,
+                                     static_cast<double*>(L), static_cast<double*>(J),
+                                     static_cast<double*>(W), M, Mp, 0, 0,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,38 +1,43 @@
-"""Sparse variational GP (port of ``approximategps_tpu/models/svgp.py``, the
-serving path: the posterior build and the mean/variance sweep).
+"""Sparse variational GP (port of ``approximategps_tpu/models/svgp.py``: the
+posterior build, the mean/variance sweep, the prior KL and the ELBO).
 
 Semantics are those of the JAX package: the posterior cache ``(Kuu_L, B, α)``
 plus, under ``solve_mode="inv_matmul"``, ``Lk⁻¹`` and the S-correction
-``S = Lk⁻ᵀ(BBᵀ−I)Lk⁻¹``.  Two hand-written kernels carry the NonCentered
-path: ``ops.panel_chol.gram_chol_inv`` builds (L, L⁻¹) with the Kuu Gram
-generated inside it, and ``ops.svgp_epilogue.svgp_data_epilogue`` serves
-(mean, var) blocks without the (M, B) cross-covariance in device memory.
-
-No autograd yet: the posterior build and the sweep run under
-``torch.no_grad()``; the training step's custom-gradient composites come
-with its port.
+``S = Lk⁻ᵀ(BBᵀ−I)Lk⁻¹``.  The NonCentered build runs as one of two
+``torch.autograd.Function``s with the JAX package's hand-derived,
+matmul-only pullback: :class:`_WhitenedCacheFusedGram`, whose forward is the
+gram-fused (L, L⁻¹) kernel ``ops.panel_chol.gram_chol_inv``, and
+:class:`_WhitenedCacheFused` for a given Kuu.  The fused data-term epilogue
+``ops.svgp_epilogue.svgp_data_epilogue`` serves ``predict_blocks`` and the
+streaming ELBO (``prefer=True``); the minibatch ``elbo`` declines it, as the
+JAX package's ``"auto"`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..config import config, kernel_device, kernels_take, resolve_solve_mode
 from ..core import linalg
-from ..core.distributions import MultivariateNormal
-from ..core.gp import AbstractGP, FiniteGP
-from ..core.kernels import as_points, unwrap_stationary
+from ..core.distributions import MultivariateNormal, kl_divergence
+from ..core.gp import AbstractGP, FiniteGP, LatentFiniteGP
+from ..core.kernels import as_points, dk_from_k_for, pairwise_sq_dist, unwrap_stationary
+from ..core.likelihoods import GaussianLikelihood
+from ..core.quadrature import DefaultExpectationMethod, expected_loglikelihood
 from ..ops.panel_chol import gram_chol_inv, gram_chol_inv_supported
 from ..ops.svgp_epilogue import epilogue_block_b, svgp_data_epilogue
-from .api import posterior
+from .api import approx_lml, posterior
 
 __all__ = [
     "Centered",
     "NonCentered",
     "SparseVariationalApproximation",
     "SVGPPosterior",
+    "elbo",
+    "prior_kl",
 ]
 
 
@@ -145,7 +150,7 @@ class SVGPPosterior(AbstractGP):
         :meth:`mean_and_var` otherwise.  The last block may be ragged."""
         X = as_points(xs)
         operands = _epilogue_operands(
-            self.prior, self.inducing_points(), self.cache.alpha, self.cache.S_corr
+            self.prior, self.inducing_points(), self.cache.alpha, self.cache.S_corr, prefer=True
         )
         mus, variances = [], []
         for start in range(0, X.shape[0], block_size):
@@ -168,8 +173,122 @@ def _s_corr(J, B):
 
 
 def _cache_tail(J, Lq, m):
-    """(α, S) from J = Lk⁻¹: α = Jᵀm, S = Jᵀ(LqLqᵀ − I)J."""
-    return J.T @ m, _s_corr(J, Lq)
+    """(α, C0, S) from J = Lk⁻¹: α = Jᵀm, C0 = LqLqᵀ − I, S = sym(Jᵀ C0 J)."""
+    C0 = Lq @ Lq.T - torch.eye(Lq.shape[-1], dtype=Lq.dtype, device=Lq.device)
+    return J.T @ m, C0, linalg.symmetrize(J.T @ (C0 @ J))
+
+
+def _cache_tail_cotangents(J, C0, Lq, m, dJ, dalpha, dS):
+    """(J̄-or-None, L̄q, m̄) from the cache tail's output cotangents (None
+    for an absent one), reusing P = J·dSs across the C0-, Lq- and
+    J-cotangents: dSs = dS + dSᵀ, L̄q = (P Jᵀ) Lq, J̄ = C0 P + m⊗dα + dJ,
+    m̄ = J dα."""
+    J_bar = None
+    Lq_bar = torch.zeros_like(Lq)
+    m_bar = torch.zeros_like(m)
+    if dS is not None:
+        P = J @ (dS + dS.T)
+        Lq_bar = (P @ J.T) @ Lq
+        J_bar = C0 @ P
+    if dalpha is not None:
+        r1 = m[:, None] * dalpha[None, :]
+        J_bar = r1 if J_bar is None else J_bar + r1
+        m_bar = J @ dalpha
+    if dJ is not None:
+        J_bar = dJ if J_bar is None else J_bar + dJ
+    return J_bar, Lq_bar, m_bar
+
+
+def _cache_chol_cotangents(Lk, J, C0, Lq, m, cts):
+    """(K̄uu-or-None, L̄q, m̄) for the whitened-cache Functions: the cache
+    tail's cotangents chained into the (L, J) → K̄uu Φ-sandwich.
+
+    Fast path (the training step: only dα and dS live): the J̄ chain
+    collapses, ``−J̄ Jᵀ = −C0 Q − m⊗m̄`` with ``Q = J dSs Jᵀ`` already needed
+    for L̄q, so J̄ is never formed; 6 M³ matmuls instead of 7."""
+    dLk, dJ, dalpha, dS = cts
+    if dLk is None and dJ is None and dS is not None:
+        Q = (J @ (dS + dS.T)) @ J.T  # symmetric
+        Lq_bar = Q @ Lq
+        inner = -(C0 @ Q)
+        if dalpha is not None:
+            m_bar = J @ dalpha
+            inner = inner - m[:, None] * m_bar[None, :]
+        else:
+            m_bar = torch.zeros_like(m)
+        return linalg.symmetrize(J.T @ (linalg._phi(inner) @ J)), Lq_bar, m_bar
+    J_bar, Lq_bar, m_bar = _cache_tail_cotangents(J, C0, Lq, m, dJ, dalpha, dS)
+    if dLk is None and J_bar is None:
+        return None, Lq_bar, m_bar
+    return linalg._inv_chol_bwd_fused(Lk, J, dLk, J_bar), Lq_bar, m_bar
+
+
+class _WhitenedCacheFused(torch.autograd.Function):
+    """NonCentered cache ``(Lk, J = Lk⁻¹, α = Jᵀm, S = Jᵀ(LqLqᵀ − I)J)`` from a
+    given Kuu, with the minimal pullback of :func:`_cache_chol_cotangents`.
+    The factorization is ``chol_with_inv``'s forward (the (L, L⁻¹) kernel on
+    the card)."""
+
+    @staticmethod
+    def forward(ctx, Kuu, Lq, m):
+        Lk, J = linalg._chol_with_inv_impl(Kuu)
+        alpha, C0, S = _cache_tail(J, Lq, m)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(Lk, J, C0, Lq, m)
+        return Lk, J, alpha, S
+
+    @staticmethod
+    def backward(ctx, dLk, dJ, dalpha, dS):
+        Lk, J, C0, Lq, m = ctx.saved_tensors
+        Kuu_bar, Lq_bar, m_bar = _cache_chol_cotangents(Lk, J, C0, Lq, m, (dLk, dJ, dalpha, dS))
+        if Kuu_bar is None:
+            Kuu_bar = torch.zeros_like(C0)
+        return Kuu_bar, Lq_bar, m_bar
+
+
+def _gram_pullback(Kuu_bar, Zs, v2, kmap):
+    """K̄uu → (Z̄s, σ̄², jitter̄) for Kuu = σ²·g(r²(Zs, Zs)) + jitter·I.  The
+    r² recompute takes the matmul identity (it feeds only the pullback
+    weights); both slots carry Zs, so Z̄s = 2[rowsum(Ws)∘Zs − Ws Zs] with
+    Ws = W + Wᵀ, W = K̄uu∘σ²g′(r²)."""
+    r2 = pairwise_sq_dist(Zs, Zs, mode="matmul")
+    K0 = kmap.k_of_r2(r2)
+    dk = dk_from_k_for(kmap)
+    gprime = dk(K0) if dk is not None else kmap.dk_of_r2(r2)
+    W = Kuu_bar * (v2 * gprime)
+    Ws = W + W.T
+    Zs_bar = 2.0 * (torch.sum(Ws, dim=1)[:, None] * Zs - Ws @ Zs)
+    return Zs_bar, torch.sum(Kuu_bar * K0), torch.trace(Kuu_bar)
+
+
+class _WhitenedCacheFusedGram(torch.autograd.Function):
+    """:class:`_WhitenedCacheFused` with the Kuu Gram generated inside the
+    (L, L⁻¹) kernel (``gram_chol_inv``): inputs ``(Zs, σ², jitter, Lq, m)``
+    and the map.  The backward recomputes the Gram once, for the pullback
+    K̄uu → (Z̄s, σ̄², jitter̄); matmuls only."""
+
+    @staticmethod
+    def forward(ctx, Zs, v2, jitter, Lq, m, kmap):
+        Lk, J = gram_chol_inv(Zs, v2, jitter, kmap)
+        alpha, C0, S = _cache_tail(J, Lq, m)
+        ctx.kmap = kmap
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(Lk, J, C0, Lq, m, Zs, v2, jitter)
+        return Lk, J, alpha, S
+
+    @staticmethod
+    def backward(ctx, dLk, dJ, dalpha, dS):
+        Lk, J, C0, Lq, m, Zs, v2, jitter = ctx.saved_tensors
+        Kuu_bar, Lq_bar, m_bar = _cache_chol_cotangents(Lk, J, C0, Lq, m, (dLk, dJ, dalpha, dS))
+        if Kuu_bar is None:
+            return torch.zeros_like(Zs), torch.zeros_like(v2), torch.zeros_like(jitter), \
+                Lq_bar, m_bar, None
+        Zs_bar, v2_bar, jitter_bar = _gram_pullback(Kuu_bar, Zs, v2, ctx.kmap)
+        need = ctx.needs_input_grad
+        # a scalar that came from the host gets its gradient there
+        v2_bar = v2_bar.to(v2) if need[1] else None
+        jitter_bar = jitter_bar.to(jitter) if need[2] else None
+        return Zs_bar, v2_bar, jitter_bar, Lq_bar, m_bar, None
 
 
 def _gram_chol_parts(fz: FiniteGP, like: torch.Tensor):
@@ -194,12 +313,23 @@ def _gram_chol_parts(fz: FiniteGP, like: torch.Tensor):
     return parts, zp
 
 
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim tensor in ``like``'s dtype (a tensor stays on its device and
+    in the graph)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=like.dtype)
+    return torch.tensor(v, dtype=like.dtype)
+
+
 @posterior.register(SparseVariationalApproximation)
-@torch.no_grad()
-def _posterior_svgp(sva: SparseVariationalApproximation) -> SVGPPosterior:
-    """posterior(sva): the SVGP posterior cache (reference ``:115-136``
-    Centered, ``:160-187`` NonCentered).  The three-argument consistency
-    form is not ported yet."""
+def _posterior_svgp(sva: SparseVariationalApproximation, lfx=None, ys=None, **_) -> SVGPPosterior:
+    """posterior(sva[, lfx, ys]): the SVGP posterior cache (reference
+    ``:115-136`` Centered, ``:160-187`` NonCentered), differentiable in q,
+    z and the kernel's hyperparameters.  The three-argument form checks
+    that ``lfx`` has the approximation's prior, then builds the same
+    cache."""
+    if lfx is not None:
+        _check_consistent_prior(sva, lfx)
     q, fz = sva.q, sva.fz
     m = q.mean
     M = m.shape[-1]
@@ -214,11 +344,12 @@ def _posterior_svgp(sva: SparseVariationalApproximation) -> SVGPPosterior:
             # the Kuu Gram is generated inside the (L, L⁻¹) kernel
             (kmap, scale, variance), zp = gparts
             Zs = _scaled(zp, scale).to(m.dtype)
-            v2 = 1.0 if variance is None else variance
-            Kuu_L, Lk_inv = gram_chol_inv(Zs, v2, fz.noise, kmap)
+            v2 = _scalar(1.0 if variance is None else variance, m)
+            Kuu_L, Lk_inv, alpha, S_corr = _WhitenedCacheFusedGram.apply(
+                Zs, v2, _scalar(fz.noise, m), qL, m, kmap
+            )
         else:
-            Kuu_L, Lk_inv = linalg.chol_with_inv(fz.cov())
-        alpha, S_corr = _cache_tail(Lk_inv, qL, m)
+            Kuu_L, Lk_inv, alpha, S_corr = _WhitenedCacheFused.apply(fz.cov(), qL, m)
         return SVGPPosterior(sva, _SVGPCache(Kuu_L, qL, alpha, Lk_inv, S_corr))
     if solve_mode == "inv_matmul":
         Kuu_L, Lk_inv = linalg.chol_with_inv(fz.cov())
@@ -244,15 +375,61 @@ def _posterior_svgp(sva: SparseVariationalApproximation) -> SVGPPosterior:
     return SVGPPosterior(sva, _SVGPCache(Kuu_L, B, alpha, Lk_inv, S_corr))
 
 
-def _epilogue_ready(prior, z, S_corr):
+def _structure(obj):
+    """(tree structure, leaves) of a prior: dataclass fields recursively;
+    tensors and numbers are leaves, anything else is part of the
+    structure."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        struct, leaves = [], []
+        for f in dataclasses.fields(obj):
+            s, lv = _structure(getattr(obj, f.name))
+            struct.append((f.name, s))
+            leaves.extend(lv)
+        return (type(obj), tuple(struct)), leaves
+    if isinstance(obj, (torch.Tensor, np.ndarray, float, int)):
+        return "leaf", [obj]
+    return obj if isinstance(obj, type) else type(obj), []
+
+
+def _check_consistent_prior(sva, lfx):
+    """``lfx`` must have the approximation's prior: the same object, or one
+    of the same structure with equal hyperparameter values."""
+    fx = lfx.fx if isinstance(lfx, LatentFiniteGP) else lfx
+    prior = fx.f
+    if prior is sva.fz.f:
+        return
+    (sa, la), (sb, lb) = _structure(prior), _structure(sva.fz.f)
+    if sa != sb:
+        raise ValueError(
+            "(Latent)FiniteGP prior is not consistent with SparseVariationalApproximation's"
+        )
+    for a, b in zip(la, lb):
+        a = torch.as_tensor(a).detach().cpu()
+        b = torch.as_tensor(b).detach().cpu()
+        if a.shape != b.shape or not bool(torch.all(a == b)):
+            raise ValueError(
+                "(Latent)FiniteGP prior is not consistent with "
+                "SparseVariationalApproximation's (hyperparameter values differ)"
+            )
+
+
+def _epilogue_ready(prior, z, S_corr, prefer=False):
     """Dispatch test for the fused data-term epilogue: the
     ``unwrap_stationary`` parts if it will be used, else None.
 
-    None means :meth:`SVGPPosterior.mean_and_var` serves the sweep: no
-    S-correction cache, kernels off, ``data_term_mode="plain"``, or a CPU
-    tensor the epilogue does not take.  On the kernel device a prior or a
-    shape the kernel does not take raises instead."""
-    if config.data_term_mode == "plain" or S_corr is None or not kernels_take(S_corr):
+    ``prefer`` is set where the alternative recomputes the (M, B) Gram in
+    the backward anyway (the streaming ELBO's checkpointed blocks) and for
+    the serving sweep; in mode "auto" the epilogue declines without it, as
+    the JAX package's does, because a minibatch ELBO that keeps its
+    residuals does less work.  None means the plain route serves: no
+    S-correction cache, ``data_term_mode="plain"``, kernels off, no
+    ``prefer``, or a CPU tensor the epilogue does not take.  On the kernel
+    device, where the epilogue would be taken, a prior or a shape the kernel
+    does not take raises instead."""
+    mode = config.data_term_mode
+    if mode == "plain" or S_corr is None or not kernels_take(S_corr):
+        return None
+    if mode == "auto" and not prefer:
         return None
     on_device = kernel_device(S_corr)
     kernel = getattr(prior, "kernel", None)
@@ -278,14 +455,16 @@ def _epilogue_ready(prior, z, S_corr):
     return parts
 
 
-def _epilogue_operands(prior, z, alpha, S_corr):
-    """``(kmap, scale, Zs, Se, ae)`` for :func:`_epilogue_mu_var`, or None.
+def _epilogue_operands(prior, z, alpha, S_corr, prefer=False):
+    """``(kmap, scale, Zs, Se, ae)`` for :func:`_epilogue_mu_var`, or None
+    where :func:`_epilogue_ready` declines.
 
     With K = σ²·K0: ``mu = m(x) + K0ᵀ(σ²α)`` and
     ``var = prior.var + diag(K0ᵀ (σ⁴S) K0)``, so the kernel takes
-    ``ae = σ²α``, ``Se = σ⁴S`` and inputs scaled by ``s``.  Formed once per
+    ``ae = σ²α``, ``Se = σ⁴S`` and inputs scaled by ``s``; every
+    hyperparameter gradient flows through these four.  Formed once per
     sweep."""
-    parts = _epilogue_ready(prior, z, S_corr)
+    parts = _epilogue_ready(prior, z, S_corr, prefer)
     if parts is None:
         return None
     kmap, scale, variance = parts
@@ -304,3 +483,53 @@ def _epilogue_mu_var(prior, x, operands):
     Xs = _scaled(as_points(x), scale)
     mu_corr, var_corr = svgp_data_epilogue(Xs, Zs, Se, ae, kmap)
     return prior.mean(x) + mu_corr, prior.var(x) + var_corr
+
+
+def prior_kl(sva: SparseVariationalApproximation) -> torch.Tensor:
+    """KL(q(u) ‖ p(u)) (reference ``_prior_kl``, ``:362-373``)."""
+    if isinstance(sva.parametrization, Centered):
+        return kl_divergence(sva.q, sva.fz.to_mvn())
+    # whitened: (tr(Cε) + mᵀm − M − logdet Cε) / 2
+    m = sva.q.mean
+    L = sva.q.scale_tril
+    return 0.5 * (torch.sum(L * L) + m @ m - m.shape[-1] - linalg.chol_logdet(L))
+
+
+def elbo(sva: SparseVariationalApproximation, lfx, y: torch.Tensor,
+         num_data: int | None = None, quadrature=None) -> torch.Tensor:
+    """Evidence lower bound (reference ``:307-360``).
+
+    Takes a ``FiniteGP`` with isotropic Gaussian noise (wrapped into a
+    ``GaussianLikelihood``) or a ``LatentFiniteGP`` with any likelihood.
+    ``num_data`` scales the data term by ``num_data / n_batch`` for a
+    minibatch."""
+    if quadrature is None:
+        quadrature = DefaultExpectationMethod()
+    if isinstance(lfx, FiniteGP):
+        if not lfx.is_isotropic_noise:
+            raise ValueError(
+                "The observation noise fx.Σy must be homoscedastic.\n"
+                "To avoid this error, construct fx using: f = GP(kernel); "
+                "fx = f(x, σ²), where σ² is a positive Real."
+            )
+        lfx = LatentFiniteGP(lfx, GaussianLikelihood(lfx.noise))
+    _check_consistent_prior(sva, lfx)
+
+    f_post = _posterior_svgp(sva)
+    x = lfx.fx.x
+    operands = _epilogue_operands(
+        f_post.prior, f_post.inducing_points(), f_post.cache.alpha, f_post.cache.S_corr
+    )
+    if operands is not None:
+        q_mean, q_var = _epilogue_mu_var(f_post.prior, x, operands)
+    else:
+        q_mean, q_var = f_post.mean_and_var(x)
+    variational_exp = expected_loglikelihood(quadrature, lfx.lik, q_mean, q_var, y)
+    scale = 1.0 if num_data is None else num_data / y.shape[0]
+    return torch.sum(variational_exp) * scale - prior_kl(sva)
+
+
+@approx_lml.register(SparseVariationalApproximation)
+def _approx_lml_svgp(sva, lfx, ys, **kwargs):
+    """approx_lml = elbo for SVGP (reference ``:276-280``)."""
+    return elbo(sva, lfx, ys, **kwargs)

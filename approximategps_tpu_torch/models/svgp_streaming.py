@@ -1,0 +1,116 @@
+"""Streaming SVGP ELBO over a full data set (port of
+``approximategps_tpu/models/svgp_streaming.py``: ``streaming_data_term`` and
+``streaming_elbo``).
+
+The data term is summed block by block, so the (M, N) cross-covariance is
+never formed.  The posterior cache comes from ``chol_with_inv`` (the (L, L⁻¹)
+kernel of a given matrix on the card) and the S-correction
+``S = Lk⁻ᵀ(BBᵀ−I)Lk⁻¹``, formed once outside the loop.  Each block goes
+through the fused epilogue ``ops.svgp_epilogue.svgp_data_epilogue``, whose
+backward kernel rebuilds K0 on the card, where it serves (``prefer=remat``),
+and otherwise through the plain Gram and ``diag_quad_sym`` under
+``torch.utils.checkpoint``, which recomputes the block's (M, B) Gram in the
+backward instead of keeping it (the port of ``jax.checkpoint``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..core import linalg
+from ..core.kernels import as_points
+from ..core.quadrature import DefaultExpectationMethod, expected_loglikelihood
+from .svgp import (
+    Centered,
+    SparseVariationalApproximation,
+    _epilogue_mu_var,
+    _epilogue_operands,
+    prior_kl,
+)
+
+__all__ = ["streaming_elbo", "streaming_data_term"]
+
+
+def _pad_leading(a: torch.Tensor, pad: int) -> torch.Tensor:
+    """Pad the leading axis with copies of the first row (safe kernel
+    inputs; padded rows are masked out of every reduction)."""
+    if pad == 0:
+        return a
+    return torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
+
+
+def streaming_data_term(sva: SparseVariationalApproximation, lik, x: torch.Tensor,
+                        y: torch.Tensor, block_size: int = 8192, quadrature=None,
+                        remat: bool = True, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Σᵢ E_{q(fᵢ)}[log p(yᵢ|fᵢ)] summed in blocks of ``block_size``: the data
+    term alone (no ``num_data`` scale, no KL).
+
+    N need not be a multiple of ``block_size``: the tail block is padded
+    with copies of the first point and masked out of the sum.  ``mask``
+    (optional, (N,), 0/1 or bool) weights the points further."""
+    if quadrature is None:
+        quadrature = DefaultExpectationMethod()
+    fz = sva.fz
+    prior = fz.f
+    m = sva.q.mean
+    Kuu_L, Lk_inv = linalg.chol_with_inv(fz.cov())
+    if isinstance(sva.parametrization, Centered):
+        B = Lk_inv @ sva.q.scale_tril
+        alpha = Lk_inv.T @ (Lk_inv @ (m - fz.mean()))
+    else:
+        alpha = Lk_inv.T @ m
+        B = sva.q.scale_tril
+    # one (M, B) product a block for the variances, S formed once; exactly
+    # symmetric, since the epilogue kernel reads only its upper triangle
+    eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+    S_corr = linalg.symmetrize(Lk_inv.T @ ((B @ B.T - eye) @ Lk_inv))
+
+    x = as_points(x)
+    n = y.shape[0]
+    block_size = min(block_size, n)
+    pad = (-n) % block_size
+    w = torch.ones((n,), dtype=m.dtype, device=y.device) if mask is None else \
+        torch.as_tensor(mask, dtype=m.dtype, device=y.device)
+    if pad:
+        x = _pad_leading(x, pad)
+        y = _pad_leading(y, pad)
+        w = torch.cat([w, torch.zeros((pad,), dtype=w.dtype, device=w.device)])
+    z = fz.x
+
+    # the fused epilogue where it serves: its residuals are the block's
+    # inputs, so the block needs no checkpoint
+    operands = _epilogue_operands(prior, z, alpha, S_corr, prefer=remat)
+
+    def block_ell(xi, yi, wi, alpha, S_corr):
+        if operands is not None:
+            mu, var = _epilogue_mu_var(prior, xi, operands)
+        else:
+            Kuf = prior.cov(z, xi)  # (M, B) Gram
+            mu = prior.mean(xi) + Kuf.T @ alpha
+            var = prior.var(xi) + linalg.diag_quad_sym(S_corr, Kuf)
+        ell = expected_loglikelihood(quadrature, lik, mu, var, yi)
+        return torch.sum(ell * wi)
+
+    total = torch.zeros((), dtype=m.dtype, device=y.device)
+    for start in range(0, n + pad, block_size):
+        args = (x[start:start + block_size], y[start:start + block_size],
+                w[start:start + block_size], alpha, S_corr)
+        if remat and operands is None:
+            total = total + checkpoint(block_ell, *args, use_reentrant=False)
+        else:
+            total = total + block_ell(*args)
+    return total
+
+
+def streaming_elbo(sva: SparseVariationalApproximation, lik, x: torch.Tensor, y: torch.Tensor,
+                   block_size: int = 8192, num_data: int | None = None, quadrature=None,
+                   remat: bool = True) -> torch.Tensor:
+    """ELBO over the full data set, summed in blocks of ``block_size``: the
+    same value as ``elbo(sva, lfx, y, num_data=...)`` with O(M·block)
+    memory instead of O(M·N)."""
+    total_ell = streaming_data_term(sva, lik, x, y, block_size=block_size,
+                                    quadrature=quadrature, remat=remat)
+    n = y.shape[0]
+    scale = 1.0 if num_data is None else num_data / n
+    return total_ell * scale - prior_kl(sva)

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``approximategps_tpu_torch/csrc/`` are compiled at first use
-by ``nvcc`` into one shared library with a plain C interface, loaded with
-ctypes.  The library lands in ``approximategps_tpu_torch/_build/`` under a
+by ``nvcc``, one process per source, all started together, and linked into
+one shared library with a plain C interface, loaded with ctypes.  The library lands in ``approximategps_tpu_torch/_build/`` under a
 name that hashes the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing here runs when a module is imported:
 the CPU-only test runs never need ``nvcc``.
@@ -23,26 +23,34 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library", "check"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu")
+_SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu")
 _HEADERS = ("kernel_maps.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
-_d = ctypes.c_double
 # name: (argtypes, restype); every launching entry point returns a cudaError_t
 _SIGNATURES = {
-    # z, L, J, scratch, M, Mp, D, sig2, jitter, kmap, stream
-    "agp_gram_chol_inv_f32": ((_p, _p, _p, _p, _i, _i, _i, _d, _d, _i, _p), _i),
-    "agp_gram_chol_inv_f64": ((_p, _p, _p, _p, _i, _i, _i, _d, _d, _i, _p), _i),
-    # Mp -> scratch elements
+    # z, coef, L, J, scratch, M, Mp, D, kmap, stream
+    "agp_gram_chol_inv_f32": ((_p, _p, _p, _p, _p, _i, _i, _i, _i, _p), _i),
+    "agp_gram_chol_inv_f64": ((_p, _p, _p, _p, _p, _i, _i, _i, _i, _p), _i),
+    # A, L, J, scratch, M, Mp, stream
+    "agp_chol_inv_f32": ((_p, _p, _p, _p, _i, _i, _p), _i),
+    "agp_chol_inv_f64": ((_p, _p, _p, _p, _i, _i, _p), _i),
+    # Mp -> scratch elements (both factorizations)
     "agp_gram_chol_inv_scratch": ((_i,), ctypes.c_longlong),
     # xs, zs, se, ae, mu, var, B, M, D, block_b, kmap, stream
     "agp_svgp_epilogue_f32": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p), _i),
     "agp_svgp_epilogue_f64": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p), _i),
+    # xs, zs, se, ae, dmu, dvar, xbar, zbar, sebar, aebar, scratch, B, M, D, kmap, stream
+    "agp_svgp_epilogue_bwd_f32": ((_p,) * 11 + (_i, _i, _i, _i, _p), _i),
+    "agp_svgp_epilogue_bwd_f64": ((_p,) * 11 + (_i, _i, _i, _i, _p), _i),
+    # B, M, D -> scratch elements
+    "agp_svgp_epilogue_bwd_scratch_f32": ((_i, _i, _i), ctypes.c_longlong),
+    "agp_svgp_epilogue_bwd_scratch_f64": ((_i, _i, _i), ctypes.c_longlong),
     "agp_error_string": ((_i,), ctypes.c_char_p),
 }
 
@@ -72,16 +80,28 @@ def load_library() -> ctypes.CDLL:
     if not lib_path.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
+        tag = f"{lib_path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f".{tag}.{Path(src).stem}.o" for src in _SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                for src, obj in zip(_SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        tmp = BUILD_DIR / f".{tag}.so.tmp"
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        failed = [(cmd, out) for cmd, out, proc in zip(cmds, outs, procs) if proc.returncode]
+        log = [" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs)]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode:
+                failed.append((link, proc.stderr))
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            cmd, out = failed[0]
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-4000:]}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _SIGNATURES.items():

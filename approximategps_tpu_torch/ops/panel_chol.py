@@ -1,11 +1,15 @@
-"""Gram-fused (L, L⁻¹) factorization: the port of
-``approximategps_tpu/ops/panel_chol.py::pallas_gram_chol_inv``.
+"""(L, L⁻¹) factorizations: the ports of
+``approximategps_tpu/ops/panel_chol.py::pallas_gram_chol_inv`` and
+``::pallas_chol_inv``.
 
 ``gram_chol_inv(Zs, sig2, jitter, kmap)`` returns L = chol(σ²·g(r²(Zs, Zs))
-+ jitter·I) and J = L⁻¹, both (M, M) with exact zeros above the diagonal.
-On a CUDA tensor it launches the hand-written kernel of
-``csrc/gram_chol_inv.cu`` (a host loop over 64-wide panels; see the note
-there); on a CPU tensor it runs :func:`gram_chol_inv_plain`.
++ jitter·I) and J = L⁻¹; ``chol_inv(A)`` returns L = chol(sym(A)) and
+J = L⁻¹ for a given SPD matrix.  Both are (M, M) with exact zeros above the
+diagonal.  On a CUDA tensor each launches the hand-written kernel of
+``csrc/gram_chol_inv.cu`` (one host loop over 64-wide panels, which reads
+the Gram panel from Zs or A's panel; see the note there); on a CPU tensor
+each runs its plain version.  Neither is differentiable itself: the
+autograd Functions of ``core/linalg.py`` and ``models/svgp.py`` wrap them.
 """
 
 from __future__ import annotations
@@ -16,7 +20,14 @@ from ..core.kernels import KernelMap, pairwise_sq_dist
 from ..core.linalg import chol_with_inv_plain
 from . import _build
 
-__all__ = ["PANEL", "gram_chol_inv", "gram_chol_inv_plain", "gram_chol_inv_supported"]
+__all__ = [
+    "PANEL",
+    "gram_chol_inv",
+    "gram_chol_inv_plain",
+    "gram_chol_inv_supported",
+    "chol_inv",
+    "chol_inv_plain",
+]
 
 PANEL = 64  # panel width of csrc/gram_chol_inv.cu
 _MAX_D = 64
@@ -37,13 +48,33 @@ def gram_chol_inv_plain(Zs: torch.Tensor, sig2, jitter, kmap: KernelMap):
     return chol_with_inv_plain(K)
 
 
+def _padded_factors(like: torch.Tensor, M: int):
+    """Outputs and scratch for the panel loop at Mp = M rounded up to the
+    panel: (L, J, scratch, Mp)."""
+    Mp = -(-M // PANEL) * PANEL
+    L = torch.empty((Mp, Mp), dtype=like.dtype, device=like.device)
+    J = torch.empty((Mp, Mp), dtype=like.dtype, device=like.device)
+    # partial tiles of the depth-split products
+    lib = _build.load_library()
+    scratch = torch.empty((lib.agp_gram_chol_inv_scratch(Mp),), dtype=like.dtype,
+                          device=like.device)
+    return L, J, scratch, Mp
+
+
+def _unpad(L, J, M):
+    if L.shape[0] != M:
+        L, J = L[:M, :M].contiguous(), J[:M, :M].contiguous()
+    return L, J
+
+
 def gram_chol_inv(Zs: torch.Tensor, sig2, jitter, kmap: KernelMap):
     """(L, J) = (chol(σ²·g(r²(Zs, Zs)) + jitter·I), L⁻¹).
 
     Zs: (M, D) inputs with any lengthscale already applied; ``sig2`` and
-    ``jitter`` scalars (floats or 0-dim tensors); ``kmap`` the stationary
-    map.  A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    ``jitter`` scalars (floats or 0-dim tensors, on the host or the card:
+    the kernel reads them from device memory); ``kmap`` the stationary map.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
     if Zs.device.type == "cpu":
         return gram_chol_inv_plain(Zs, sig2, jitter, kmap)
     if not Zs.is_cuda:
@@ -57,20 +88,51 @@ def gram_chol_inv(Zs: torch.Tensor, sig2, jitter, kmap: KernelMap):
     fn = lib.agp_gram_chol_inv_f32 if Zs.dtype == torch.float32 else lib.agp_gram_chol_inv_f64
     Zs = Zs.contiguous()
     M, D = Zs.shape
-    Mp = -(-M // PANEL) * PANEL
-    L = torch.empty((Mp, Mp), dtype=Zs.dtype, device=Zs.device)
-    J = torch.empty((Mp, Mp), dtype=Zs.dtype, device=Zs.device)
-    # partial tiles of the depth-split products
-    scratch = torch.empty((lib.agp_gram_chol_inv_scratch(Mp),), dtype=Zs.dtype, device=Zs.device)
+    coef = torch.empty((2,), dtype=Zs.dtype, device=Zs.device)
+    coef[0] = sig2
+    coef[1] = jitter
+    L, J, scratch, Mp = _padded_factors(Zs, M)
     stream = torch.cuda.current_stream(Zs.device).cuda_stream
     with torch.cuda.device(Zs.device):
-        err = fn(Zs.data_ptr(), L.data_ptr(), J.data_ptr(), scratch.data_ptr(), M, Mp, D,
-                 float(sig2), float(jitter), int(kmap.id), stream)
+        err = fn(Zs.data_ptr(), coef.data_ptr(), L.data_ptr(), J.data_ptr(), scratch.data_ptr(),
+                 M, Mp, D, int(kmap.id), stream)
     _build.check(err, "gram_chol_inv")
     gram_chol_inv.launches += 1
-    if Mp != M:
-        L, J = L[:M, :M].contiguous(), J[:M, :M].contiguous()
-    return L, J
+    return _unpad(L, J, M)
 
 
 gram_chol_inv.launches = 0
+
+
+def chol_inv_plain(A: torch.Tensor):
+    """The plain PyTorch version of :func:`chol_inv`: torch.linalg's
+    Cholesky of sym(A) and triangular inverse."""
+    return chol_with_inv_plain(A)
+
+
+def chol_inv(A: torch.Tensor):
+    """(L, J) = (chol(sym(A)), L⁻¹) for an SPD (M, M) matrix (add any
+    jitter before).  A CPU tensor takes the plain version; a CUDA tensor in
+    f32 or f64 launches the kernel, anything else raises."""
+    if A.device.type == "cpu":
+        return chol_inv_plain(A)
+    if not A.is_cuda:
+        raise ValueError(f"chol_inv: unsupported device {A.device}")
+    if A.ndim != 2 or A.shape[0] != A.shape[1] or A.shape[0] < 1 or A.dtype not in (
+        torch.float32, torch.float64
+    ):
+        raise ValueError(f"chol_inv: needs a square f32/f64 matrix, got {tuple(A.shape)} {A.dtype}")
+    lib = _build.load_library()
+    fn = lib.agp_chol_inv_f32 if A.dtype == torch.float32 else lib.agp_chol_inv_f64
+    A = A.contiguous()
+    M = A.shape[0]
+    L, J, scratch, Mp = _padded_factors(A, M)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    with torch.cuda.device(A.device):
+        err = fn(A.data_ptr(), L.data_ptr(), J.data_ptr(), scratch.data_ptr(), M, Mp, stream)
+    _build.check(err, "chol_inv")
+    chol_inv.launches += 1
+    return _unpad(L, J, M)
+
+
+chol_inv.launches = 0

@@ -1,16 +1,22 @@
-"""Fused SVGP data-term epilogue, forward: the port of
-``approximategps_tpu/ops/svgp_epilogue.py::svgp_data_epilogue``.
+"""Fused SVGP data-term epilogue and its pullback: the port of
+``approximategps_tpu/ops/svgp_epilogue.py::svgp_data_epilogue`` (forward,
+``_epilogue_fwd_impl``; backward, ``_bwd_fused``).
 
 For a stationary map g and the S-correction cache of ``models/svgp.py``:
 
     mu_corr  = K0ᵀ ae                 (B,)
     var_corr = diag(K0ᵀ Se K0)        (B,),   K0 = g(r²(Zs, Xs))  (M, B)
 
-On a CUDA tensor the hand-written kernel of ``csrc/svgp_epilogue.cu`` keeps
-K0 and Se·K0 out of device memory; on a CPU tensor :func:`svgp_data_epilogue_plain`
-forms them.  Both take the inputs jointly centred (exact for a stationary
-kernel; it recovers the accuracy the |x|²-identity loses on data far from
-the origin), as the JAX package's ``_pad_inputs`` does.  No autograd yet.
+:func:`svgp_data_epilogue` is a ``torch.autograd.Function``.  On CUDA
+tensors its forward is the hand-written kernel of ``csrc/svgp_epilogue.cu``
+and its backward that of ``csrc/svgp_epilogue_bwd.cu``; both keep K0 and
+Se·K0 out of device memory.  On CPU tensors the forward is
+:func:`svgp_data_epilogue_plain` and the backward
+:func:`svgp_data_epilogue_bwd_plain`, which form them.  All take the inputs
+jointly centred (exact for a stationary kernel; it recovers the accuracy the
+|x|²-identity loses on data far from the origin), as the JAX package's
+``_pad_inputs`` does; the centring needs no pullback, since the cotangents
+of a joint shift sum to zero.
 """
 
 from __future__ import annotations
@@ -18,10 +24,16 @@ from __future__ import annotations
 import torch
 
 from ..config import config
-from ..core.kernels import KernelMap
+from ..core.kernels import KernelMap, dk_from_k_for
 from . import _build
 
-__all__ = ["svgp_data_epilogue", "svgp_data_epilogue_plain", "epilogue_block_b"]
+__all__ = [
+    "svgp_data_epilogue",
+    "svgp_data_epilogue_plain",
+    "svgp_data_epilogue_bwd",
+    "svgp_data_epilogue_bwd_plain",
+    "epilogue_block_b",
+]
 
 _THREADS = 512  # csrc/svgp_epilogue.cu NT
 _SMEM_LIMIT = 200 * 1024  # of the 227 KB a block may use on Hopper
@@ -53,43 +65,42 @@ def _centre(Xs: torch.Tensor, Zs: torch.Tensor):
     return Xs - c, Zs - c
 
 
-def _k0(Xc: torch.Tensor, Zc: torch.Tensor, kmap: KernelMap) -> torch.Tensor:
-    """K0 (M, B) by the centred matmul identity."""
+def _r2(Xc: torch.Tensor, Zc: torch.Tensor) -> torch.Tensor:
+    """r² (M, B) by the centred matmul identity, clamped at 0."""
     zz = torch.sum(Zc * Zc, dim=-1, keepdim=True)
     xx = torch.sum(Xc * Xc, dim=-1, keepdim=True)
-    r2 = torch.clamp(zz + xx.T - 2.0 * (Zc @ Xc.T), min=0.0)
-    return kmap.k_of_r2(r2)
+    return torch.clamp(zz + xx.T - 2.0 * (Zc @ Xc.T), min=0.0)
 
 
 def svgp_data_epilogue_plain(Xs, Zs, Se, ae, kmap: KernelMap):
     """The plain PyTorch version: K0 and Se·K0 formed in full."""
     Xc, Zc = _centre(Xs, Zs)
-    K0 = _k0(Xc, Zc, kmap)
+    K0 = kmap.k_of_r2(_r2(Xc, Zc))
     return K0.T @ ae, torch.sum(K0 * (Se @ K0), dim=0)
 
 
-def svgp_data_epilogue(Xs: torch.Tensor, Zs: torch.Tensor, Se: torch.Tensor,
-                       ae: torch.Tensor, kmap: KernelMap):
-    """(mu_corr, var_corr) = (K0ᵀ ae, diag(K0ᵀ Se K0)), K0 = g(r²(Zs, Xs)).
+def _check(what, tensors, B, M, D):
+    Xs, Zs, Se, ae = tensors[:4]
+    dtype = Xs.dtype
+    if (
+        not all(t.is_cuda and t.device == Xs.device and t.dtype == dtype for t in tensors)
+        or Zs.shape != (M, D) or Se.shape != (M, M) or ae.shape != (M,) or B < 1
+        or any(t.shape != (B,) for t in tensors[4:])
+    ):
+        raise ValueError(
+            f"{what}: needs Xs (B, D), Zs (M, D), Se (M, M), ae (M,) and (B,) cotangents "
+            "on one CUDA device in one dtype; got "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in tensors]}"
+        )
 
-    Xs: (B, D) scaled test inputs; Zs: (M, D) scaled inducing inputs; Se:
-    (M, M), exactly symmetric (the kernel reads its upper triangle, the
-    plain version all of it); ae: (M,).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+
+def _forward(Xs, Zs, Se, ae, kmap: KernelMap):
     if Xs.device.type == "cpu":
         return svgp_data_epilogue_plain(Xs, Zs, Se, ae, kmap)
     B, D = Xs.shape
     M = Zs.shape[0]
     dtype = Xs.dtype
-    tensors = (Xs, Zs, Se, ae)
-    if (
-        not all(t.is_cuda and t.device == Xs.device and t.dtype == dtype for t in tensors)
-        or Zs.shape != (M, D) or Se.shape != (M, M) or ae.shape != (M,) or B < 1
-    ):
-        raise ValueError(
-            "svgp_data_epilogue: needs Xs (B, D), Zs (M, D), Se (M, M), ae (M,) "
-            f"on one CUDA device in one dtype; got {[(tuple(t.shape), t.dtype, str(t.device)) for t in tensors]}"
-        )
+    _check("svgp_data_epilogue", (Xs, Zs, Se, ae), B, M, D)
     block_b = epilogue_block_b(M, D, dtype)
     if block_b is None:
         raise ValueError(
@@ -108,6 +119,102 @@ def svgp_data_epilogue(Xs: torch.Tensor, Zs: torch.Tensor, Se: torch.Tensor,
     _build.check(err, "svgp_data_epilogue")
     svgp_data_epilogue.launches += 1
     return mu, var
+
+
+def svgp_data_epilogue_bwd_plain(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap):
+    """The plain PyTorch version of the pullback, in closed form with K0
+    formed in full (the formula the kernel implements, not autograd of the
+    plain forward):
+
+        S̄e = (K0∘dvar) K0ᵀ,   āe = K0 dmu,
+        W  = (2 (Se K0)∘dvar + ae⊗dmu) ∘ g′(r²),
+        X̄s = 2 (xs∘colsum W − Wᵀ Zs),   Z̄s = 2 (zs∘rowsum W − W Xs).
+
+    g′ comes through K0 where the map allows it (SE: −½K0), as in the JAX
+    package.  Returns (X̄s, Z̄s, S̄e, āe)."""
+    Xc, Zc = _centre(Xs, Zs)
+    r2 = _r2(Xc, Zc)
+    K0 = kmap.k_of_r2(r2)
+    dk = dk_from_k_for(kmap)
+    gprime = dk(K0) if dk is not None else kmap.dk_of_r2(r2)
+    Se_bar = (K0 * dvar) @ K0.T
+    ae_bar = K0 @ dmu
+    W = (2.0 * (Se @ K0) * dvar + ae[:, None] * dmu) * gprime
+    Xs_bar = 2.0 * (Xc * torch.sum(W, dim=0)[:, None] - W.T @ Zc)
+    Zs_bar = 2.0 * (Zc * torch.sum(W, dim=1)[:, None] - W @ Xc)
+    return Xs_bar, Zs_bar, Se_bar, ae_bar
+
+
+def svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap):
+    """(X̄s, Z̄s, S̄e, āe): the pullback of :func:`svgp_data_epilogue` for
+    the cotangents ``dmu`` and ``dvar`` (B,).  A CPU tensor takes
+    :func:`svgp_data_epilogue_bwd_plain`; a CUDA tensor launches the kernel
+    of ``csrc/svgp_epilogue_bwd.cu`` or raises.  Takes every M, B and
+    1 <= D <= 64 in f32 or f64, a superset of what the forward takes."""
+    if Xs.device.type == "cpu":
+        return svgp_data_epilogue_bwd_plain(Xs, Zs, Se, ae, dmu, dvar, kmap)
+    B, D = Xs.shape
+    M = Zs.shape[0]
+    dtype = Xs.dtype
+    _check("svgp_data_epilogue_bwd", (Xs, Zs, Se, ae, dmu, dvar), B, M, D)
+    if dtype not in (torch.float32, torch.float64) or not 1 <= D <= _MAX_D:
+        raise ValueError(f"svgp_data_epilogue_bwd: needs f32/f64 and 1 <= D <= {_MAX_D}, "
+                         f"got {dtype}, D={D}")
+    lib = _build.load_library()
+    f32 = dtype == torch.float32
+    fn = lib.agp_svgp_epilogue_bwd_f32 if f32 else lib.agp_svgp_epilogue_bwd_f64
+    Xc, Zc = _centre(Xs, Zs)
+    ins = [t.contiguous() for t in (Xc, Zc, Se, ae, dmu, dvar)]
+    like = dict(dtype=dtype, device=Xs.device)
+    outs = [torch.empty((B, D), **like), torch.empty((M, D), **like),
+            torch.empty((M, M), **like), torch.empty((M,), **like)]
+    stream = torch.cuda.current_stream(Xs.device).cuda_stream
+    with torch.cuda.device(Xs.device):
+        # the scratch layout depends on the card's SM count and occupancy
+        n_scratch = (lib.agp_svgp_epilogue_bwd_scratch_f32 if f32
+                     else lib.agp_svgp_epilogue_bwd_scratch_f64)(B, M, D)
+        scratch = torch.empty((n_scratch,), **like)
+        err = fn(*(t.data_ptr() for t in ins + outs), scratch.data_ptr(), B, M, D,
+                 int(kmap.id), stream)
+    _build.check(err, "svgp_data_epilogue_bwd")
+    svgp_data_epilogue_bwd.launches += 1
+    return tuple(outs)
+
+
+svgp_data_epilogue_bwd.launches = 0
+
+
+class _Epilogue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, Xs, Zs, Se, ae, kmap):
+        ctx.kmap = kmap
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(Xs, Zs, Se, ae)
+        return _forward(Xs, Zs, Se, ae, kmap)
+
+    @staticmethod
+    def backward(ctx, dmu, dvar):
+        if dmu is None and dvar is None:
+            return None, None, None, None, None
+        Xs, Zs, Se, ae = ctx.saved_tensors
+        like = dmu if dmu is not None else dvar
+        dmu = torch.zeros_like(like) if dmu is None else dmu
+        dvar = torch.zeros_like(like) if dvar is None else dvar
+        grads = svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu.to(Xs.dtype), dvar.to(Xs.dtype),
+                                       ctx.kmap)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def svgp_data_epilogue(Xs: torch.Tensor, Zs: torch.Tensor, Se: torch.Tensor,
+                       ae: torch.Tensor, kmap: KernelMap):
+    """(mu_corr, var_corr) = (K0ᵀ ae, diag(K0ᵀ Se K0)), K0 = g(r²(Zs, Xs)),
+    differentiable in all four tensors.
+
+    Xs: (B, D) scaled test inputs; Zs: (M, D) scaled inducing inputs; Se:
+    (M, M), exactly symmetric (the kernel reads its upper triangle, the
+    plain version all of it); ae: (M,).  A CPU tensor takes the plain
+    versions; a CUDA tensor launches the kernels or raises."""
+    return _Epilogue.apply(Xs, Zs, Se, ae, kmap)
 
 
 svgp_data_epilogue.launches = 0

@@ -1,5 +1,5 @@
-"""Parameter transforms and the SVGP parameter pack."""
+"""Parameter transforms, the SVGP parameter pack and the Adam loop."""
 
 from . import bijectors, training
 from .bijectors import cholesky_parameter, fill_triangular, flat_from_tril, invsoftplus, softplus
-from .training import SVGPParams, build_svgp, init_svgp_params
+from .training import SVGPParams, adam_fit, build_svgp, init_svgp_params

@@ -5,7 +5,8 @@ machine with one with
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py`` (the
 repository's ``conftest.py`` sets up JAX, which these tests do not use).
 f64 tolerances as in the CPU tests: L 1e-10, J 1e-7 (amplified by
-cond(K)), epilogue and slice 1e-9."""
+cond(K)), epilogue and slice 1e-9; the epilogue's pullback 1e-9 relative
+to each cotangent's largest entry."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import torch
 
 import approximategps_tpu_torch as tgp
 from approximategps_tpu_torch.core import kernels as tk
+from approximategps_tpu_torch.core import linalg as tlinalg
 from approximategps_tpu_torch.ops import panel_chol, svgp_epilogue
 
 pytestmark = pytest.mark.gpu
@@ -112,8 +114,91 @@ def test_torch_cuda_sweep_raises_where_the_epilogue_tile_does_not_fit(cuda):
             post.predict_blocks(xs)
 
 
-def test_torch_cuda_unported_factorization_raises(cuda):
-    """Centered needs the (L, L⁻¹) kernel of a given matrix, which the port
-    has not got yet: it raises instead of quietly using cuSOLVER."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _posterior(cuda, torch.float32, tgp.Centered())
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_torch_cuda_chol_inv_matches_plain(dtype, cuda):
+    """Kernel 4: (L, L⁻¹) of a given matrix, M = 200 (ragged panels); the
+    kernel factors the symmetric part of a slightly asymmetric A."""
+    rng = np.random.default_rng(4)
+    R = rng.standard_normal((200, 200))
+    A = R @ R.T / 200 + 0.5 * np.eye(200) + 1e-4 * rng.standard_normal((200, 200))
+    At = _t(A, cuda, dtype)
+    before = panel_chol.chol_inv.launches
+    L, J = panel_chol.chol_inv(At)
+    L0, J0 = panel_chol.chol_inv_plain(At)
+    assert panel_chol.chol_inv.launches == before + 1
+    tol = (1e-10, 1e-9) if dtype == torch.float64 else (1e-4, 1e-3)
+    torch.testing.assert_close(L, L0, atol=tol[0], rtol=0)
+    torch.testing.assert_close(J, J0, atol=tol[1], rtol=0)
+    assert not torch.triu(L, 1).any() and not torch.triu(J, 1).any()
+
+
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_svgp_epilogue_bwd_matches_plain(cls, cuda):
+    """Kernel 3: all four cotangents against the closed-form plain version,
+    M and B ragged against the tiles."""
+    rng = np.random.default_rng(5)
+    M, B = 150, 1001
+    S0 = rng.standard_normal((M, M))
+    args = [_t(a, cuda) for a in (
+        rng.standard_normal((B, 4)) + 3.0, rng.standard_normal((M, 4)) + 3.0,
+        0.5 * (S0 + S0.T), rng.standard_normal(M), rng.standard_normal(B),
+        rng.standard_normal(B))]
+    kmap = cls().kernel_map()
+    before = svgp_epilogue.svgp_data_epilogue_bwd.launches
+    got = svgp_epilogue.svgp_data_epilogue_bwd(*args, kmap)
+    ref = svgp_epilogue.svgp_data_epilogue_bwd_plain(*args, kmap)
+    assert svgp_epilogue.svgp_data_epilogue_bwd.launches == before + 1
+    for name, g, r in zip(("Xs", "Zs", "Se", "ae"), got, ref):
+        assert (g - r).abs().max() <= 1e-9 * r.abs().max(), name
+    assert torch.equal(got[2], got[2].T)
+
+
+def test_torch_cuda_epilogue_autograd_launches_both_kernels(cuda):
+    rng = np.random.default_rng(6)
+    M, B = 64, 300
+    S0 = rng.standard_normal((M, M))
+    ts = [_t(a, cuda).requires_grad_() for a in (
+        rng.standard_normal((B, 3)), rng.standard_normal((M, 3)), 0.5 * (S0 + S0.T),
+        rng.standard_normal(M))]
+    kmap = tk.SqExponentialKernel().kernel_map()
+    c0 = svgp_epilogue.svgp_data_epilogue.launches
+    c1 = svgp_epilogue.svgp_data_epilogue_bwd.launches
+    mu, var = svgp_epilogue.svgp_data_epilogue(*ts, kmap)
+    (mu.sum() + var.sum()).backward()
+    assert svgp_epilogue.svgp_data_epilogue.launches == c0 + 1
+    assert svgp_epilogue.svgp_data_epilogue_bwd.launches == c1 + 1
+    ref = svgp_epilogue.svgp_data_epilogue_bwd_plain(
+        *(t.detach() for t in ts), torch.ones(B, dtype=torch.float64, device=cuda),
+        torch.ones(B, dtype=torch.float64, device=cuda), kmap)
+    for t, r in zip(ts, ref):
+        torch.testing.assert_close(t.grad, r, atol=1e-9, rtol=1e-9)
+
+
+def test_torch_cuda_centered_posterior_runs_through_chol_inv(cuda):
+    """Centered needs the (L, L⁻¹) kernel of a given matrix: one launch of
+    chol_inv, and the same posterior as the plain route."""
+    before = panel_chol.chol_inv.launches
+    post = _posterior(cuda, torch.float64, tgp.Centered())
+    assert panel_chol.chol_inv.launches == before + 1
+    with tgp.config_context(use_kernels=False):
+        plain = _posterior(cuda, torch.float64, tgp.Centered())
+    # relative to each array's largest entry: S = J^T (B B^T - I) J with
+    # B = J Lq carries J four times, so its error grows with cond(Kuu)^2
+    for name in ("Kuu_L", "Lk_inv", "alpha", "S_corr"):
+        a, b = getattr(post.cache, name), getattr(plain.cache, name)
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= 1e-7, (name, err)
+
+
+def test_torch_cuda_chol_with_inv_gradient(cuda):
+    rng = np.random.default_rng(7)
+    R = rng.standard_normal((130, 130))
+    A = _t(R @ R.T / 130 + 0.5 * np.eye(130), cuda).requires_grad_()
+    before = panel_chol.chol_inv.launches
+    L, J = tlinalg.chol_with_inv(A)
+    J.sum().backward()
+    assert panel_chol.chol_inv.launches == before + 1
+    A2 = A.detach().clone().requires_grad_()
+    with tgp.config_context(chol_mode="plain"):
+        tlinalg.chol_with_inv(A2)[1].sum().backward()
+    torch.testing.assert_close(A.grad, A2.grad, atol=1e-9, rtol=1e-9)

@@ -141,23 +141,42 @@ def test_torch_resolve_solve_mode_gate():
 def test_torch_epilogue_gate_raises_on_the_kernel_device():
     """Where the fused epilogue does not take the prior or the shape, a CPU
     sweep is served by mean_and_var and a CUDA one raises rather than
-    quietly leaving the kernel out; data_term_mode="plain" opts out."""
+    quietly leaving the kernel out; data_term_mode="plain" opts out.  The
+    serving callers pass prefer=True; without it (the minibatch ELBO) the
+    gate declines in mode "auto" and nothing raises."""
     z = torch.zeros((2048, 8), dtype=torch.float32)
     se_prior = tgp.GP(0.7 * tgp.SqExponentialKernel())
     other_prior = SimpleNamespace(kernel=object())  # a kernel that does not unwrap
     cpu_S = torch.zeros((1, 1), dtype=torch.float32)
     # stands in for a CUDA S_corr: the gate reads only its device and dtype
     cuda_S = SimpleNamespace(is_cuda=True, dtype=torch.float32, device=torch.device("cuda"))
-    kmap = tsvgp._epilogue_ready(se_prior, z, cuda_S)[0]
+    kmap = tsvgp._epilogue_ready(se_prior, z, cuda_S, prefer=True)[0]
     assert kmap == tgp.SqExponentialKernel().kernel_map()
-    assert tsvgp._epilogue_ready(other_prior, z, cpu_S) is None
+    assert tsvgp._epilogue_ready(other_prior, z, cpu_S, prefer=True) is None
     with pytest.raises(NotImplementedError, match="stationary kernel"):
-        tsvgp._epilogue_ready(other_prior, z, cuda_S)
+        tsvgp._epilogue_ready(other_prior, z, cuda_S, prefer=True)
     with tgp.config_context(epilogue_block_b=2):
-        assert tsvgp._epilogue_ready(se_prior, z, cpu_S) is None
+        assert tsvgp._epilogue_ready(se_prior, z, cpu_S, prefer=True) is None
         with pytest.raises(NotImplementedError, match="no tiling over M"):
-            tsvgp._epilogue_ready(se_prior, z, cuda_S)
+            tsvgp._epilogue_ready(se_prior, z, cuda_S, prefer=True)
     with tgp.config_context(data_term_mode="plain"):
-        assert tsvgp._epilogue_ready(other_prior, z, cuda_S) is None
+        assert tsvgp._epilogue_ready(other_prior, z, cuda_S, prefer=True) is None
     with tgp.config_context(use_kernels=False):
-        assert tsvgp._epilogue_ready(other_prior, z, cuda_S) is None
+        assert tsvgp._epilogue_ready(other_prior, z, cuda_S, prefer=True) is None
+
+
+def test_torch_epilogue_gate_declines_without_prefer():
+    """prefer=False, the minibatch ELBO's call: mode "auto" declines on
+    either device, even for a prior the epilogue would reject, so the raise
+    applies only where the epilogue would be taken."""
+    z = torch.zeros((2048, 8), dtype=torch.float32)
+    se_prior = tgp.GP(0.7 * tgp.SqExponentialKernel())
+    other_prior = SimpleNamespace(kernel=object())
+    cpu_S = torch.zeros((1, 1), dtype=torch.float32)
+    cuda_S = SimpleNamespace(is_cuda=True, dtype=torch.float32, device=torch.device("cuda"))
+    for prior in (se_prior, other_prior):
+        for S in (cpu_S, cuda_S):
+            assert tsvgp._epilogue_ready(prior, z, S) is None
+            assert tsvgp._epilogue_ready(prior, z, S, prefer=False) is None
+    with tgp.config_context(epilogue_block_b=2):
+        assert tsvgp._epilogue_ready(se_prior, z, cuda_S, prefer=False) is None
