@@ -4,15 +4,19 @@ A second package beside the JAX one, which stays the reference.  It
 carries the SVGP serving path (``posterior``, then
 ``SVGPPosterior.predict_blocks``) and the SVGP training path: the minibatch
 ``elbo`` and the full-data ``streaming_elbo`` with their gradients, and
-``adam_fit``.  Hand-written CUDA kernels for Hopper (``csrc/``) carry them on
-the GPU, each beside a plain PyTorch version that CPU tensors take:
+``adam_fit``; and the matrix-free exact GP: hyperparameter training on
+``-logpdf_slq`` (``make_slq_hyperopt_step``) and serving through
+``posterior_cg``.  Hand-written CUDA kernels for Hopper (``csrc/``) carry them
+on the GPU, each beside a plain PyTorch version that CPU tensors take:
 
 - ``ops.panel_chol.gram_chol_inv``: (L, L⁻¹) with the Kuu Gram generated
   inside the factorization;
 - ``ops.panel_chol.chol_inv``: (L, L⁻¹) of a given SPD matrix;
 - ``ops.svgp_epilogue.svgp_data_epilogue``: (mean, var) without the (M, B)
   cross-covariance in device memory, and its backward
-  (``svgp_data_epilogue_bwd``), which rebuilds it tile by tile.
+  (``svgp_data_epilogue_bwd``), which rebuilds it tile by tile;
+- ``ops.gram_matvec.gram_matvec``: K(Xq, Zk)·V without K, and the passes of
+  its pullback, under every CG, Lanczos and surrogate matvec.
 
 The kernels are built with ``nvcc`` at first use (``ops/_build.py``).
 """
@@ -39,20 +43,28 @@ from .core import (
     SEKernel,
     SqExponentialKernel,
     StationaryKernel,
+    logpdf,
     with_lengthscale,
 )
 from .models import (
+    CGPosterior,
     Centered,
     NonCentered,
     SparseVariationalApproximation,
     SVGPPosterior,
     approx_lml,
+    cg_solve,
     elbo,
+    kernel_matvec,
+    logpdf_slq,
+    pivoted_cholesky,
     posterior,
+    posterior_cg,
     prior_kl,
     streaming_elbo,
+    woodbury_preconditioner,
 )
-from .utils import SVGPParams, adam_fit, build_svgp, init_svgp_params
+from .utils import SVGPParams, adam_fit, build_svgp, init_svgp_params, make_slq_hyperopt_step
 
 __all__ = [
     "config",
@@ -90,4 +102,13 @@ __all__ = [
     "init_svgp_params",
     "build_svgp",
     "adam_fit",
+    "logpdf",
+    "cg_solve",
+    "kernel_matvec",
+    "posterior_cg",
+    "logpdf_slq",
+    "CGPosterior",
+    "pivoted_cholesky",
+    "woodbury_preconditioner",
+    "make_slq_hyperopt_step",
 ]

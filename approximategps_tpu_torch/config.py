@@ -1,7 +1,8 @@
 """Numerics-policy switches for approximategps_tpu_torch.
 
 The PyTorch counterpart of ``approximategps_tpu/config.py``, cut to the
-knobs the SVGP serving and training paths read.  Like the JAX package, this holds only
+knobs the SVGP serving and training paths and the matrix-free exact-GP
+path read.  Like the JAX package, this holds only
 switches that must agree across a whole computation (solve strategy,
 factorization and data-term routes), never model options.
 
@@ -57,6 +58,20 @@ class _Config:
     # Largest M for which the posterior build forms the S-correction matrix
     # S = Lk⁻ᵀ(BBᵀ−I)Lk⁻¹ (the cache the fused epilogue consumes).
     s_corr_max_m: int = int(os.environ.get("AGP_S_CORR_MAX_M", "4096"))
+    # K·V in the matrix-free tier (models/iterative.py, ops/gram_matvec.py):
+    #   "auto":  the fused gram_matvec kernel on the kernel device, the plain
+    #            block path (Gram blocks and a matmul) elsewhere
+    #   "fused": the gram_matvec autograd Function on any device, with its
+    #            plain inner pass on the CPU (the tests' mode)
+    #   "plain": always the block path
+    # The JAX package's cg_matvec_precision counts TPU matmul passes and has
+    # no counterpart: the port's matmuls in CG, the preconditioner and
+    # pivoted_cholesky run in full f32, with TF32 off
+    # (torch.backends.cuda.matmul.allow_tf32 False, PyTorch's default).
+    matvec_mode: str = os.environ.get("AGP_MATVEC_MODE", "auto")
+    # Widest (N, R) block the fused matvec takes; wider blocks take the
+    # block path, where one Gram serves every column.
+    matvec_fused_max_rhs: int = int(os.environ.get("AGP_MATVEC_MAX_RHS", "32"))
 
 
 config = _Config()

@@ -1,9 +1,10 @@
 """Carry parameters across from the JAX package.
 
-``from_jax_params`` takes the JAX package's SVGP parameters (anything numpy
-can read: JAX arrays, numpy arrays) in either form the repo uses and
-returns the same form on the port's side, so that ``build_svgp`` /
-``posterior`` compute the same thing in both packages.  Nothing here
+``from_jax_params`` takes the JAX package's parameters (anything numpy can
+read: JAX arrays, numpy arrays) in each form the repo uses and returns the
+same form on the port's side, so that ``build_svgp`` / ``posterior`` /
+``build_exact_fx`` compute the same thing in both packages.  The tensors
+land on the card unless the caller names another device.  Nothing here
 imports JAX.
 """
 
@@ -13,16 +14,17 @@ import numpy as np
 import torch
 
 from .core.distributions import MultivariateNormal
-from .core.gp import GP
+from .core.gp import GP, FiniteGP
 from .core.kernels import SqExponentialKernel, with_lengthscale
 from .models.api import posterior
 from .models.svgp import SparseVariationalApproximation, SVGPPosterior
 from .utils.bijectors import softplus
 from .utils.training import SVGPParams
 
-__all__ = ["from_jax_params", "build_posterior_from_bench_params"]
+__all__ = ["from_jax_params", "build_posterior_from_bench_params", "build_exact_fx"]
 
 _BENCH_KEYS = ("k", "z", "m", "A")
+_THETA_LEN = 3  # raw (variance, lengthscale, noise variance) of the exact GP
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -30,23 +32,30 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
-def from_jax_params(params, *, device="cpu", dtype=torch.float32):
-    """The JAX package's parameters as the port's.
+def from_jax_params(params, *, device="cuda", dtype=torch.float32):
+    """The JAX package's parameters as the port's, on ``device`` (the card
+    by default).
 
     - ``bench.py``'s dict ``{"k": [raw variance, raw lengthscale], "z": (M, D),
       "m": (M,), "A": (M, M)}`` becomes the same dict of tensors;
     - ``approximategps_tpu.utils.training.SVGPParams`` (or any object with
-      its five fields) becomes :class:`SVGPParams`.
+      its five fields) becomes :class:`SVGPParams`;
+    - the exact GP's raw hyperparameter vector θ, shape (3,): raw
+      (variance, lengthscale, noise variance), as ``tests/test_iterative.py``
+      builds it, becomes a (3,) tensor for :func:`build_exact_fx`.
     """
     if isinstance(params, dict):
         if set(params) != set(_BENCH_KEYS):
             raise ValueError(f"expected the bench dict with keys {_BENCH_KEYS}, got {sorted(params)}")
         return {k: _tensor(params[k], device, dtype) for k in _BENCH_KEYS}
+    if hasattr(params, "shape") and tuple(params.shape) == (_THETA_LEN,):
+        return _tensor(params, device, dtype)
     try:
         fields = {name: getattr(params, name) for name in SVGPParams._fields}
     except AttributeError as exc:
         raise TypeError(
-            f"expected the bench dict or SVGPParams, got {type(params).__name__}"
+            f"expected the bench dict, SVGPParams or a ({_THETA_LEN},) exact-GP θ, "
+            f"got {type(params).__name__}"
         ) from exc
     return SVGPParams(**{k: _tensor(v, device, dtype) for k, v in fields.items()})
 
@@ -61,3 +70,12 @@ def build_posterior_from_bench_params(params: dict, jitter: float = 1e-6) -> SVG
     fz = f(params["z"], jitter)
     q = MultivariateNormal(params["m"], torch.tril(params["A"]))
     return posterior(SparseVariationalApproximation(fz, q))
+
+
+def build_exact_fx(theta: torch.Tensor, x: torch.Tensor) -> FiniteGP:
+    """The exact GP of the matrix-free path from its raw hyperparameters, as
+    ``build_fx(θ)`` of ``tests/test_iterative.py`` builds it in the JAX
+    package: softplus(θ₀)·SE(lengthscale softplus(θ₁)) at ``x`` with noise
+    variance softplus(θ₂)."""
+    kernel = softplus(theta[0]) * with_lengthscale(SqExponentialKernel(), softplus(theta[1]))
+    return GP(kernel)(x, softplus(theta[2]))

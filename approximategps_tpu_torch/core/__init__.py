@@ -3,7 +3,17 @@ dense linear algebra."""
 
 from . import distributions, gp, kernels, likelihoods, linalg, means, quadrature
 from .distributions import MultivariateNormal, kl_divergence
-from .gp import GP, AbstractGP, FiniteGP, LatentFiniteGP, LatentGP
+from .gp import (
+    GP,
+    AbstractGP,
+    CholeskyRep,
+    FiniteGP,
+    LatentFiniteGP,
+    LatentGP,
+    PosteriorGP,
+    logpdf,
+    predict_in_blocks,
+)
 from .kernels import (
     ExponentialKernel,
     InputScaledKernel,

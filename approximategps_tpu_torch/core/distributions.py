@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -35,6 +36,13 @@ class MultivariateNormal:
 
     def marginals(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self.mean, self.var()
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        delta = (x - self.mean)[..., None]
+        alpha = torch.linalg.solve_triangular(self.scale_tril, delta, upper=False)[..., 0]
+        quad = torch.sum(alpha * alpha, dim=-1)
+        return -0.5 * (self.dim * math.log(2.0 * math.pi) + quad) - linalg.tril_logdet(
+            self.scale_tril)
 
 
 def kl_divergence(q: MultivariateNormal, p: MultivariateNormal) -> torch.Tensor:

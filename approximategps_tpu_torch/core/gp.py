@@ -1,5 +1,7 @@
 """GP abstractions (port of ``approximategps_tpu/core/gp.py``: ``AbstractGP``,
-``GP``, ``FiniteGP``, ``LatentGP`` and ``LatentFiniteGP``).
+``GP``, ``FiniteGP``, ``LatentGP``, ``LatentFiniteGP`` and the exact posterior:
+``CholeskyRep``, ``PosteriorGP``, ``posterior``, ``logpdf`` and
+``predict_in_blocks``, the dense oracle of the matrix-free tier).
 
 Noise convention for ``FiniteGP`` (AbstractGPs' ``f(x, Σy)``): a scalar σ²
 is isotropic σ²·I, an (N,) vector is diagonal, an (N, N) matrix is full.
@@ -18,7 +20,18 @@ from .kernels import Kernel, as_points
 from .likelihoods import Likelihood, as_likelihood
 from .means import ZeroMean
 
-__all__ = ["AbstractGP", "GP", "FiniteGP", "LatentGP", "LatentFiniteGP"]
+__all__ = [
+    "AbstractGP",
+    "GP",
+    "FiniteGP",
+    "LatentGP",
+    "LatentFiniteGP",
+    "CholeskyRep",
+    "PosteriorGP",
+    "posterior",
+    "logpdf",
+    "predict_in_blocks",
+]
 
 
 class AbstractGP:
@@ -104,6 +117,9 @@ class FiniteGP:
     def to_mvn(self) -> MultivariateNormal:
         return MultivariateNormal(self.mean(), self.scale_tril())
 
+    def logpdf(self, y: torch.Tensor) -> torch.Tensor:
+        return self.to_mvn().log_prob(y)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class LatentGP:
@@ -127,3 +143,87 @@ class LatentFiniteGP:
 
     def __len__(self) -> int:
         return len(self.fx)
+
+
+# ---------------------------------------------------------------------------
+# Exact posterior
+# ---------------------------------------------------------------------------
+
+
+def _solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    vec = B.ndim == 1
+    X = torch.linalg.solve_triangular(L, B[:, None] if vec else B, upper=False)
+    return X[:, 0] if vec else X
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CholeskyRep:
+    """The precision of C = K(x, x) + Σy through its Cholesky factor L."""
+
+    L: torch.Tensor
+
+    def whiten(self, X: torch.Tensor) -> torch.Tensor:
+        """V = L⁻¹X, so that VᵀV = XᵀC⁻¹X."""
+        return _solve_lower(self.L, X)
+
+    def logdet(self) -> torch.Tensor:
+        return linalg.chol_logdet(self.L)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PosteriorGP(AbstractGP):
+    """Exact posterior GP with its data cache (α, rep, x, δ)."""
+
+    prior: AbstractGP
+    x: torch.Tensor
+    alpha: torch.Tensor
+    rep: Any
+    delta: torch.Tensor | None = None
+
+    def mean(self, xs):
+        return self.prior.mean(xs) + self.prior.cov(self.x, xs).T @ self.alpha
+
+    def cov(self, xs, zs=None):
+        Vx = self.rep.whiten(self.prior.cov(self.x, xs))
+        if zs is None:
+            return self.prior.cov(xs) - Vx.T @ Vx
+        Vz = self.rep.whiten(self.prior.cov(self.x, zs))
+        return self.prior.cov(xs, zs) - Vx.T @ Vz
+
+    def var(self, xs):
+        Vx = self.rep.whiten(self.prior.cov(self.x, xs))
+        # a variance is never negative; cancellation can make it so
+        return torch.clamp(self.prior.var(xs) - torch.sum(Vx * Vx, dim=0), min=0.0)
+
+    def mean_and_cov(self, xs):
+        Kxs = self.prior.cov(self.x, xs)
+        Vx = self.rep.whiten(Kxs)
+        return self.prior.mean(xs) + Kxs.T @ self.alpha, self.prior.cov(xs) - Vx.T @ Vx
+
+    def mean_and_var(self, xs):
+        Kxs = self.prior.cov(self.x, xs)
+        Vx = self.rep.whiten(Kxs)
+        mu = self.prior.mean(xs) + Kxs.T @ self.alpha
+        return mu, torch.clamp(self.prior.var(xs) - torch.sum(Vx * Vx, dim=0), min=0.0)
+
+
+def posterior(fx: FiniteGP, y: torch.Tensor) -> PosteriorGP:
+    """Exact GP regression posterior (AbstractGPs' ``posterior(fx, y)``)."""
+    L = fx.scale_tril()
+    delta = y - fx.mean()
+    alpha = torch.cholesky_solve(delta[:, None], L, upper=False)[:, 0]
+    return PosteriorGP(prior=fx.f, x=as_points(fx.x), alpha=alpha, rep=CholeskyRep(L),
+                       delta=delta)
+
+
+def logpdf(fx: FiniteGP, y: torch.Tensor) -> torch.Tensor:
+    """Exact log marginal likelihood (AbstractGPs' ``logpdf(fx, y)``)."""
+    return fx.logpdf(y)
+
+
+def predict_in_blocks(post: AbstractGP, xs, block_size: int = 8192):
+    """(mean, var) of ``post`` over a large test set, ``block_size`` points
+    at a time, so that the cross-covariance stays O(train size · block)."""
+    X = as_points(xs)
+    parts = [post.mean_and_var(X[i:i + block_size]) for i in range(0, X.shape[0], block_size)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])

@@ -26,3 +26,16 @@ def approx_lml(approx: Any, *args, **kwargs):
     raise NotImplementedError(
         f"approx_lml not implemented for approximation {type(approx).__name__}"
     )
+
+
+def _register_exact():
+    # posterior(fx, y) for exact GP regression, as AbstractGPs spells it
+    from ..core.gp import FiniteGP
+    from ..core.gp import posterior as exact_posterior
+
+    @posterior.register(FiniteGP)
+    def _(fx: FiniteGP, y, **kwargs):
+        return exact_posterior(fx, y)
+
+
+_register_exact()

@@ -1,0 +1,561 @@
+"""Matrix-free exact GP inference: CG solves and stochastic Lanczos
+quadrature log-determinants (port of the single-device path of
+``approximategps_tpu/models/iterative.py``).
+
+The BBMM approach of Gardner et al. (2018): the only access to K is a
+product K·V, which :func:`kernel_matvec` computes without storing K, through
+the fused ``gram_matvec`` kernel (``ops/gram_matvec.py``) where it serves and
+Gram row blocks elsewhere.
+
+- :func:`cg_solve`: block conjugate gradients with per-column freezing;
+- :func:`pivoted_cholesky`, :func:`woodbury_preconditioner`: the
+  preconditioner P = Lk Lkᵀ + σ²I;
+- :func:`posterior_cg`: the exact posterior through CG solves;
+- :func:`logpdf_slq`: the log marginal likelihood, quad term by CG, logdet by
+  SLQ, with the stochastic-trace gradient.
+
+Differences from the JAX package: ``lax.while_loop`` and ``scan`` are Python
+loops; CG tests its residuals on the host once an iteration (one sync,
+counted in ``stats``); CG runs without autograd (the JAX loop is not
+reverse-differentiable either), and :func:`logpdf_slq` brings its own
+gradient.  The ``mesh=`` paths, ``msqrt_matvec`` and the msqrt samplers are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..core.gp import FiniteGP
+from ..core.kernels import as_points
+from ..ops.gram_matvec import fused_stationary_matvec
+
+__all__ = [
+    "cg_solve",
+    "kernel_matvec",
+    "posterior_cg",
+    "logpdf_slq",
+    "CGPosterior",
+    "pivoted_cholesky",
+    "woodbury_preconditioner",
+    "rademacher_probes",
+    "stats",
+    "reset_stats",
+]
+
+# what a run of this module did: K·V applications by route, CG solves,
+# iterations and the host syncs of their residual tests
+stats = {"matvec_fused": 0, "matvec_plain": 0, "cg_solves": 0, "cg_iterations": 0,
+         "cg_host_syncs": 0}
+
+
+def reset_stats() -> None:
+    for k in stats:
+        stats[k] = 0
+
+
+def cg_solve(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    B: torch.Tensor,
+    tol: float = 1e-6,
+    maxiter: int = 1000,
+    M_inv: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    return_info: bool = False,
+    x0: torch.Tensor | None = None,
+):
+    """Solve A X = B for SPD A given only ``matvec(V) = A·V``.
+
+    B: (N,) or (N, R); all columns iterate together, each frozen (α = β = 0,
+    an exact no-op) once its relative residual is at ``tol``: without the
+    freeze, f32 block CG diverged in the JAX package.  ``M_inv`` applies a
+    preconditioner, ``x0`` warm-starts.  Not differentiable (runs without
+    autograd).  ``return_info`` adds the iteration count."""
+    with torch.no_grad():
+        vec = B.ndim == 1
+        if vec:
+            B = B[:, None]
+        if M_inv is None:
+            M_inv = lambda r: r  # noqa: E731
+        if x0 is None:
+            X = torch.zeros_like(B)
+            R = B
+        else:
+            X = x0[:, None] if (vec and x0.ndim == 1) else x0
+            R = B - matvec(X)
+        Z = M_inv(R)
+        P = Z
+        rz = torch.sum(R * Z, dim=0)
+        b_norm = torch.clamp(torch.linalg.vector_norm(B, dim=0), min=1e-30)
+        stats["cg_solves"] += 1
+        i = 0
+        while i < maxiter:
+            res = torch.linalg.vector_norm(R, dim=0) / b_norm
+            stats["cg_host_syncs"] += 1
+            if not bool(torch.max(res) > tol):
+                break
+            active = (res > tol).to(R.dtype)
+            AP = matvec(P)
+            denom = torch.sum(P * AP, dim=0)
+            # denom <= 0 only by rounding on a frozen or stagnated column
+            alpha = active * rz / torch.where(denom <= 0, 1.0, denom)
+            X = X + alpha * P
+            R = R - alpha * AP
+            Z = M_inv(R)
+            rz_new = torch.sum(R * Z, dim=0)
+            beta = active * rz_new / torch.where(rz == 0, 1.0, rz)
+            P = torch.where(active > 0, Z + beta * P, P)
+            rz = torch.where(active > 0, rz_new, rz)
+            i += 1
+        stats["cg_iterations"] += i
+    X = X[:, 0] if vec else X
+    return (X, i) if return_info else X
+
+
+def pivoted_cholesky(kernel, x, rank: int) -> torch.Tensor:
+    """Rank-``rank`` pivoted Cholesky of K(x, x): L (N, rank) with LLᵀ ≈ K,
+    pivoting on the largest residual diagonal (Harbrecht et al. 2012); only
+    ``rank`` kernel rows are evaluated.  A column whose pivot is below the
+    relative floor max(N, 100)·eps·max(diag K) is left zero.  Returns a
+    constant (no autograd graph); its loop never syncs the host."""
+    with torch.no_grad():
+        X = as_points(x)
+        N = X.shape[0]
+        d = kernel.diag(X)
+        dtype = d.dtype
+        floor = max(float(N), 100.0) * torch.finfo(dtype).eps * torch.max(d)
+        tiny = torch.finfo(dtype).tiny
+        L = torch.zeros((N, rank), dtype=dtype, device=d.device)
+        for j in range(rank):
+            idx = torch.argmax(d).view(1)  # the first of equal maxima
+            di = d.index_select(0, idx)
+            row = kernel.gram(X, X.index_select(0, idx))[:, 0]  # K[:, i]
+            corr = L @ L.index_select(0, idx)[0]
+            col = torch.where(di > floor, (row - corr) / torch.sqrt(torch.clamp(di, min=tiny)),
+                              0.0)
+            L[:, j] = col
+            d = torch.clamp(d - col * col, min=0.0)
+            d.index_fill_(0, idx, 0.0)
+    return L
+
+
+def _sigma2(noise, like: torch.Tensor) -> torch.Tensor:
+    s2 = torch.as_tensor(noise, dtype=like.dtype, device=like.device)
+    if s2.ndim != 0:
+        raise ValueError("the Woodbury preconditioner requires isotropic noise")
+    return s2
+
+
+def woodbury_preconditioner(Lk: torch.Tensor, noise) -> Callable:
+    """P⁻¹ for P = Lk Lkᵀ + σ²I by Woodbury:
+    P⁻¹ = σ⁻²(I − Lk (σ²I_r + LkᵀLk)⁻¹ Lkᵀ), two (N, r) products an apply
+    after one r × r Cholesky.  Isotropic noise only."""
+    s2 = _sigma2(noise, Lk)
+    r = Lk.shape[1]
+    cap = s2 * torch.eye(r, dtype=Lk.dtype, device=Lk.device) + Lk.T @ Lk
+    cap_L = torch.linalg.cholesky(cap)
+
+    def apply(Rv):
+        vec = Rv.ndim == 1
+        R2 = Rv[:, None] if vec else Rv
+        s = torch.cholesky_solve(Lk.T @ R2, cap_L)
+        out = (R2 - Lk @ s) / s2
+        return out[:, 0] if vec else out
+
+    return apply
+
+
+def kernel_matvec(kernel, x, noise, block_size: int | None = None):
+    """``matvec(V) = (K(x, x) + Σ)·V`` for V (N,) or (N, R), without storing
+    K: the fused ``gram_matvec`` where :func:`~approximategps_tpu_torch.ops.
+    gram_matvec.fused_stationary_matvec` qualifies (R ≤
+    ``config.matvec_fused_max_rhs``), else Gram row blocks of ``block_size``
+    (all of K when None).  Σ is scalar, (N,) or (N, N) noise."""
+    X = as_points(x)
+    N = X.shape[0]
+    nz = torch.as_tensor(noise, dtype=X.dtype, device=X.device)
+
+    def noise_apply(V2):
+        if nz.ndim == 0:
+            return nz * V2
+        if nz.ndim == 1:
+            return nz[:, None] * V2
+        return nz @ V2
+
+    fused = fused_stationary_matvec(kernel, X)
+    bs = N if block_size is None else block_size
+
+    def block(xb, V2):
+        return kernel.gram(xb, X) @ V2
+
+    def matvec(V):
+        vec = V.ndim == 1
+        V2 = V[:, None] if vec else V
+        out = fused(V) if fused is not None else None
+        if out is not None:
+            stats["matvec_fused"] += 1
+            out = out[:, None] if vec else out
+        else:
+            stats["matvec_plain"] += 1
+            if bs >= N:
+                out = kernel.gram(X) @ V2
+            elif torch.is_grad_enabled():
+                # under autograd each (bs, N) Gram block is rebuilt in the
+                # backward instead of kept: at N = 1e5 the kept blocks of
+                # one product would not fit device memory
+                out = torch.cat([checkpoint(block, X[i:i + bs], V2, use_reentrant=False)
+                                 for i in range(0, N, bs)])
+            else:
+                out = torch.cat([block(X[i:i + bs], V2) for i in range(0, N, bs)])
+        out = out + noise_apply(V2)
+        return out[:, 0] if vec else out
+
+    return matvec
+
+
+class CGPosterior:
+    """Exact posterior through CG solves: α = (K + Σ)⁻¹(y − m) at build,
+    and one block solve against K(x, x*) for each variance or covariance.
+
+    With more than ``config.matvec_fused_max_rhs`` test points a solve takes
+    the Gram block path even on the card (the JAX package's design: there
+    one Gram serves every column); 32 test points or fewer go through the
+    fused kernel."""
+
+    def __init__(self, fx: FiniteGP, y, tol=1e-6, maxiter=1000, block_size=None,
+                 precond_rank: int = 0):
+        self.fx = fx
+        self.prior = fx.f
+        self.x = as_points(fx.x)
+        self._matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, block_size)
+        self._tol = tol
+        self._maxiter = maxiter
+        if precond_rank > 0:
+            Lk = pivoted_cholesky(fx.f.kernel, fx.x, precond_rank)
+            self._M_inv = woodbury_preconditioner(Lk, fx.noise)
+        else:
+            self._M_inv = None
+        delta = y - fx.mean()
+        self.alpha = cg_solve(self._matvec, delta, tol, maxiter, M_inv=self._M_inv)
+        self.delta = delta
+
+    def mean(self, xs):
+        return self.prior.mean(xs) + self.prior.cov(self.x, xs).T @ self.alpha
+
+    def _solved_cross(self, xs):
+        Kxs = self.prior.cov(self.x, xs)  # (N, N*)
+        return Kxs, cg_solve(self._matvec, Kxs, self._tol, self._maxiter, M_inv=self._M_inv)
+
+    def cov(self, xs, zs=None):
+        Kxs, V = self._solved_cross(xs)
+        if zs is None:
+            return self.prior.cov(xs) - Kxs.T @ V
+        return self.prior.cov(xs, zs) - V.T @ self.prior.cov(self.x, zs)
+
+    def var(self, xs):
+        Kxs, V = self._solved_cross(xs)
+        return self.prior.var(xs) - torch.sum(Kxs * V, dim=0)
+
+    def mean_and_var(self, xs):
+        Kxs, V = self._solved_cross(xs)
+        mu = self.prior.mean(xs) + Kxs.T @ self.alpha
+        return mu, self.prior.var(xs) - torch.sum(Kxs * V, dim=0)
+
+    def mean_and_cov(self, xs):
+        Kxs, V = self._solved_cross(xs)
+        mu = self.prior.mean(xs) + Kxs.T @ self.alpha
+        return mu, self.prior.cov(xs) - Kxs.T @ V
+
+
+def posterior_cg(fx: FiniteGP, y, tol=1e-8, maxiter=1000, block_size=None,
+                 precond_rank: int = 0) -> CGPosterior:
+    """Exact GP regression posterior through conjugate gradients;
+    ``precond_rank > 0`` preconditions every solve with the
+    pivoted-Cholesky/Woodbury P (Gardner et al. 2018 §3.2)."""
+    return CGPosterior(fx, y, tol=tol, maxiter=maxiter, block_size=block_size,
+                       precond_rank=precond_rank)
+
+
+def _lanczos(matvec, v0, num_iters, reorth: bool = False):
+    """Lanczos tridiagonalization of A started at v0/‖v0‖: (alphas (m,),
+    betas (m−1,)).  ``reorth`` reorthogonalizes against the whole basis."""
+    if reorth:
+        _, alphas, betas = _lanczos_basis(matvec, v0, num_iters)
+        return alphas, betas
+    v = v0 / torch.linalg.vector_norm(v0)
+    v_prev = torch.zeros_like(v)
+    beta_prev = v.new_zeros(())
+    alphas, betas = [], []
+    for _ in range(num_iters):
+        w = matvec(v) - beta_prev * v_prev
+        alpha = torch.dot(w, v)
+        w = w - alpha * v
+        beta = torch.linalg.vector_norm(w)
+        v_prev, v = v, w / torch.where(beta == 0, 1.0, beta)
+        beta_prev = beta
+        alphas.append(alpha)
+        betas.append(beta)
+    return torch.stack(alphas), torch.stack(betas)[:-1]
+
+
+def _lanczos_block(matvec, V0, num_iters):
+    """R independent one-step Lanczos recurrences, column-blocked: V0 (n, R)
+    → (alphas (m, R), betas (m−1, R)).  The matvec sees a real (n, R)
+    block, so the probes ride the fused kernel together."""
+    norms = torch.linalg.vector_norm(V0, dim=0)
+    V = V0 / torch.where(norms == 0, 1.0, norms)
+    V_prev = torch.zeros_like(V)
+    beta_prev = V.new_zeros((V.shape[1],))
+    alphas, betas = [], []
+    for _ in range(num_iters):
+        W = matvec(V) - beta_prev * V_prev
+        alpha = torch.sum(W * V, dim=0)
+        W = W - alpha * V
+        beta = torch.linalg.vector_norm(W, dim=0)
+        V_prev, V = V, W / torch.where(beta == 0, 1.0, beta)
+        beta_prev = beta
+        alphas.append(alpha)
+        betas.append(beta)
+    return torch.stack(alphas), torch.stack(betas)[:-1]
+
+
+def _slq_quadrature(alphas, betas, n, ritz_floor):
+    """Mean Gauss quadrature over probe columns: alphas (m, R), betas
+    (m−1, R) → the mean of the per-probe n·e₁ᵀ log(T) e₁."""
+    T = (torch.diag_embed(alphas.T) + torch.diag_embed(betas.T, 1)
+         + torch.diag_embed(betas.T, -1))
+    evals, evecs = torch.linalg.eigh(T)
+    evals = torch.clamp(evals, min=ritz_floor)
+    tau = evecs[:, 0, :] ** 2
+    return torch.mean(torch.sum(tau * torch.log(evals), dim=-1) * n)
+
+
+def _lanczos_basis(matvec, v0, num_iters):
+    """Fully reorthogonalized Lanczos keeping the basis: (Q (n, m), alphas
+    (m,), betas (m−1,)) with QᵀAQ = T and Q[:, 0] = v0/‖v0‖; two
+    Gram-Schmidt passes against the stored basis a step."""
+    n = v0.shape[0]
+    m = num_iters
+    v = v0 / torch.linalg.vector_norm(v0)
+    Q = v0.new_zeros((n, m))
+    Q[:, 0] = v
+    v_prev = torch.zeros_like(v)
+    beta_prev = v.new_zeros(())
+    alphas, betas = [], []
+    for i in range(m):
+        w = matvec(v) - beta_prev * v_prev
+        alpha = torch.dot(w, v)
+        w = w - alpha * v
+        # columns past i are zero, so the products over all of Q are exact
+        w = w - Q @ (Q.T @ w)
+        w = w - Q @ (Q.T @ w)
+        beta = torch.linalg.vector_norm(w)
+        v_prev, v = v, w / torch.where(beta == 0, 1.0, beta)
+        beta_prev = beta
+        if i + 1 < m:
+            Q[:, i + 1] = v
+        alphas.append(alpha)
+        betas.append(beta)
+    return Q, torch.stack(alphas), torch.stack(betas)[:-1]
+
+
+def _precond_sqrt_ops(Lk: torch.Tensor, sigma2):
+    """``P^{±1/2}`` applications and the exact ``logdet P`` for
+    P = σ²I + Lk Lkᵀ, by the r × r Gram: LkᵀLk = V D Vᵀ gives orthonormal
+    U = Lk V D^{−1/2}, P = σ²I + U D Uᵀ, so
+
+        P^{±1/2} = σ^{±1} I + U diag((σ² + D)^{±1/2} − σ^{±1}) Uᵀ,
+        logdet P = N log σ² + Σ_live log1p(D_i / σ²).
+
+    Directions with D at rounding level are exact identity directions."""
+    N, r = Lk.shape
+    D, V = torch.linalg.eigh(Lk.T @ Lk)
+    D = torch.clamp(D, min=0.0)
+    live = D > r * torch.finfo(Lk.dtype).eps * torch.clamp(torch.max(D), min=1.0)
+    U = (Lk @ V) / torch.sqrt(torch.where(live, D, 1.0)) * live.to(Lk.dtype)
+    s2 = torch.as_tensor(sigma2, dtype=Lk.dtype, device=Lk.device)
+    lam = s2 + torch.where(live, D, 0.0)  # P's eigenvalues on span(U)
+
+    def apply_half(v, sign):
+        scale = lam ** (0.5 * sign) - s2 ** (0.5 * sign)
+        w = U.T @ v
+        return s2 ** (0.5 * sign) * v + U @ (scale * w if v.ndim == 1 else scale[:, None] * w)
+
+    logdetP = N * torch.log(s2) + torch.sum(torch.where(live, torch.log1p(D / s2), 0.0))
+    return apply_half, logdetP
+
+
+def _slq_minv(Lk, noise):
+    return None if Lk is None else woodbury_preconditioner(Lk, noise)
+
+
+def rademacher_probes(generator, num_probes: int, n: int, dtype=torch.float32,
+                      device=None) -> torch.Tensor:
+    """(num_probes, n) Rademacher signs from ``generator`` (a
+    ``torch.Generator`` or an int seed for a new one on ``device``).  The
+    JAX package's ``jax.random.rademacher`` bits cannot be reproduced: tests
+    make probes with numpy and pass them in."""
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=device or "cpu").manual_seed(int(generator))
+    bits = torch.randint(0, 2, (num_probes, n), generator=generator, device=generator.device)
+    return (2 * bits - 1).to(dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SLQOptions:
+    lanczos_iters: int
+    cg_tol: float
+    cg_maxiter: int
+    block_size: int | None
+    reorth: bool
+    precond_logdet: bool
+    precond_fresh: bool
+
+
+def _tree(obj):
+    """The floating tensors in a tree of dataclasses, and a function that
+    rebuilds the tree with other tensors in their places."""
+    leaves = []
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            if not o.is_floating_point():
+                return lambda new: o
+            leaves.append(o)
+            k = len(leaves) - 1
+            return lambda new: new[k]
+        if dataclasses.is_dataclass(o) and not isinstance(o, type):
+            fields = [(f.name, walk(getattr(o, f.name))) for f in dataclasses.fields(o) if f.init]
+            return lambda new: dataclasses.replace(o, **{n: b(new) for n, b in fields})
+        return lambda new: o
+
+    build = walk(obj)
+    return leaves, build
+
+
+def _slq_value(opts: _SLQOptions, fx, y, probes, Lk):
+    n = len(fx)
+    matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size)
+    delta = y - fx.mean()
+    alpha = cg_solve(matvec, delta, opts.cg_tol, opts.cg_maxiter, M_inv=_slq_minv(Lk, fx.noise))
+    quad = delta @ alpha
+
+    # preconditioned quadrature: SLQ on C = P^{−1/2} K̂ P^{−1/2}, plus the
+    # exact logdet P
+    logdet0 = probes.new_zeros(())
+    quad_mv = matvec
+    ritz_floor = 1e-30  # raw operator: Ritz values are garbage only below 0
+    if opts.precond_logdet and Lk is not None:
+        apply_half, logdet0 = _precond_sqrt_ops(Lk, fx.noise)
+        quad_mv = lambda v: apply_half(matvec(apply_half(v, -1)), -1)  # noqa: E731
+        # a fresh factor makes C ⪰ I exactly (K − LLᵀ is PSD), so a Ritz
+        # value below 1 is rounding; a carried factor may be stale, and then
+        # C's sub-1 eigenvalues are real, and only sub-eps ones are noise
+        ritz_floor = 1.0 if opts.precond_fresh else torch.finfo(probes.dtype).eps
+
+    if opts.reorth:
+        cols = [_lanczos(quad_mv, p, opts.lanczos_iters, reorth=True) for p in probes]
+        alphas = torch.stack([a for a, _ in cols], dim=1)
+        betas = torch.stack([b for _, b in cols], dim=1)
+    else:
+        alphas, betas = _lanczos_block(quad_mv, probes.T, opts.lanczos_iters)
+    logdet = logdet0 + _slq_quadrature(alphas, betas, n, ritz_floor)
+    return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
+
+
+def _surrogate(opts: _SLQOptions, fx, y, probes, alpha, W):
+    """Equal to the log marginal likelihood in value at the evaluation
+    point, with the stochastic-trace gradient (α and W = K̂⁻¹Z frozen):
+    2αᵀδ(θ) − αᵀK̂(θ)α and mean_p w_pᵀK̂(θ)z_p."""
+    mv = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size)
+    delta = y - fx.mean()
+    quad_sur = 2.0 * (alpha @ delta) - alpha @ mv(alpha)
+    trace_sur = torch.mean(torch.sum(W * mv(probes.T), dim=0))
+    return -0.5 * (quad_sur + trace_sur + delta.shape[0] * math.log(2.0 * math.pi))
+
+
+class _LogpdfSLQ(torch.autograd.Function):
+    """Value by CG and SLQ; gradient by the surrogate.  The forward keeps
+    only its inputs: the backward solves for α and W again and reaches the
+    hyperparameters inside the kernel objects through the rebuilt FiniteGP.
+    The preconditioner factor gets a zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, opts, build, y, probes, Lk, *leaves):
+        ctx.opts, ctx.build, ctx.Lk = opts, build, Lk
+        ctx.save_for_backward(y, probes, *leaves)
+        return _slq_value(opts, build(leaves), y, probes, Lk)
+
+    @staticmethod
+    def backward(ctx, ct):
+        y, probes, *leaves = ctx.saved_tensors
+        opts, build, Lk = ctx.opts, ctx.build, ctx.Lk
+        need_y, need_p, need_Lk = ctx.needs_input_grad[2:5]
+        with torch.no_grad():
+            fx = build(leaves)
+            matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size)
+            M_inv = _slq_minv(Lk, fx.noise)
+            alpha = cg_solve(matvec, y - fx.mean(), opts.cg_tol, opts.cg_maxiter, M_inv=M_inv)
+            W = cg_solve(matvec, probes.T, opts.cg_tol, opts.cg_maxiter, M_inv=M_inv)
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(bool(need))
+                   for t, need in zip((y, probes, *leaves), (need_y, need_p,
+                                                             *ctx.needs_input_grad[5:]))]
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(())
+            if wanted:
+                sur = _surrogate(opts, build(ins[2:]), ins[0], ins[1], alpha, W)
+                grads = iter(torch.autograd.grad(sur, wanted, ct, allow_unused=True))
+        out = [next(grads) if t.requires_grad else None for t in ins]
+        dLk = torch.zeros_like(Lk) if need_Lk else None
+        return (None, None, out[0], out[1], dLk, *out[2:])
+
+
+def logpdf_slq(
+    fx: FiniteGP,
+    y: torch.Tensor,
+    generator=None,
+    num_probes: int = 16,
+    lanczos_iters: int = 30,
+    cg_tol: float = 1e-8,
+    cg_maxiter: int = 1000,
+    block_size: int | None = None,
+    reorth: bool = False,
+    precond_rank: int = 0,
+    precond_Lk: torch.Tensor | None = None,
+    precond_logdet: bool = True,
+    probes: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Exact log marginal likelihood with the logdet by stochastic Lanczos
+    quadrature over Rademacher probes, differentiable in the kernel's
+    hyperparameters, the inputs, the noise and the targets through the
+    stochastic-trace estimator (Gardner et al. 2018 §2.2), with the same
+    probes as the value.
+
+    The probes come from ``generator`` (a ``torch.Generator`` or an int
+    seed) or are given as ``probes`` (num_probes, n).  ``precond_rank > 0``
+    preconditions the CG solves with a fresh pivoted-Cholesky/Woodbury P
+    and, with ``precond_logdet``, runs SLQ on P^{−1/2} K̂ P^{−1/2} and adds
+    logdet P in closed form; ``precond_Lk`` passes a carried factor
+    instead, whose Ritz floor is eps rather than 1 (it may be stale)."""
+    n = len(fx)
+    dtype = torch.promote_types(y.dtype, torch.float32)
+    if probes is None:
+        if generator is None:
+            raise ValueError("logpdf_slq needs a generator (or seed) or the probes")
+        probes = rademacher_probes(generator, num_probes, n, dtype, y.device)
+    probes = probes.to(dtype=dtype, device=y.device)
+    Lk = precond_Lk
+    precond_fresh = precond_Lk is None
+    if Lk is None and precond_rank > 0:
+        Lk = pivoted_cholesky(fx.f.kernel, as_points(fx.x), precond_rank)
+    if Lk is not None:
+        Lk = Lk.detach()
+    opts = _SLQOptions(lanczos_iters, cg_tol, cg_maxiter, block_size, bool(reorth),
+                       bool(precond_logdet), precond_fresh)
+    leaves, build = _tree(fx)
+    return _LogpdfSLQ.apply(opts, build, y, probes, Lk, *leaves)

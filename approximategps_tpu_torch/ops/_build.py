@@ -23,7 +23,8 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library", "check"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu")
+_SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "gram_matvec.cu",
+            "gram_matvec_f64.cu")
 _HEADERS = ("kernel_maps.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,6 +52,9 @@ _SIGNATURES = {
     # B, M, D -> scratch elements
     "agp_svgp_epilogue_bwd_scratch_f32": ((_i, _i, _i), ctypes.c_longlong),
     "agp_svgp_epilogue_bwd_scratch_f64": ((_i, _i, _i), ctypes.c_longlong),
+    # xq, zk, v, out, N, M, D, R, kmap, deriv, stream
+    "agp_gram_matvec_f32": ((_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
+    "agp_gram_matvec_f64": ((_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
     "agp_error_string": ((_i,), ctypes.c_char_p),
 }
 

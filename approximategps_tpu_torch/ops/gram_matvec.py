@@ -1,0 +1,233 @@
+"""Fused stationary Gram matvec and its pullback: the port of
+``approximategps_tpu/ops/gram_matvec.py::pallas_gram_matvec`` (forward
+``_forward_multi``; pullback ``_coord_cotangent`` and ``_gmv_bwd``).
+
+    out[i, r] = Σ_j g(‖xq_i − zk_j‖²) V[j, r],    K = g(r²(Xq, Zk)) never stored.
+
+:func:`gram_matvec` is a ``torch.autograd.Function`` on both devices; only
+its inner pass, :func:`gram_matvec_pass`, switches between the hand-written
+kernel of ``csrc/gram_matvec.cu`` (a CUDA tensor) and
+:func:`gram_matvec_plain` (a CPU tensor), so the CPU tests run the pullback's
+algebra and not autograd through a Gram.  The pullback is the same pass run
+again: V̄ = K(Zk, Xq)·Ō, and each coordinate cotangent is one pass with the
+derivative map g′ and (1 + D)·R right-hand sides [V, V∘z_d] (rank-R
+structure of W = (Ō Vᵀ)∘g′(r²); see :func:`_coord_cotangent`).
+
+What bounds the kernel on the H100 is operations (an exp and R + 2D FMAs an
+entry), not bytes; the note in the ``.cu`` file gives the design.  The
+pass counts its launches in ``gram_matvec.launches``, one a call of the
+kernel's entry point (more than 32 columns run as chunks inside that call),
+and the pullbacks count their passes in ``pullback_passes``.
+
+:func:`fused_stationary_matvec` is the dispatch ``kernel_matvec`` uses: D ≤ 8,
+R ≤ ``config.matvec_fused_max_rhs``, a kernel that unwraps to a scaled
+stationary map, and no forward-mode tangent (the Function has no
+forward-mode rule; the plain route has one).  Wider blocks take the plain
+block path even on the card, as in the JAX package: there one Gram serves
+all columns.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.autograd.forward_ad as fwAD
+
+from ..config import config, kernel_device
+from ..core.kernels import KernelMap, _param, unwrap_stationary
+from . import _build
+
+__all__ = [
+    "gram_matvec",
+    "gram_matvec_pass",
+    "gram_matvec_plain",
+    "gram_matvec_bwd",
+    "fused_stationary_matvec",
+    "pullback_passes",
+]
+
+_MAX_D = 8
+_MAX_R = 128  # columns one pass takes
+_PLAIN_ELEMS = 1 << 25  # (rows, M, D) differences one plain chunk forms
+
+# passes the pullbacks asked for (whatever the device), beside the kernel's
+# own launch count: a run's launches are its forward applications plus these
+pullback_passes = {"calls": 0, "passes": 0}
+
+
+def gram_matvec_plain(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: KernelMap,
+                      deriv: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of one pass: exact-difference r², the map
+    (g, or g′ with ``deriv``), and the product, in row chunks."""
+    fn = kmap.dk_of_r2 if deriv else kmap.k_of_r2
+    vec = V.ndim == 1
+    V2 = V[:, None] if vec else V
+    N, D = Xq.shape
+    rows = max(1, _PLAIN_ELEMS // max(1, Zk.shape[0] * D))
+    parts = []
+    for i0 in range(0, N, rows):
+        diff = Xq[i0:i0 + rows, None, :] - Zk[None, :, :]
+        parts.append(fn(torch.sum(diff * diff, dim=-1)) @ V2)
+    out = torch.cat(parts) if parts else V2.new_zeros((0, V2.shape[1]))
+    return out[:, 0] if vec else out
+
+
+def gram_matvec_pass(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: KernelMap,
+                     deriv: bool = False) -> torch.Tensor:
+    """One pass out = h(r²(Xq, Zk))·V, h = g (or g′ with ``deriv``); Xq
+    (N, D ≤ 8), Zk (M, D), V (M,) or (M, R ≤ 128).  A CPU tensor takes
+    :func:`gram_matvec_plain`; a CUDA tensor launches the kernel or raises.
+    Not differentiable itself: :func:`gram_matvec` is."""
+    if Xq.device.type == "cpu":
+        return gram_matvec_plain(Xq, Zk, V, kmap, deriv)
+    vec = V.ndim == 1
+    V2 = V[:, None] if vec else V
+    dtype = Xq.dtype
+    if (
+        not all(t.is_cuda and t.device == Xq.device and t.dtype == dtype for t in (Xq, Zk, V2))
+        or dtype not in (torch.float32, torch.float64)
+        or Xq.ndim != 2 or Zk.ndim != 2 or V2.ndim != 2
+        or not 1 <= Xq.shape[1] <= _MAX_D or Zk.shape[1] != Xq.shape[1]
+        or V2.shape[0] != Zk.shape[0] or not 1 <= V2.shape[1] <= _MAX_R
+    ):
+        raise ValueError(
+            f"gram_matvec: needs Xq (N, D <= {_MAX_D}), Zk (M, D), V (M,) or (M, R <= {_MAX_R}) "
+            "on one CUDA device in f32 or f64; got "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in (Xq, Zk, V)]}"
+        )
+    N, D = Xq.shape
+    M, R = V2.shape
+    out = torch.empty((N, R), dtype=dtype, device=Xq.device)
+    if N > 0 and M > 0:
+        lib = _build.load_library()
+        fn = lib.agp_gram_matvec_f32 if dtype == torch.float32 else lib.agp_gram_matvec_f64
+        Xq, Zk, V2 = Xq.contiguous(), Zk.contiguous(), V2.contiguous()
+        stream = torch.cuda.current_stream(Xq.device).cuda_stream
+        with torch.cuda.device(Xq.device):
+            err = fn(Xq.data_ptr(), Zk.data_ptr(), V2.data_ptr(), out.data_ptr(), N, M, D, R,
+                     int(kmap.id), int(deriv), stream)
+        _build.check(err, "gram_matvec")
+        gram_matvec.launches += 1
+    else:
+        out.zero_()
+    return out[:, 0] if vec else out
+
+
+def _coord_cotangent(Q, Zk, V2, O2, kmap: KernelMap):
+    """Q̄ for out = K(Q, Zk)·V through the rank-R structure of
+    W = (Σ_r ō_r v_rᵀ)∘g′(r²):
+
+        Q̄_i = 2 (s_i q_i − U_i),   s_i = Σ_j W_ij,   U_id = Σ_j W_ij z_jd,
+
+    both from g′ passes with right-hand sides [V_c, V_c∘z_d], chunked so
+    that each pass takes at most 128 columns."""
+    D = Q.shape[1]
+    R = V2.shape[1]
+    rc = max(1, _MAX_R // (1 + D))
+    s = Q.new_zeros((Q.shape[0],))
+    U = torch.zeros_like(Q)
+    for r0 in range(0, R, rc):
+        Vc = V2[:, r0:r0 + rc]
+        Oc = O2[:, r0:r0 + rc]
+        c = Vc.shape[1]
+        cols = torch.cat([Vc] + [Vc * Zk[:, d:d + 1] for d in range(D)], dim=1)
+        SU = gram_matvec_pass(Q, Zk, cols, kmap, deriv=True)
+        pullback_passes["passes"] += 1
+        s = s + torch.sum(Oc * SU[:, :c], dim=1)
+        U = U + torch.stack(
+            [torch.sum(Oc * SU[:, (1 + d) * c:(2 + d) * c], dim=1) for d in range(D)], dim=1)
+    return 2.0 * (s[:, None] * Q - U)
+
+
+def gram_matvec_bwd(Xq, Zk, V, obar, kmap: KernelMap, needs=(True, True, True)):
+    """(X̄q, Z̄k, V̄) of out = K(Xq, Zk)·V for the cotangent ``obar``; an
+    entry is None where ``needs`` says it is not wanted."""
+    pullback_passes["calls"] += 1
+    vec = V.ndim == 1
+    V2 = V[:, None] if vec else V
+    O2 = obar[:, None] if vec else obar
+    Xq_bar = Zk_bar = V_bar = None
+    if needs[2]:
+        # Kᵀ ō: the transposed pass (g is symmetric in its arguments)
+        V_bar = gram_matvec_pass(Zk, Xq, O2, kmap)
+        pullback_passes["passes"] += 1
+        V_bar = V_bar[:, 0] if vec else V_bar
+    if needs[0]:
+        Xq_bar = _coord_cotangent(Xq, Zk, V2, O2, kmap)
+    if needs[1]:
+        # the same contraction with the query and key roles (and V, Ō) swapped
+        Zk_bar = _coord_cotangent(Zk, Xq, O2, V2, kmap)
+    return Xq_bar, Zk_bar, V_bar
+
+
+class _GramMatvec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, Xq, Zk, V, kmap):
+        ctx.kmap = kmap
+        ctx.save_for_backward(Xq, Zk, V)
+        return gram_matvec_pass(Xq, Zk, V, kmap)
+
+    @staticmethod
+    def backward(ctx, obar):
+        Xq, Zk, V = ctx.saved_tensors
+        grads = gram_matvec_bwd(Xq, Zk, V, obar.to(Xq.dtype).contiguous(), ctx.kmap,
+                                ctx.needs_input_grad[:3])
+        return (*grads, None)
+
+
+def gram_matvec(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor,
+                kmap: KernelMap) -> torch.Tensor:
+    """K(Xq, Zk)·V without K, K = g(r²): Xq (N, D ≤ 8), Zk (M, D), V (M,) or
+    (M, R ≤ 128) → (N,) or (N, R).  Reverse-mode differentiable in all
+    three through the pass itself (see the module note); no forward-mode
+    rule.  Fold lengthscales into the inputs and the variance onto the
+    output."""
+    return _GramMatvec.apply(Xq, Zk, V, kmap)
+
+
+gram_matvec.launches = 0
+
+
+def _has_tangent(*ts) -> bool:
+    return any(isinstance(t, torch.Tensor) and fwAD.unpack_dual(t).tangent is not None
+               for t in ts)
+
+
+def fused_stationary_matvec(kernel, X: torch.Tensor):
+    """``fused(v) -> K(X, X)·v | None``, or None where the kernel, the
+    inputs or the config do not qualify.
+
+    Qualifies when ``config.matvec_mode`` is "fused" (any device: the CPU
+    runs the Function with its plain pass, as the JAX package's tests run
+    Pallas in interpret mode), or "auto" on the kernel device; kernels
+    allowed; D ≤ 8; the kernel unwraps to a scaled parameter-free
+    stationary map; and nothing carries a forward-mode tangent.  The closure
+    returns None for blocks wider than ``config.matvec_fused_max_rhs`` (the
+    plain block path, where one Gram serves all columns) and for a ``v``
+    with a tangent."""
+    mode = config.matvec_mode
+    if mode == "plain" or not config.use_kernels:
+        return None
+    if mode not in ("auto", "fused"):
+        raise ValueError(f"unknown matvec_mode {mode!r}")
+    if X.ndim != 2 or not 1 <= X.shape[1] <= _MAX_D:
+        return None
+    if mode == "auto" and not kernel_device(X):
+        return None
+    uw = unwrap_stationary(kernel)
+    if uw is None:
+        return None
+    kmap, scale, variance = uw
+    if _has_tangent(X, scale, variance):
+        return None
+    Xs = X if scale is None else X * _param(scale, X)
+    max_rhs = int(config.matvec_fused_max_rhs)
+
+    def fused(v):
+        if v.ndim not in (1, 2) or _has_tangent(v):
+            return None
+        if v.ndim == 2 and v.shape[1] > max_rhs:
+            return None
+        out = gram_matvec(Xs, Xs, v, kmap)
+        return out if variance is None else _param(variance, out) * out
+
+    return fused

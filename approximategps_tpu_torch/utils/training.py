@@ -1,7 +1,8 @@
 """SVGP parameters and training (port of the parts of
 ``approximategps_tpu/utils/training.py`` the serving and training paths
 read: ``SVGPParams``, ``init_svgp_params``, ``build_svgp`` and
-``adam_fit``).  The natural-gradient step is not ported yet."""
+``adam_fit``; and ``make_slq_hyperopt_step`` of the matrix-free exact GP).
+The natural-gradient step is not ported yet."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from ..core.kernels import SqExponentialKernel, with_lengthscale
 from ..models.svgp import NonCentered, SparseVariationalApproximation
 from .bijectors import cholesky_parameter, flat_from_tril, invsoftplus, softplus
 
-__all__ = ["SVGPParams", "init_svgp_params", "build_svgp", "adam_fit"]
+__all__ = ["SVGPParams", "init_svgp_params", "build_svgp", "adam_fit", "make_slq_hyperopt_step"]
 
 
 class SVGPParams(NamedTuple):
@@ -90,3 +91,66 @@ def adam_fit(loss_fn: Callable, params, data_iter, learning_rate: float = 1e-2,
         opt.step()
         losses.append(loss.detach())
     return params, losses
+
+
+def make_slq_hyperopt_step(
+    build_fx: Callable,
+    y: torch.Tensor,
+    generator,
+    optimizer: Callable | None = None,
+    learning_rate: float = 1e-2,
+    precond_rank: int = 0,
+    refresh_every: int = 25,
+    probes: torch.Tensor | None = None,
+    **slq_kwargs,
+):
+    """Exact-GP hyperparameter optimisation at matrix-free scale: Adam on
+    −``logpdf_slq``, with the pivoted-Cholesky CG preconditioner carried
+    across steps and refreshed every ``refresh_every`` steps.
+
+    ``build_fx(params) -> FiniteGP`` over the fixed training inputs; the
+    probes are drawn once from ``generator`` (a ``torch.Generator`` or an
+    int seed), or given, and every step uses them, as the JAX package uses
+    one key.  Returns ``(step, init)``: ``init(params)`` builds the carry
+    ``(params, optimizer, Lk, t)`` with the factor of the initial
+    hyperparameters; ``step(carry) -> (carry, loss)`` updates ``params`` (a
+    tensor, or a dict or sequence of tensors) in place.  At t = 0 the
+    refresh is skipped (init built the factor from the same
+    hyperparameters).  ``optimizer``, if given, maps the list of leaves to
+    a ``torch.optim`` optimiser; the default is Adam at ``learning_rate``,
+    whose defaults are ``optax.adam``'s."""
+    from ..core.kernels import as_points
+    from ..models.iterative import logpdf_slq, pivoted_cholesky, rademacher_probes
+
+    if probes is None:
+        probes = rademacher_probes(generator, slq_kwargs.pop("num_probes", 16), y.shape[0],
+                                   torch.promote_types(y.dtype, torch.float32), y.device)
+    slq_kwargs.pop("num_probes", None)
+
+    def _factor(params):
+        fx = build_fx(params)
+        return pivoted_cholesky(fx.f.kernel, as_points(fx.x), precond_rank)
+
+    def _params_leaves(params):
+        return [params] if isinstance(params, torch.Tensor) else _leaves(params)
+
+    def init(params):
+        leaves = _params_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        opt = (optimizer(leaves) if optimizer is not None
+               else torch.optim.Adam(leaves, lr=learning_rate))
+        Lk = _factor(params) if precond_rank > 0 else None
+        return (params, opt, Lk, 0)
+
+    def step(carry):
+        params, opt, Lk, t = carry
+        if precond_rank > 0 and t > 0 and t % refresh_every == 0:
+            Lk = _factor(params)
+        opt.zero_grad(set_to_none=True)
+        loss = -logpdf_slq(build_fx(params), y, probes=probes, precond_Lk=Lk, **slq_kwargs)
+        loss.backward()
+        opt.step()
+        return (params, opt, Lk, t + 1), loss.detach()
+
+    return step, init

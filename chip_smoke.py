@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's SVGP serving and training paths on one
-CUDA GPU.
+"""Smoke run of the PyTorch port's SVGP serving and training paths and its
+matrix-free exact GP on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -15,8 +15,10 @@ Phases (a failing phase raises, and the script exits non-zero):
    version on the card, in f64 and in f32 at the shapes its path gives it,
    each error printed beside its limit; then each kernel's time beside the
    plain version's (CUDA events, median).  The kernels: the gram-fused
-   (L, L⁻¹) build (A), the epilogue forward (B), its backward (3) and the
-   (L, L⁻¹) of a given matrix (4).
+   (L, L⁻¹) build (A), the epilogue forward (B), its backward (3), the
+   (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5): its forward
+   at R = 1 and R = 16 and its pullback at N = M = 10^5, D = 2 in f32, and
+   every map, g and g′, in f64 at N = 8192.
 4. The slice: a NonCentered SVGP posterior at the bench configuration
    (M = 2048 inducing points, D = 8, SE kernel with raw hyperparameters
    [0.5, 0.5], jitter 1e-6; parameters from numpy with a fixed seed) built
@@ -42,10 +44,27 @@ Phases (a failing phase raises, and the script exits non-zero):
    (kernel 4 once, the epilogue forward and backward once a block) and that
    the gradients agree with the plain path (checkpointed Gram blocks); prints
    the ms a value-and-gradient of both paths.
+7. The matrix-free exact GP (``bench.py::laplace_cg_lml``'s sizes with a
+   Gaussian likelihood): N = 10^5 points in [0, 10]², y = sin(x_0) +
+   0.1·N(0, 1), SE kernel from raw θ = softplus⁻¹(1.5, 1.2, 0.1); 5 steps of
+   ``make_slq_hyperopt_step`` (Adam lr 1e-2 on −``logpdf_slq``, 16 probes,
+   30 Lanczos iterations, CG tol 1e-5 and at most 400 iterations, a rank-512
+   pivoted-Cholesky preconditioner refreshed every 25 steps, blocks of
+   8192), then ``posterior_cg(...).mean_and_var`` at 32 test points.
+   Asserts that every matvec went through kernel 5 (launches = the counted
+   matvecs + the pullbacks' passes; none on the plain block path), step 1's
+   loss and gradient and the serve against the plain path (f32), the serve
+   of both paths against the f64 path at N = 10^5, at N = 8192 the f64
+   kernel path against the f64 plain path and the dense exact ``logpdf``
+   and posterior, and that losses and θ stay finite; prints CG iterations,
+   host syncs, ms a step and ms a serve of both paths (the plain path once:
+   it is slow).
 
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-6 (each run with the counts
-set to 0 just before it), error and times; the last line is
+source, launches in the path runs of phases 4-7 (each run with the counts
+set to 0 just before it), error, times and bound (the least time the card
+could take for the work: operations over the peak rate of their unit or
+bytes over the memory rate, whichever is larger); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -64,7 +83,8 @@ import torch
 import approximategps_tpu_torch as tgp
 from approximategps_tpu_torch import convert
 from approximategps_tpu_torch.core import kernels as tk
-from approximategps_tpu_torch.ops import _build, panel_chol, svgp_epilogue
+from approximategps_tpu_torch.models import iterative
+from approximategps_tpu_torch.ops import _build, gram_matvec, panel_chol, svgp_epilogue
 from approximategps_tpu_torch.utils.bijectors import softplus
 
 # every kernel's launch counter, by the name the kernels line gives it
@@ -73,12 +93,16 @@ COUNTERS = {
     "svgp_data_epilogue": svgp_epilogue.svgp_data_epilogue,
     "svgp_data_epilogue_bwd": svgp_epilogue.svgp_data_epilogue_bwd,
     "chol_inv": panel_chol.chol_inv,
+    "gram_matvec": gram_matvec.gram_matvec,
 }
 
 
 def reset_counts() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
+    iterative.reset_stats()
+    for k in gram_matvec.pullback_passes:
+        gram_matvec.pullback_passes[k] = 0
 
 
 def read_counts() -> dict:
@@ -96,6 +120,23 @@ NOISE = 0.1
 # entry: the two paths factor Kuu by different routes (the panel kernels
 # against cuSOLVER) and sum over 8192 or 2^20 points in other orders
 GRAD_RTOL = 1e-3
+# the exact GP in f32, kernels against the plain path, relative to the
+# largest entry: CG stops at a relative residual of 1e-5 on each path, at
+# other points of two trajectories, the plain path's Gram blocks take r² by
+# the |x|² identity (an error of about eps·|x − c|² ≈ 6e-6 here), and each
+# f32 path's posterior mean sits about 2e-4 from the f64 one (phase 7
+# prints both)
+GP_RTOL = 1e-3
+# the matrix-free exact GP (bench.py::laplace_cg_lml's sizes, Gaussian
+# likelihood): raw θ = softplus⁻¹ of (variance, lengthscale, noise variance)
+N_GP, D_GP, N_GP64 = 100_000, 2, 8192
+GP_THETA = np.log(np.expm1(np.array([1.5, 1.2, 0.1])))
+GP_SLQ = dict(lanczos_iters=30, cg_tol=1e-5, cg_maxiter=400, block_size=8192)
+GP_PROBES, GP_RANK, GP_LR, GP_REFRESH, GP_STEPS, GP_N_TEST = 16, 512, 1e-2, 25, 5, 32
+# H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
+# special-function unit results (exp): 16 a clock an SM (Hopper white
+# paper) × 132 SMs × 1.98 GHz boost
+PEAK_F32, PEAK_BYTES, PEAK_SFU = 67e12, 3.35e12, 16 * 132 * 1.98e9
 
 
 def check(ok: bool, what: str) -> None:
@@ -310,7 +351,108 @@ def phase_parity(dev) -> dict:
     print(f"time svgp_data_epilogue_bwd f32 M={M} B={BLOCK}: "
           f"kernel {out['svgp_data_epilogue_bwd']['ms']:.3f} ms, "
           f"plain {out['svgp_data_epilogue_bwd']['plain_ms']:.3f} ms")
+    out["gram_matvec"] = parity_gram_matvec(dev, maps)
     return out
+
+
+def plain_pullback(Xq, Zk, V, W, kmap, rows: int):
+    """(X̄q, Z̄k, V̄) of ⟨W, K(Xq, Zk)·V⟩ by autograd through the plain
+    version, ``rows`` query rows at a time: the whole graph at
+    N = M = 10^5 would not fit the card."""
+    Zk, V = Zk.detach().requires_grad_(), V.detach().requires_grad_()
+    gx, gz, gv = [], torch.zeros_like(Zk), torch.zeros_like(V)
+    for i in range(0, Xq.shape[0], rows):
+        xq = Xq[i:i + rows].detach().requires_grad_()
+        out = gram_matvec.gram_matvec_plain(xq, Zk, V, kmap)
+        a, b, c = torch.autograd.grad(out, (xq, Zk, V), W[i:i + rows])
+        gx.append(a)
+        gz += b
+        gv += c
+    return torch.cat(gx), gz, gv
+
+
+def matvec_work(N: int, M: int, D: int, R: int, elt: int = 4):
+    """(flops, bytes, exps) of one pass out = h(r²(Xq, Zk))·V: an entry
+    costs D subtractions and D FMAs, the scaling of r² and R FMAs (two flops
+    each) and one exp; each input read once and the output written once."""
+    return N * M * (3 * D + 1 + 2 * R), elt * (N * D + M * D + M * R + N * R), N * M
+
+
+def bound(flops: float, nbytes: float, exps: float = 0.0):
+    """(ms, what bounds it): the least time the card could take, the larger
+    of the operations over the peak rate of their unit and the bytes over
+    the memory rate."""
+    ops_ms = 1e3 * max(flops / PEAK_F32, exps / PEAK_SFU)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def parity_gram_matvec(dev, maps: dict) -> dict:
+    """Kernel 5 against its plain version: f64 at N = 8192 (every map, g
+    and g′, the pullback on the self-Gram), then f32 at the path's shape,
+    N = M = 10^5 and D = 2 on the SE map, with the times of R = 1, R = 16
+    and one pullback at R = 16."""
+    rng = np.random.default_rng(SEED + 6)
+    t = lambda a, dtype=torch.float64: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    X64 = t(rng.uniform(0.0, 10.0, (N_GP64, D_GP)))
+    Z64 = t(rng.uniform(0.0, 10.0, (N_GP64 * 7 // 8 + 9, D_GP)))  # M ragged against the tiles
+    for name, kmap in maps.items():
+        worst = 0.0
+        for R in (1, 16):
+            V = t(rng.standard_normal((Z64.shape[0], R) if R > 1 else Z64.shape[0]))
+            for deriv in (False, True):
+                got = gram_matvec.gram_matvec_pass(X64, Z64, V, kmap, deriv)
+                worst = max(worst, rel_err(got, gram_matvec.gram_matvec_plain(X64, Z64, V, kmap,
+                                                                               deriv)))
+        check(worst <= 1e-12, f"gram_matvec f64 N={N_GP64} M={Z64.shape[0]} D={D_GP} {name}, "
+              f"g and g', R = 1 and 16: rel err {worst:.3e} <= 1e-12")
+    names = ("Xq_bar", "Zk_bar", "V_bar")
+    V64, W64 = t(rng.standard_normal((N_GP64, 16))), t(rng.standard_normal((N_GP64, 16)))
+    for name in ("se", "matern12", "matern52"):
+        got = gram_matvec.gram_matvec_bwd(X64, X64, V64, W64, maps[name])
+        ref = plain_pullback(X64, X64, V64, W64, maps[name], rows=N_GP64)
+        errs = [rel_err(g, r) for g, r in zip(got, ref)]
+        check(max(errs) <= 1e-10, f"gram_matvec pullback f64 self-Gram N={N_GP64} R=16 {name}: "
+              "rel err " + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)) + " <= 1e-10")
+
+    se = maps["se"]
+    X = t(rng.uniform(0.0, 10.0, (N_GP, D_GP)), torch.float32)
+    out = {}
+    for R in (1, 16):
+        V = t(rng.standard_normal((N_GP, R) if R > 1 else N_GP), torch.float32)
+        got = gram_matvec.gram_matvec_pass(X, X, V, se)
+        ref = gram_matvec.gram_matvec_plain(X, X, V, se)
+        e = rel_err(got, ref)
+        check(e <= 1e-5, f"gram_matvec f32 N=M={N_GP} D={D_GP} R={R} se: rel err {e:.3e} <= 1e-5")
+        ms = cuda_ms(lambda: gram_matvec.gram_matvec_pass(X, X, V, se), 5)
+        plain_ms = cuda_ms(lambda: gram_matvec.gram_matvec_plain(X, X, V, se), 2)
+        b_ms, b_by = bound(*matvec_work(N_GP, N_GP, D_GP, R))
+        print(f"time gram_matvec f32 N=M={N_GP} D={D_GP} R={R}: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        out[f"r{R}"] = {"max_abs_err": max_abs(got, ref), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}
+    V, W = (t(rng.standard_normal((N_GP, 16)), torch.float32) for _ in range(2))
+    got = gram_matvec.gram_matvec_bwd(X, X, V, W, se)
+    ref = plain_pullback(X, X, V, W, se, rows=2048)
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    check(max(errs) <= 1e-4, f"gram_matvec pullback f32 N=M={N_GP} D={D_GP} R=16 se: rel err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)) + " <= 1e-4")
+    ms = cuda_ms(lambda: gram_matvec.gram_matvec_bwd(X, X, V, W, se), 3)
+    plain_ms = cuda_ms(lambda: plain_pullback(X, X, V, W, se, rows=2048), 1)
+    # the transposed pass at R = 16 and two derivative passes at (1 + D)·16
+    works = [matvec_work(N_GP, N_GP, D_GP, R) for R in (16, 48, 48)]
+    b_ms, b_by = bound(sum(w[0] for w in works),
+                       4 * (4 * N_GP * D_GP + 3 * N_GP * 16), sum(w[2] for w in works))
+    print(f"time gram_matvec pullback f32 N=M={N_GP} D={D_GP} R=16: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    out["bwd"] = {"max_abs_err": max(max_abs(g, r) for g, r in zip(got, ref)), "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    # the kernels line reports R = 16, the shape of the probe blocks (every
+    # Lanczos step and the probe solves), beside R = 1 and the pullback
+    numbers = dict(out["r16"])
+    for part in ("r1", "bwd"):
+        numbers.update({f"{k}_{part}": v for k, v in out[part].items() if k != "max_abs_err"})
+    return numbers
 
 
 def slice_params() -> dict:
@@ -347,7 +489,7 @@ def phase_slice(dev) -> dict:
         print(f"slice launches: {launches}")
         n_blocks = -(-N_TEST // BLOCK)
         check(launches == {"gram_chol_inv": 1, "svgp_data_epilogue": n_blocks,
-                           "svgp_data_epilogue_bwd": 0, "chol_inv": 0},
+                           "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0},
               f"the posterior build launched kernel A once and the sweep kernel B "
               f"{n_blocks} times")
         check(mu.shape == var.shape == (N_TEST,), f"outputs of shape ({N_TEST},)")
@@ -463,7 +605,7 @@ def phase_minibatch(dev) -> dict:
     launches = read_counts()
     print(f"minibatch launches over {STEPS} steps: {launches}")
     check(launches == {"gram_chol_inv": STEPS, "svgp_data_epilogue": 0,
-                       "svgp_data_epilogue_bwd": 0, "chol_inv": 0},
+                       "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0},
           f"kernel A launched once a step, the epilogue never ({STEPS} steps)")
     losses = torch.stack(losses)
     check(bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all())
@@ -499,7 +641,7 @@ def phase_streaming(dev) -> dict:
     launches = read_counts()
     print(f"streaming launches: {launches}")
     check(launches == {"gram_chol_inv": 0, "svgp_data_epilogue": n_blocks,
-                       "svgp_data_epilogue_bwd": n_blocks, "chol_inv": 1},
+                       "svgp_data_epilogue_bwd": n_blocks, "chol_inv": 1, "gram_matvec": 0},
           f"kernel 4 launched once, the epilogue forward and backward {n_blocks} times each")
     check(bool(torch.isfinite(v)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
           "streaming value and gradients finite")
@@ -516,6 +658,144 @@ def phase_streaming(dev) -> dict:
     return launches
 
 
+def phase_exact_gp(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = 10.0 * torch.rand((N_GP, D_GP), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + 0.1 * torch.randn((N_GP,), generator=gen, device=dev)
+    xs = 10.0 * torch.rand((GP_N_TEST, D_GP), generator=gen, device=dev)
+    probes = iterative.rademacher_probes(gen, GP_PROBES, N_GP, torch.float32, dev)
+    theta0 = convert.from_jax_params(GP_THETA, device=dev, dtype=torch.float32)
+
+    def build(theta):
+        return convert.build_exact_fx(theta, x)
+
+    def serve(theta):
+        with torch.no_grad():
+            post = tgp.posterior_cg(build(theta), y, tol=GP_SLQ["cg_tol"], precond_rank=GP_RANK,
+                                    block_size=GP_SLQ["block_size"])
+            return post.mean_and_var(xs)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    # the path, counted: the hyperparameter steps, then the serve
+    reset_counts()
+    step, init = tgp.make_slq_hyperopt_step(build, y, None, learning_rate=GP_LR,
+                                            precond_rank=GP_RANK, refresh_every=GP_REFRESH,
+                                            probes=probes, **GP_SLQ)
+    carry, init_ms = timed(lambda: init(theta0.clone()))
+    Lk0 = carry[2].clone()
+    losses, step_ms = [], []
+    for _ in range(GP_STEPS):
+        (carry, loss), ms = timed(lambda: step(carry))
+        losses.append(loss)
+        step_ms.append(ms)
+    train = dict(iterative.stats)
+    theta = carry[0].detach()
+    (mu, var), serve_ms = timed(lambda: serve(theta))
+    launches = read_counts()
+    stats, passes = dict(iterative.stats), dict(gram_matvec.pullback_passes)
+    serve_stats = {k: stats[k] - train[k] for k in stats}
+    print(f"exact GP launches: {launches}; matvecs {stats['matvec_fused']} fused, "
+          f"{stats['matvec_plain']} plain; pullbacks {passes['calls']} with {passes['passes']} "
+          "passes")
+    print(f"exact GP CG: training {train['cg_solves']} solves, {train['cg_iterations']} "
+          f"iterations, {train['cg_host_syncs']} host syncs in {GP_STEPS} steps; serve "
+          f"{serve_stats['cg_solves']} solves, {serve_stats['cg_iterations']} iterations, "
+          f"{serve_stats['cg_host_syncs']} host syncs")
+    check(launches["gram_matvec"] == stats["matvec_fused"] + passes["passes"]
+          and stats["matvec_plain"] == 0
+          and all(n == 0 for k, n in launches.items() if k != "gram_matvec"),
+          f"every matvec of the path on kernel 5: {launches['gram_matvec']} launches = "
+          f"{stats['matvec_fused']} matvecs + {passes['passes']} pullback passes, "
+          "0 on the plain block path")
+    losses = torch.stack(losses)
+    check(bool(torch.isfinite(losses).all() and torch.isfinite(theta).all()),
+          f"{GP_STEPS} hyperparameter steps: losses and θ finite (loss {losses[0].item():.6g} -> "
+          f"{losses[-1].item():.6g}, variance, lengthscale, noise "
+          f"{[round(v, 5) for v in softplus(theta).tolist()]})")
+    check(mu.shape == var.shape == (GP_N_TEST,)
+          and bool(torch.isfinite(mu).all() and torch.isfinite(var).all()),
+          f"posterior_cg mean and variance finite at {GP_N_TEST} points")
+    print(f"time exact GP (kernels): init {init_ms:.3f} ms (rank-{GP_RANK} factor), steps "
+          + ", ".join(f"{m:.3f}" for m in step_ms) + f" ms; serve {serve_ms:.3f} ms "
+          f"(posterior_cg build + mean_and_var at {GP_N_TEST} points)")
+
+    # step 1 against the plain path on the card: the same probes and factor
+    def value_and_grad(use: bool, th, xx, yy, pp, Lk, **kw):
+        th = th.clone().requires_grad_()
+        with tgp.config_context(use_kernels=use):
+            v = -tgp.logpdf_slq(convert.build_exact_fx(th, xx), yy, probes=pp, precond_Lk=Lk,
+                                **kw)
+            return v.detach(), torch.autograd.grad(v, th)[0]
+
+    v, g = value_and_grad(True, theta0, x, y, probes, Lk0, **GP_SLQ)
+    (v0, g0), plain_step_ms = timed(lambda: value_and_grad(False, theta0, x, y, probes, Lk0,
+                                                           **GP_SLQ))
+    ev, eg = abs(v.item() - v0.item()) / abs(v0.item()), rel_err(g, g0)
+    check(ev <= GP_RTOL and eg <= GP_RTOL,
+          f"exact GP step 1, kernels vs plain path f32: rel err loss {ev:.3e}, dθ {eg:.3e} "
+          f"<= {GP_RTOL:g}")
+    (mu0, var0), plain_serve_ms = timed(lambda: _plain(serve, theta))
+    emu = rel_err(mu, mu0)
+    evar = max_abs(var, var0) / softplus(theta[0]).item()
+    check(emu <= GP_RTOL and evar <= GP_RTOL,
+          f"posterior_cg at {GP_N_TEST} points, kernels vs plain path f32: rel err mu "
+          f"{emu:.3e}, max|d var| / prior variance {evar:.3e} <= {GP_RTOL:g}")
+    print(f"time exact GP (plain, once): value and gradient {plain_step_ms:.3f} ms, serve "
+          f"{plain_serve_ms:.3f} ms")
+    # what f32 can give here: both paths against the f64 path on the same
+    # (f32) data, with CG run to 1e-10
+    with torch.no_grad():
+        mu64 = tgp.posterior_cg(convert.build_exact_fx(theta.double(), x.double()), y.double(),
+                                tol=1e-10, precond_rank=GP_RANK,
+                                block_size=GP_SLQ["block_size"]).mean_and_var(xs.double())[0]
+    ek, ep = rel_err(mu, mu64), rel_err(mu0, mu64)
+    check(max(ek, ep) <= GP_RTOL,
+          f"posterior_cg mean at {GP_N_TEST} points against the f64 path (N={N_GP}, CG tol "
+          f"1e-10): rel err kernels {ek:.3e}, plain {ep:.3e} <= {GP_RTOL:g}")
+
+    # f64 at N = 8192: the kernel path against the plain path, the dense
+    # exact logpdf and the dense exact posterior
+    x64, y64, p64 = x[:N_GP64].double(), y[:N_GP64].double(), probes[:, :N_GP64].double()
+    th64 = theta0.double()
+    fx64 = convert.build_exact_fx(th64, x64)
+    Lk64 = iterative.pivoted_cholesky(fx64.f.kernel, x64, GP_RANK)
+    kw64 = dict(GP_SLQ, cg_tol=1e-10, cg_maxiter=1000)
+    v64, g64 = value_and_grad(True, th64, x64, y64, p64, Lk64, **kw64)
+    v64p, g64p = value_and_grad(False, th64, x64, y64, p64, Lk64, **kw64)
+    ev, eg = abs(v64.item() - v64p.item()) / abs(v64p.item()), rel_err(g64, g64p)
+    check(ev <= 1e-8 and eg <= 1e-8,
+          f"exact GP f64 N={N_GP64}, kernels vs plain path: rel err loss {ev:.3e}, dθ {eg:.3e} "
+          "<= 1e-8")
+    exact = -tgp.logpdf(fx64, y64).item()
+    e = abs(v64.item() - exact) / abs(exact)
+    check(e <= 0.05, f"exact GP f64 N={N_GP64}: SLQ loss {v64.item():.8g} against the dense "
+          f"exact {exact:.8g}, rel err {e:.3e} <= 0.05")
+    with torch.no_grad():
+        mu64, var64 = tgp.posterior_cg(fx64, y64, tol=1e-10, precond_rank=GP_RANK).mean_and_var(
+            xs.double())
+        mu64d, var64d = tgp.posterior(fx64, y64).mean_and_var(xs.double())
+    emu = rel_err(mu64, mu64d)
+    evar = max_abs(var64, var64d) / softplus(th64[0]).item()
+    check(emu <= 1e-6 and evar <= 1e-6,
+          f"posterior_cg f64 N={N_GP64} vs the dense exact posterior: rel err mu {emu:.3e}, "
+          f"max|d var| / prior variance {evar:.3e} <= 1e-6")
+    print(f"exact GP timing summary: step {statistics.median(step_ms):.3f} ms (median of "
+          f"{GP_STEPS}, kernels) vs {plain_step_ms:.3f} ms (plain value and gradient, once); "
+          f"serve {serve_ms:.3f} ms vs {plain_serve_ms:.3f} ms")
+    return launches
+
+
+def _plain(fn, *args):
+    with tgp.config_context(use_kernels=False):
+        return fn(*args)
+
+
 def main() -> None:
     name = phase_device()
     dev = torch.device("cuda", 0)
@@ -525,6 +805,7 @@ def main() -> None:
         "serving": phase_slice(dev),
         "minibatch": phase_minibatch(dev),
         "streaming": phase_streaming(dev),
+        "exact_gp": phase_exact_gp(dev),
     }
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
@@ -535,13 +816,33 @@ def main() -> None:
                                    "approximategps_tpu/ops/svgp_epilogue.py:271"),
         "chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
                      "approximategps_tpu/ops/panel_chol.py:338"),
+        "gram_matvec": ("approximategps_tpu_torch/csrc/gram_matvec.cu",
+                        "approximategps_tpu/ops/gram_matvec.py:151"),
+    }
+    # bounds of kernels A, B, 3 and 4 at the shapes phase 3 timed them (f32,
+    # M = 2048, B = 16384): a Cholesky and a triangular inverse are M³/3
+    # FMAs each; var = diag(K0ᵀ Se K0) over Se's upper triangle M²B/2 FMAs;
+    # the pullback Se·K0 (M²B) and the symmetric S̄e (M²B/2); an FMA is two
+    # flops, a kernel entry 3D + 1 flops and one exp
+    chol = 2 * 2 * M ** 3 / 3
+    gram_b = (BLOCK * M * (3 * D + 1), BLOCK * M)
+    bounds = {
+        "gram_chol_inv": bound(chol + M * M / 2 * (3 * D + 1), 4 * (M * D + 2 * M * M), M * M / 2),
+        "chol_inv": bound(chol, 4 * 3 * M * M),
+        "svgp_data_epilogue": bound(2 * (M * M * BLOCK / 2 + M * BLOCK) + gram_b[0],
+                                    4 * (BLOCK * D + M * D + M * M + M + 2 * BLOCK), gram_b[1]),
+        "svgp_data_epilogue_bwd": bound(2 * 1.5 * M * M * BLOCK + gram_b[0],
+                                        4 * (2 * (BLOCK * D + M * D + M * M + M) + 2 * BLOCK),
+                                        gram_b[1]),
     }
     kernels = []
     for k, (src, rep) in meta.items():
         per_path = {path: counts[k] for path, counts in by_path.items()}
+        extra = {} if k == "gram_matvec" else dict(zip(("bound_ms", "bound_by"), bounds[k]))
+        # no single PyTorch call computes any of the five functions
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         "launches": sum(per_path.values()), "launches_by_path": per_path,
-                        **numbers[k]})
+                        "library_ms": None, **extra, **numbers[k]})
     check(all(k["launches"] > 0 for k in kernels), "every kernel launched by a path run")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

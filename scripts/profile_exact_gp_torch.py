@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's matrix-free exact GP goes, on one
+CUDA GPU.
+
+    python3 scripts/profile_exact_gp_torch.py
+
+Builds ``chip_smoke.py``'s phase-7 configuration (N = 10^5 points in
+[0, 10]², SE kernel from raw θ = softplus⁻¹(1.5, 1.2, 0.1), 16 probes, 30
+Lanczos iterations, CG tol 1e-5, a rank-512 pivoted-Cholesky preconditioner,
+blocks of 8192), times the rank-512 factor twice, runs one hyperparameter
+step to warm up, then profiles one step and one ``posterior_cg`` serve at 32
+points with ``torch.profiler``: the device time by kernel name and the
+device's busy share of the wall time.  Prints the card's name and power
+limit first.  Needs a CUDA device (it exits non-zero without one).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import approximategps_tpu_torch as tgp  # noqa: E402
+import chip_smoke as cs  # noqa: E402
+from approximategps_tpu_torch import convert  # noqa: E402
+from approximategps_tpu_torch.models import iterative  # noqa: E402
+
+
+def profile(label: str, fn) -> None:
+    """Device time of ``fn`` by kernel name, from the profiler's device-side
+    events (one stream, so they do not overlap), beside its wall time."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            row = by_name.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    busy = sum(ms for ms, _ in by_name.values())
+    print(f"{label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} %)")
+    for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {ms:10.3f} ms  {calls:6d} calls  {name[:90]}")
+
+
+def main() -> None:
+    cs.phase_device()
+    dev = torch.device("cuda", 0)
+    cs.phase_build()
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
+    x = 10.0 * torch.rand((cs.N_GP, cs.D_GP), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + 0.1 * torch.randn((cs.N_GP,), generator=gen, device=dev)
+    xs = 10.0 * torch.rand((cs.GP_N_TEST, cs.D_GP), generator=gen, device=dev)
+    probes = iterative.rademacher_probes(gen, cs.GP_PROBES, cs.N_GP, torch.float32, dev)
+    theta0 = convert.from_jax_params(cs.GP_THETA, device=dev, dtype=torch.float32)
+    fx = convert.build_exact_fx(theta0, x)
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iterative.pivoted_cholesky(fx.f.kernel, x, cs.GP_RANK)
+        torch.cuda.synchronize()
+        print(f"pivoted_cholesky rank {cs.GP_RANK}, N = {cs.N_GP}, call {i + 1}: "
+              f"{1e3 * (time.perf_counter() - t0):.3f} ms")
+
+    step, init = tgp.make_slq_hyperopt_step(
+        lambda th: convert.build_exact_fx(th, x), y, None, learning_rate=cs.GP_LR,
+        precond_rank=cs.GP_RANK, refresh_every=cs.GP_REFRESH, probes=probes, **cs.GP_SLQ)
+    carry = [init(theta0.clone())]
+    carry[0], _ = step(carry[0])
+
+    def one_step():
+        carry[0], _ = step(carry[0])
+
+    iterative.reset_stats()
+    profile("one hyperparameter step (kernels)", one_step)
+    print(f"  CG: {iterative.stats}")
+
+    def serve():
+        with torch.no_grad():
+            post = tgp.posterior_cg(convert.build_exact_fx(carry[0][0].detach(), x), y,
+                                    tol=cs.GP_SLQ["cg_tol"], precond_rank=cs.GP_RANK,
+                                    block_size=cs.GP_SLQ["block_size"])
+            post.mean_and_var(xs)
+
+    iterative.reset_stats()
+    profile(f"one posterior_cg serve at {cs.GP_N_TEST} points (kernels)", serve)
+    print(f"  CG: {iterative.stats}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,6 +5,8 @@ Both forms the repo uses: ``bench.py``'s dict and ``SVGPParams``.  The
 constrained models agree to 1e-12 (the same f64 expressions); posteriors
 built from them to 1e-9 (LAPACK factorizations of the same Gram)."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ import approximategps_tpu as agp
 import approximategps_tpu_torch as tgp
 import bench
 from approximategps_tpu.config import config_context
+from approximategps_tpu.utils.bijectors import invsoftplus as jax_invsoftplus
 from approximategps_tpu.utils.bijectors import softplus as jax_softplus
 from approximategps_tpu.utils.training import build_svgp as jax_build_svgp
 from approximategps_tpu.utils.training import init_svgp_params as jax_init_svgp_params
@@ -50,7 +53,7 @@ def test_torch_from_jax_params_bench_dict():
     for k, v in tparams.items():
         assert v.dtype == torch.float64 and v.device.type == "cpu"
         np.testing.assert_array_equal(v.numpy(), np.asarray(jparams[k]))
-    f32 = convert.from_jax_params(jparams, dtype=torch.float32)
+    f32 = convert.from_jax_params(jparams, device="cpu", dtype=torch.float32)
     assert all(v.dtype == torch.float32 for v in f32.values())
 
     xs = np.random.default_rng(1).standard_normal((40, 3))
@@ -77,7 +80,7 @@ def test_torch_from_jax_params_svgp_params_build_parity(kernel):
         m=jnp.asarray(rng.standard_normal(M)),
         L_flat=jparams.L_flat + 0.1 * jnp.asarray(rng.standard_normal(jparams.L_flat.shape)),
     )
-    tparams = convert.from_jax_params(jparams, dtype=torch.float64)
+    tparams = convert.from_jax_params(jparams, device="cpu", dtype=torch.float64)
     assert isinstance(tparams, tgp.SVGPParams)
     for name in tgp.SVGPParams._fields:
         np.testing.assert_array_equal(
@@ -111,6 +114,30 @@ def test_torch_softplus_matches_jax_past_the_linear_cutoff():
         tgp.utils.softplus(torch.from_numpy(x)).numpy(), np.asarray(jax_softplus(x)),
         rtol=1e-15, atol=0,
     )
+
+
+def test_torch_from_jax_params_defaults_to_the_card():
+    """An entry point runs on the card unless the caller asks for the CPU:
+    the default device resolves to CUDA (checked without making a tensor,
+    which this machine could not place there)."""
+    default = inspect.signature(convert.from_jax_params).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+
+
+def test_torch_from_jax_params_exact_theta_builds_the_same_fx():
+    """The exact GP's raw θ carried across and ``build_exact_fx`` against
+    ``build_fx(θ)`` of ``tests/test_iterative.py``: the same covariance and
+    noise to 1e-12."""
+    theta = np.asarray(jax_invsoftplus(jnp.array([1.5, 1.2, 0.1])))
+    x = np.random.default_rng(4).uniform(0.0, 10.0, (30, 2))
+    ttheta = convert.from_jax_params(jnp.asarray(theta), device="cpu", dtype=torch.float64)
+    assert ttheta.shape == (3,) and ttheta.dtype == torch.float64
+    tfx = convert.build_exact_fx(ttheta, torch.from_numpy(x))
+    kern = jax_softplus(theta[0]) * agp.with_lengthscale(agp.SqExponentialKernel(),
+                                                        jax_softplus(theta[1]))
+    jfx = agp.GP(kern)(jnp.asarray(x), jax_softplus(theta[2]))
+    np.testing.assert_allclose(tfx.cov().numpy(), np.asarray(jfx.cov()), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(float(tfx.noise), 0.1, rtol=1e-12)
 
 
 def test_torch_from_jax_params_rejects_other_forms():

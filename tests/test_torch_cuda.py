@@ -202,3 +202,101 @@ def test_torch_cuda_chol_with_inv_gradient(cuda):
     with tgp.config_context(chol_mode="plain"):
         tlinalg.chol_with_inv(A2)[1].sum().backward()
     torch.testing.assert_close(A.grad, A2.grad, atol=1e-9, rtol=1e-9)
+
+
+# -- kernel 5: the fused Gram matvec -----------------------------------------
+
+
+@pytest.mark.parametrize("R", [1, 16, 48, 128])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_gram_matvec_matches_plain(cls, dtype, R, cuda):
+    """Both maps g and g′, N and M ragged against the 128-row blocks and
+    key tiles; relative to the largest entry: f64 1e-12, f32 1e-5 (sums over
+    2500 keys in another order)."""
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    rng = np.random.default_rng(8)
+    Xq = _t(rng.uniform(0.0, 3.0, (3001, 3)), cuda, dtype)
+    Zk = _t(rng.uniform(0.0, 3.0, (2500, 3)), cuda, dtype)
+    V = _t(rng.standard_normal((2500, R) if R > 1 else 2500), cuda, dtype)
+    kmap = cls().kernel_map()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for deriv in (False, True):
+        before = gram_matvec.gram_matvec.launches
+        out = gram_matvec.gram_matvec_pass(Xq, Zk, V, kmap, deriv)
+        assert gram_matvec.gram_matvec.launches == before + 1
+        ref = gram_matvec.gram_matvec_plain(Xq, Zk, V, kmap, deriv)
+        assert out.shape == ref.shape
+        assert ((out - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_gram_matvec_self_gram_pullback(cls, cuda):
+    """The Function on the self-Gram (r² = 0 on the diagonal) against
+    autograd through the plain pass, f64, 1e-10 relative; the launches are
+    the forward and the passes its pullback counted."""
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    rng = np.random.default_rng(9)
+    X = rng.uniform(0.0, 3.0, (1500, 2))
+    V, W = rng.standard_normal((1500, 16)), rng.standard_normal((1500, 16))
+    kmap = cls().kernel_map()
+    ts = [_t(a, cuda).requires_grad_() for a in (X, X, V)]
+    before, passes = gram_matvec.gram_matvec.launches, gram_matvec.pullback_passes["passes"]
+    got = torch.autograd.grad(gram_matvec.gram_matvec(*ts, kmap), ts, _t(W, cuda))
+    assert gram_matvec.gram_matvec.launches - before == \
+        1 + gram_matvec.pullback_passes["passes"] - passes == 4
+    ref = torch.autograd.grad(gram_matvec.gram_matvec_plain(*ts, kmap), ts, _t(W, cuda))
+    for name, g, r in zip(("Xq", "Zk", "V"), got, ref):
+        assert ((g - r).abs().max() / r.abs().max()).item() <= 1e-10, name
+
+
+def test_torch_cuda_gram_matvec_raises_on_what_it_does_not_take(cuda):
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    kmap = tk.SqExponentialKernel().kernel_map()
+    x = torch.zeros((10, 2), device=cuda)
+    for args in [
+        (x.bfloat16(), x.bfloat16(), torch.zeros(10, device=cuda).bfloat16()),
+        (torch.zeros((10, 9), device=cuda), torch.zeros((10, 9), device=cuda),
+         torch.zeros(10, device=cuda)),
+        (x, x, torch.zeros((10, 129), device=cuda)),
+        (x, x.cpu(), torch.zeros(10, device=cuda)),
+        (x, x.double(), torch.zeros(10, device=cuda)),
+    ]:
+        with pytest.raises(ValueError):
+            gram_matvec.gram_matvec_pass(*args, kmap)
+
+
+def test_torch_cuda_logpdf_slq_runs_through_the_kernel(cuda):
+    """The matrix-free value and gradient on the card, f64, N = 2000: every
+    matvec on the kernel, launches = counted matvecs + pullback passes, and
+    the plain path's value to 1e-8 and gradient to 1e-7."""
+    from approximategps_tpu_torch import convert
+    from approximategps_tpu_torch.models import iterative
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    rng = np.random.default_rng(10)
+    x = _t(rng.uniform(0.0, 10.0, (2000, 2)), cuda)
+    y = torch.sin(x[:, 0]) + 0.1 * _t(rng.standard_normal(2000), cuda)
+    probes = _t(rng.choice([-1.0, 1.0], size=(16, 2000)), cuda)
+    theta0 = np.log(np.expm1(np.array([1.5, 1.2, 0.1])))
+    kw = dict(probes=probes, lanczos_iters=30, cg_tol=1e-10, precond_rank=64,
+              block_size=512)
+
+    def value_and_grad():
+        theta = _t(theta0, cuda).requires_grad_()
+        v = tgp.logpdf_slq(convert.build_exact_fx(theta, x), y, **kw)
+        return v.detach(), torch.autograd.grad(v, theta)[0]
+
+    iterative.reset_stats()
+    before, passes = gram_matvec.gram_matvec.launches, gram_matvec.pullback_passes["passes"]
+    v, g = value_and_grad()
+    assert iterative.stats["matvec_plain"] == 0 and iterative.stats["matvec_fused"] > 0
+    assert gram_matvec.gram_matvec.launches - before == \
+        iterative.stats["matvec_fused"] + gram_matvec.pullback_passes["passes"] - passes
+    with tgp.config_context(use_kernels=False):
+        v0, g0 = value_and_grad()
+    assert abs((v - v0).item()) <= 1e-8 * abs(v0.item())
+    assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-7

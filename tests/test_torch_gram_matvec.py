@@ -1,0 +1,223 @@
+"""Kernel 5, the fused Gram matvec (``ops/gram_matvec.py``), on the CPU in
+f64 against the JAX package's ``pallas_gram_matvec``.
+
+On CPU tensors the port's autograd Function runs its plain inner pass, so
+what is held here is the Function's algebra: the forward and the pullback
+(V̄ as the transposed pass, X̄q and Z̄k as derivative-map passes over
+(1 + D)·R columns, chunked to 128), against the JAX package's custom VJP.
+
+- ``test_torch_gram_matvec_matches_pallas_interpret``: against the Pallas
+  kernel itself in interpret mode (as ``tests/test_gram_matvec.py`` runs it),
+  every map, N ≠ M and the coincident case Xq = Zk.
+- ``test_torch_gram_matvec_matches_jax_vjp_grid``: the whole grid of maps,
+  R ∈ {1, 7, 32} and D ∈ {1, 2, 8} against the same custom VJP with the
+  Pallas pass swapped for a dense one in the test (interpret mode unrolls R
+  lane reductions a pass and takes tens of seconds to compile at D = 8).
+
+Tolerances: forward 1e-12 and cotangents 1e-10, relative to each array's
+largest entry (f64 sums over at most 32 terms in other orders)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.autograd.forward_ad as fwAD
+
+import approximategps_tpu as agp
+from approximategps_tpu.config import config_context
+from approximategps_tpu.core import kernels as jk
+from approximategps_tpu.models.iterative import kernel_matvec as jax_kernel_matvec
+from approximategps_tpu.ops import gram_matvec as jgm
+from approximategps_tpu_torch import config_context as tconfig_context
+from approximategps_tpu_torch.core import kernels as tk
+from approximategps_tpu_torch.models import iterative as tit
+from approximategps_tpu_torch.ops import gram_matvec as tgm
+
+torch.set_num_threads(1)
+
+FUSED = dict(matvec_mode="fused", use_pallas=True, pallas_interpret=True)
+MAPS = {
+    "se": (jk.SqExponentialKernel, tk.SqExponentialKernel),
+    "m12": (jk.Matern12Kernel, tk.Matern12Kernel),
+    "m32": (jk.Matern32Kernel, tk.Matern32Kernel),
+    "m52": (jk.Matern52Kernel, tk.Matern52Kernel),
+}
+
+
+def _inputs(N, M, D, R, seed, coincident=False):
+    """Xq (N, D), Zk (M, D), V (M,) for R = 1 else (M, R), and a cotangent
+    of the output's shape; Zk is a copy of Xq when ``coincident``."""
+    rng = np.random.default_rng(seed)
+    Xq = rng.uniform(0.0, 3.0, (N, D))
+    Zk = Xq.copy() if coincident else rng.uniform(0.0, 3.0, (M, D))
+    shape = (Zk.shape[0],) if R == 1 else (Zk.shape[0], R)
+    V = rng.standard_normal(shape)
+    W = rng.standard_normal((N,) + shape[1:])
+    return Xq, Zk, V, W
+
+
+def _jax_vjp(Xq, Zk, V, W, fn):
+    @jax.jit
+    def run(a, b, c, w):
+        out, vjp = jax.vjp(lambda a, b, c: jgm.pallas_gram_matvec(a, b, c, fn), a, b, c)
+        return out, vjp(w)
+
+    with config_context(**FUSED):
+        return run(Xq, Zk, V, W)
+
+
+def _torch_vjp(Xq, Zk, V, W, kmap):
+    ts = [torch.tensor(a, requires_grad=True) for a in (Xq, Zk, V)]
+    out = tgm.gram_matvec(*ts, kmap)
+    return out.detach(), torch.autograd.grad(out, ts, torch.tensor(W))
+
+
+def _rel(t, j) -> float:
+    j = np.asarray(j)
+    return float(np.abs(t.detach().numpy() - j).max() / max(np.abs(j).max(), 1e-300))
+
+
+def _check(Xq, Zk, V, W, name):
+    jcls, tcls = MAPS[name]
+    jout, jgrads = _jax_vjp(Xq, Zk, V, W, jcls.k_of_r2)
+    tout, tgrads = _torch_vjp(Xq, Zk, V, W, tcls().kernel_map())
+    assert tout.shape == jout.shape
+    assert _rel(tout, jout) <= 1e-12
+    for what, t, j in zip(("Xq", "Zk", "V"), tgrads, jgrads):
+        assert bool(torch.isfinite(t).all()), what
+        assert _rel(t, j) <= 1e-10, (what, _rel(t, j))
+
+
+@pytest.mark.parametrize("coincident", [False, True], ids=["n_ne_m", "coincident"])
+@pytest.mark.parametrize("name", list(MAPS))
+def test_torch_gram_matvec_matches_pallas_interpret(name, coincident):
+    """The self-Gram case puts r² = 0 on the diagonal: g′(0) takes the JAX
+    package's value there (0, or 5/3 for Matérn-5/2), not a huge one."""
+    R = 1 if coincident else 7
+    _check(*_inputs(21, 13, 2, R, seed=list(MAPS).index(name), coincident=coincident), name)
+
+
+def _dense_forward_multi(Xq, Zk, V, k_map, tile_m, tile_n):
+    r2 = jnp.sum((Xq[:, None, :] - Zk[None, :, :]) ** 2, axis=-1)
+    return k_map(r2) @ V
+
+
+@pytest.mark.parametrize("D", [1, 2, 8])
+@pytest.mark.parametrize("R", [1, 7, 32])
+@pytest.mark.parametrize("name", list(MAPS))
+def test_torch_gram_matvec_matches_jax_vjp_grid(name, R, D, monkeypatch):
+    """At D = 8 and R = 32 both pullbacks run three chunks of 14 columns
+    (rc = 128 // 9) for each coordinate cotangent."""
+    monkeypatch.setattr(jgm, "_forward_multi", _dense_forward_multi)
+    _check(*_inputs(23, 17, D, R, seed=100 * D + R), name)
+
+
+def test_torch_gram_matvec_pullback_chunks_wide_blocks():
+    """R = 50 at D = 2 needs two coordinate passes of at most 42 · 3 = 126
+    columns each (``pullback_passes`` counts them), and still agrees with
+    autograd through the plain pass."""
+    Xq, Zk, V, W = _inputs(19, 13, 2, 50, seed=5)
+    kmap = tk.Matern32Kernel().kernel_map()
+    before = dict(tgm.pullback_passes)
+    _, grads = _torch_vjp(Xq, Zk, V, W, kmap)
+    assert tgm.pullback_passes["calls"] == before["calls"] + 1
+    assert tgm.pullback_passes["passes"] == before["passes"] + 1 + 2 + 2
+    ts = [torch.tensor(a, requires_grad=True) for a in (Xq, Zk, V)]
+    ref = torch.autograd.grad(tgm.gram_matvec_plain(*ts, kmap), ts, torch.tensor(W))
+    for what, g, r in zip(("Xq", "Zk", "V"), grads, ref):
+        assert _rel(g, r.numpy()) <= 1e-10, what
+
+
+def _kern_t(theta):
+    return torch.exp(theta[1]) * tk.with_lengthscale(tk.SqExponentialKernel(), torch.exp(theta[0]))
+
+
+def _kern_j(theta):
+    return jnp.exp(theta[1]) * agp.with_lengthscale(jk.SqExponentialKernel(), jnp.exp(theta[0]))
+
+
+@pytest.mark.parametrize("noise", ["scalar", "vector"])
+def test_torch_kernel_matvec_fused_hyperparameter_grads(noise):
+    """Lengthscale and variance cotangents through the dispatch's input
+    fold (Xs = X·s) and output scale, against the JAX package's XLA path;
+    the value against it to 1e-12, the gradients to 1e-10."""
+    rng = np.random.default_rng(13)
+    x = rng.uniform(0.0, 3.0, (41, 2))
+    v = rng.standard_normal(41)
+    nz = 0.1 + rng.uniform(size=41) if noise == "vector" else 0.2
+    theta = np.array([-0.3, 0.5])
+
+    def jloss(th):
+        with config_context(matvec_mode="xla"):
+            return jnp.sum(jnp.tanh(jax_kernel_matvec(_kern_j(th), x, nz)(v)))
+
+    jval, jgrad = jax.value_and_grad(jloss)(jnp.asarray(theta))
+    th = torch.tensor(theta, requires_grad=True)
+    before = tit.stats["matvec_fused"]
+    with tconfig_context(matvec_mode="fused"):
+        tval = torch.sum(torch.tanh(
+            tit.kernel_matvec(_kern_t(th), torch.from_numpy(x),
+                              torch.as_tensor(nz, dtype=torch.float64))(
+                torch.from_numpy(v))))
+    assert tit.stats["matvec_fused"] == before + 1
+    (tgrad,) = torch.autograd.grad(tval, th)
+    assert abs(tval.item() - float(jval)) <= 1e-12 * abs(float(jval))
+    assert _rel(tgrad, jgrad) <= 1e-10
+
+
+def test_torch_fused_dispatch_negative_cases():
+    """Where the fused route does not serve, the dispatch declines (None)
+    and ``kernel_matvec`` takes the plain block path."""
+
+    class NotStationary(tk.Kernel):
+        def gram(self, X, Z=None):
+            X = tk.as_points(X)
+            return X @ (X if Z is None else tk.as_points(Z)).T
+
+    se = 1.3 * tk.with_lengthscale(tk.SqExponentialKernel(), 0.7)
+    x2 = torch.rand((6, 2), dtype=torch.float64)
+    with tconfig_context(matvec_mode="fused"):
+        assert tgm.fused_stationary_matvec(NotStationary(), x2) is None
+        assert tgm.fused_stationary_matvec(se, torch.rand((6, 9), dtype=torch.float64)) is None
+        fused = tgm.fused_stationary_matvec(se, x2)
+        assert fused is not None
+        assert fused(torch.ones((6, 33), dtype=torch.float64)) is None  # R > 32
+        assert fused(torch.ones((6, 32), dtype=torch.float64)) is not None
+        with tconfig_context(matvec_fused_max_rhs=4):
+            assert tgm.fused_stationary_matvec(se, x2)(torch.ones((6, 5),
+                                                                  dtype=torch.float64)) is None
+    with tconfig_context(matvec_mode="plain"):
+        assert tgm.fused_stationary_matvec(se, x2) is None
+    with tconfig_context(matvec_mode="fused", use_kernels=False):
+        assert tgm.fused_stationary_matvec(se, x2) is None
+    with tconfig_context(matvec_mode="auto"):
+        assert tgm.fused_stationary_matvec(se, x2) is None  # a CPU tensor
+    with tconfig_context(matvec_mode="pallas"):
+        with pytest.raises(ValueError, match="matvec_mode"):
+            tgm.fused_stationary_matvec(se, x2)
+
+
+def test_torch_fused_dispatch_declines_forward_mode_ad():
+    """The Function has no forward-mode rule: with a tangent on the inputs
+    or on v the dispatch declines, and the plain route carries the tangent
+    (checked against a finite difference of the matvec)."""
+    rng = np.random.default_rng(17)
+    x = torch.tensor(rng.uniform(0.0, 3.0, (15, 2)))
+    v = torch.tensor(rng.standard_normal(15))
+    dv = torch.tensor(rng.standard_normal(15))
+    kern = 1.3 * tk.with_lengthscale(tk.Matern52Kernel(), 0.7)
+    with tconfig_context(matvec_mode="fused"):
+        with fwAD.dual_level():
+            vd = fwAD.make_dual(v, dv)
+            assert tgm.fused_stationary_matvec(kern, x)(vd) is None
+            xd = fwAD.make_dual(x, torch.zeros_like(x))
+            assert tgm.fused_stationary_matvec(kern, xd) is None
+            before = dict(tit.stats)
+            out = tit.kernel_matvec(kern, x, 0.1)(vd)
+            tangent = fwAD.unpack_dual(out).tangent
+        assert tit.stats["matvec_plain"] == before["matvec_plain"] + 1
+        assert tit.stats["matvec_fused"] == before["matvec_fused"]
+        mv = tit.kernel_matvec(kern, x, 0.1)
+        # the matvec is linear in v: its tangent is the matvec of dv
+        torch.testing.assert_close(tangent, mv(dv), rtol=1e-12, atol=1e-12)

@@ -1,6 +1,7 @@
-"""Properties of the PyTorch port as a whole: it never imports JAX, its
-kernel modules import without a CUDA compiler, and ``chip_smoke.py``
-refuses to report a result without a CUDA device."""
+"""Properties of the PyTorch port as a whole: it (and ``chip_smoke.py``)
+never imports JAX or the JAX package, its kernel modules import without a
+CUDA compiler, and ``chip_smoke.py`` refuses to report a result without a
+CUDA device."""
 
 import os
 import re
@@ -26,14 +27,18 @@ def test_torch_port_imports_no_jax():
         "import sys, approximategps_tpu_torch as t\n"
         "t.posterior, t.build_svgp, t.convert.from_jax_params\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert 'approximategps_tpu' not in sys.modules\n"
     )
     assert proc.returncode == 0, proc.stderr
-    for path in PKG.rglob("*.py"):
-        if "_build" in path.relative_to(PKG).parts:
-            continue  # build outputs, not sources
+    sources = [p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts]
+    for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not re.match(r"\s*(import|from)\s+jax\b", line), (path, line)
             assert "torch.compile" not in line, (path, line)
+            # nothing of the JAX package either, not even a module of it that
+            # does not import JAX; the port's own name is allowed
+            assert not re.match(r"\s*(import|from)\s+approximategps_tpu(?!_torch)\b", line), \
+                (path, line)
 
 
 def test_torch_kernel_modules_import_without_nvcc(tmp_path):

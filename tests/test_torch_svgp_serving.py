@@ -110,7 +110,7 @@ def test_torch_svgp_posterior_routes_match_jax(param, solve_mode):
     with config_context(solve_mode=solve_mode, data_term_mode="xla"):
         jsva, _ = jax_build_svgp(jparams, parametrization=jpar)
         jmu, jvar = agp.posterior(jsva).mean_and_var(jnp.asarray(xs))
-    tparams = convert.from_jax_params(jparams, dtype=torch.float64)
+    tparams = convert.from_jax_params(jparams, device="cpu", dtype=torch.float64)
     with tgp.config_context(solve_mode=solve_mode):
         tsva, _ = tgp.build_svgp(tparams, parametrization=tpar)
         tpost = tgp.posterior(tsva)
