@@ -6,7 +6,9 @@ carries the SVGP serving path (``posterior``, then
 ``elbo`` and the full-data ``streaming_elbo`` with their gradients, and
 ``adam_fit``; and the matrix-free exact GP: hyperparameter training on
 ``-logpdf_slq`` (``make_slq_hyperopt_step``) and serving through
-``posterior_cg``.  Hand-written CUDA kernels for Hopper (``csrc/``) carry them
+``posterior_cg``; and Vecchia serving: the banded precision root
+(``approx_root_prec_band``), its ``approx_lml`` and ``predict_knn``.
+Hand-written CUDA kernels for Hopper (``csrc/``) carry them
 on the GPU, each beside a plain PyTorch version that CPU tensors take:
 
 - ``ops.panel_chol.gram_chol_inv``: (L, L⁻¹) with the Kuu Gram generated
@@ -16,7 +18,10 @@ on the GPU, each beside a plain PyTorch version that CPU tensors take:
   cross-covariance in device memory, and its backward
   (``svgp_data_epilogue_bwd``), which rebuilds it tile by tile;
 - ``ops.gram_matvec.gram_matvec``: K(Xq, Zk)·V without K, and the passes of
-  its pullback, under every CG, Lanczos and surrogate matvec.
+  its pullback, under every CG, Lanczos and surrogate matvec;
+- ``ops.batched_chol.vecchia_band``: Vecchia band rows from point windows,
+  window → Gram → bordered Cholesky in one pass, under the band build and
+  ``predict_knn``.
 
 The kernels are built with ``nvcc`` at first use (``ops/_build.py``).
 """
@@ -47,12 +52,19 @@ from .core import (
     with_lengthscale,
 )
 from .models import (
+    BandInvRoot,
     CGPosterior,
     Centered,
     NonCentered,
+    NearestNeighbors,
+    SparseInvRoot,
     SparseVariationalApproximation,
     SVGPPosterior,
     approx_lml,
+    approx_root_prec_band,
+    approx_root_prec_sparse,
+    band_U_matvec,
+    band_Ut_matmul,
     cg_solve,
     elbo,
     kernel_matvec,
@@ -60,10 +72,12 @@ from .models import (
     pivoted_cholesky,
     posterior,
     posterior_cg,
+    predict_knn,
     prior_kl,
     streaming_elbo,
     woodbury_preconditioner,
 )
+from .ops import knn_search
 from .utils import SVGPParams, adam_fit, build_svgp, init_svgp_params, make_slq_hyperopt_step
 
 __all__ = [
@@ -111,4 +125,13 @@ __all__ = [
     "pivoted_cholesky",
     "woodbury_preconditioner",
     "make_slq_hyperopt_step",
+    "NearestNeighbors",
+    "BandInvRoot",
+    "SparseInvRoot",
+    "approx_root_prec_band",
+    "approx_root_prec_sparse",
+    "band_Ut_matmul",
+    "band_U_matvec",
+    "predict_knn",
+    "knn_search",
 ]

@@ -1,7 +1,7 @@
-"""Approximate-inference models: SVGP serving and training, and the
-matrix-free exact GP."""
+"""Approximate-inference models: SVGP serving and training, the
+matrix-free exact GP and Vecchia serving."""
 
-from . import api, iterative, svgp, svgp_streaming
+from . import api, iterative, svgp, svgp_streaming, vecchia
 from .api import approx_lml, posterior
 from .svgp import (
     Centered,
@@ -20,4 +20,14 @@ from .iterative import (
     pivoted_cholesky,
     posterior_cg,
     woodbury_preconditioner,
+)
+from .vecchia import (
+    BandInvRoot,
+    NearestNeighbors,
+    SparseInvRoot,
+    approx_root_prec_band,
+    approx_root_prec_sparse,
+    band_U_matvec,
+    band_Ut_matmul,
+    predict_knn,
 )

@@ -1,0 +1,369 @@
+"""Nearest-neighbour (Vecchia) GP approximation: the serving half of the port
+of ``approximategps_tpu/models/vecchia.py``.
+
+The joint factorises as ∏ p(f_i | f_{i−k:i−1}) over the k previous points in
+the given order, giving a sparse precision root U = (I−B)ᵀ F^(−1/2).  Under
+the previous-k order U is banded and stored as an (N, k+1) band; each
+point's row of B and its conditional variance F_i come from one small
+Cholesky factorization of its window.
+
+On the kernel device the whole window → Gram → factor → band construction is
+the hand-written kernel of ``ops/batched_chol.py`` (``vecchia_band`` and
+``vecchia_band_t``); elsewhere, or where the kernel declines, the windows'
+Grams are built in PyTorch and factored by the plain masked math
+(``masked_chol_solve_band_math``).  The kernel declines, and the plain path
+runs, where the JAX package leaves its fused tier or where the kernel has a
+limit: a kernel that does not unwrap to a scaled stationary map, noise that
+is not a scalar (``predict_knn``), D > 8, and k > 64.
+
+Ported here: ``NearestNeighbors`` with the natural order and previous-k
+neighbours, the band products, ``BandInvRoot``, ``approx_root_prec_band``,
+``posterior`` and ``approx_lml``, ``SparseInvRoot`` and
+``approx_root_prec_sparse`` for given predecessor sets, and
+``predict_knn``.  The maximin / random orderings and the nearest / scaled
+neighbour sets need the host-side ordering code of the JAX package's
+``native/``; they come with the training slice (``ROADMAP.md`` queue 3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..config import config, kernel_device
+from ..core.gp import FiniteGP, PosteriorGP
+from ..core.kernels import Kernel, _param, as_points, unwrap_stationary
+from ..ops.batched_chol import (
+    MAX_D,
+    MAX_K,
+    masked_chol_solve_band_math,
+    vecchia_band,
+    vecchia_band_t,
+)
+from ..ops.knn import knn_search
+from .api import approx_lml, posterior
+
+__all__ = [
+    "NearestNeighbors",
+    "BandInvRoot",
+    "SparseInvRoot",
+    "approx_root_prec_band",
+    "approx_root_prec_sparse",
+    "band_Ut_matmul",
+    "band_U_matvec",
+    "predict_knn",
+]
+
+_LOG2PI = math.log(2.0 * math.pi)
+
+
+@dataclasses.dataclass(frozen=True)
+class NearestNeighbors:
+    """k-nearest-neighbour (Vecchia) approximation.
+
+    ``block_size`` chunks the plain path's window Grams to bound memory;
+    ``use_kernels``: None (auto) takes the band kernel on the kernel device
+    (a CUDA tensor in f32 or f64) and the plain path elsewhere; True or False
+    forces a route (True on a CPU tensor runs the kernel's autograd Function
+    with its plain inner pass).  ``ordering`` other than "natural" and
+    ``neighbors`` other than "previous" are not ported yet."""
+
+    k: int
+    block_size: int | None = None
+    use_kernels: bool | None = None
+    ordering: str = "natural"
+    neighbors: str = "previous"
+
+
+def _shift(X: torch.Tensor, sh: int) -> torch.Tensor:
+    """X moved down by ``sh`` ≥ 1 rows, zeros in front."""
+    sh = min(sh, X.shape[0])
+    return torch.cat([X.new_zeros((sh,) + X.shape[1:]), X[:X.shape[0] - sh]])
+
+
+def band_Ut_matmul(Uband: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Uᵀ X for the banded upper-triangular U, X of shape (N,) or (N, P):
+    (Uᵀ X)[i] = Σ_t Uband[i, t] · X[i − k + t], as k+1 shifts of X.
+
+    Band contract: the out-of-range slots (row i, t with i − k + t < 0) must
+    hold exactly 0; every constructor here writes zeros there, and the
+    shifts do not mask them again."""
+    k = Uband.shape[1] - 1
+    cols = Uband if X.ndim == 1 else Uband[:, :, None]
+    out = cols[:, k] * X
+    for t in range(k):
+        out = out + cols[:, t] * _shift(X, k - t)
+    return out
+
+
+def band_U_matvec(Uband: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """U w for the banded upper-triangular U: (U w)[j] = Σ_s U[j, j+s] w[j+s]
+    with U[j, j+s] = Uband[j+s, k−s], as k+1 shifts."""
+    N, kp1 = Uband.shape
+    k = kp1 - 1
+    out = Uband[:, k] * w
+    for s in range(1, min(kp1, N + 1)):
+        out = out + torch.cat([Uband[s:, k - s] * w[s:], w.new_zeros((s,))])
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BandInvRoot:
+    """inv(U Uᵀ) through the band of U, pluggable into ``PosteriorGP`` as the
+    JAX package's ``BandInvRoot``; ``Uband`` keeps the band contract of
+    :func:`band_Ut_matmul`."""
+
+    Uband: torch.Tensor  # (N, k+1); [:, -1] is the diagonal of U
+
+    def whiten(self, X: torch.Tensor) -> torch.Tensor:
+        """V = Uᵀ X, so VᵀV = Xᵀ inv(A) X."""
+        return band_Ut_matmul(self.Uband, X)
+
+    def logdet(self) -> torch.Tensor:
+        """logdet inv(U Uᵀ) = −2 logdet U."""
+        return -2.0 * torch.sum(torch.log(self.Uband[:, -1]))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SparseInvRoot:
+    """inv(U Uᵀ) for a general sparse upper-triangular root given by
+    predecessor indices: ``nbr`` (N, k) positions (−1 pads), ``coeff`` (N, k)
+    off-diagonal entries U[nbr[i, t], i], ``diag`` (N,) the diagonal."""
+
+    nbr: torch.Tensor
+    coeff: torch.Tensor
+    diag: torch.Tensor
+
+    def whiten(self, X: torch.Tensor) -> torch.Tensor:
+        """V = Uᵀ X: V[i] = diag[i]·X[i] + Σ_t coeff[i, t]·X[nbr[i, t]]."""
+        vec = X.ndim == 1
+        Xm = X[:, None] if vec else X
+        gathered = Xm[torch.clamp(self.nbr, 0, Xm.shape[0] - 1)]  # (N, k, P)
+        out = self.diag[:, None] * Xm + torch.einsum("nt,ntp->np", self.coeff, gathered)
+        return out[:, 0] if vec else out
+
+    def u_matvec(self, w: torch.Tensor) -> torch.Tensor:
+        """U w: (U w)[j] = diag[j]·w[j] + Σ_{i,t: nbr[i,t] = j} coeff[i, t]·w[i]."""
+        idx = torch.clamp(self.nbr, 0, w.shape[0] - 1).reshape(-1)
+        contrib = (self.coeff * w[:, None]).reshape(-1)  # zero where padded
+        return (self.diag * w).index_add(0, idx, contrib)
+
+    def logdet(self) -> torch.Tensor:
+        return -2.0 * torch.sum(torch.log(self.diag))
+
+
+def _use_kernels(use_kernels: bool | None, t: torch.Tensor) -> bool:
+    """Auto (None): the band kernel on the kernel device, where kernels are
+    allowed; True or False as given."""
+    if use_kernels is not None:
+        return use_kernels
+    return config.use_kernels and kernel_device(t)
+
+
+def _fused(kern: Kernel, D: int, k: int):
+    """``unwrap_stationary(kern)`` where the band kernel takes the problem,
+    else None: the plain path runs for a kernel that does not unwrap to a
+    scaled stationary map (the JAX package leaves its fused tier there too)
+    and beyond the kernel's limits, D > 8 or k > 64 (the JAX package's
+    serving path leaves its unrolled band math above k = 48)."""
+    if not 1 <= D <= MAX_D or not 1 <= k <= MAX_K:
+        return None
+    return unwrap_stationary(kern)
+
+
+def _fused_band(Xp: torch.Tensor, k: int, kern: Kernel, nbr=None):
+    """The band by the kernel, or None where it declines (:func:`_fused`).
+
+    Lengthscales fold into the inputs and the variance post-scales the band
+    (U(σ²k) = U(k)/σ).  ``nbr=None`` conditions on the previous k points:
+    the windows are built N-minor as k shifts of each coordinate row (the
+    (D, k+1, N) layout of row 10); an (N, k) ``nbr`` (−1 pads) gathers
+    arbitrary predecessor windows in the (N, D, k+1) layout of row 8, as a
+    view of the gathered (N, k+1, D) points."""
+    N, D = Xp.shape
+    unwrapped = _fused(kern, D, k)
+    if unwrapped is None:
+        return None
+    kmap, scale, variance = unwrapped
+    Xs = Xp if scale is None else Xp * _param(scale, Xp)
+    if nbr is None:
+        rows = []
+        for d in range(D):
+            Xd = Xs[:, d]
+            rows += [torch.cat([Xd[:1].expand(k - t), Xd[:max(N - k + t, 0)]])[:N]
+                     for t in range(k)]
+            rows.append(Xd)
+        xwT = torch.stack(rows).reshape(D, k + 1, N)
+        iota = torch.arange(N, device=Xp.device)
+        validT = torch.stack([iota >= k - t for t in range(k)]).to(Xp.dtype)
+        Uband = vecchia_band_t(xwT, validT, kmap)
+    else:
+        valid = (nbr >= 0).to(Xp.dtype)
+        pts = torch.cat([Xs[torch.clamp(nbr, 0, N - 1)], Xs[:, None, :]], dim=1)
+        Uband = vecchia_band(pts.transpose(1, 2), valid, kmap)
+    if variance is not None:
+        Uband = Uband / torch.sqrt(_param(variance, Uband))
+    return Uband
+
+
+def _window_grams(kern: Kernel, Xw: torch.Tensor, xi: torch.Tensor):
+    """Batched (Kw (B, k, k), kni (B, k)) of windows Xw (B, k, D) and their
+    points xi (B, D) through the kernel's own ``gram``, as the JAX package's
+    ``vmap(window)`` builds them."""
+    Kw = torch.func.vmap(lambda w: kern.gram(w))(Xw)
+    kni = torch.func.vmap(lambda w, x: kern.gram(w, x[None, :])[:, 0])(Xw, xi)
+    return Kw, kni
+
+
+def _plain_rows(Xp, nbr_rows, rows_idx, kern, kern_diag):
+    """Band rows of the points ``rows_idx`` with predecessor positions
+    ``nbr_rows`` (−1 masked): masked window Grams, then the masked math."""
+    N = Xp.shape[0]
+    mask = nbr_rows >= 0
+    Kw, kni = _window_grams(kern, Xp[torch.clamp(nbr_rows, 0, N - 1)], Xp[rows_idx])
+    pm = mask[:, :, None] & mask[:, None, :]
+    eye = torch.eye(nbr_rows.shape[1], dtype=Kw.dtype, device=Kw.device)
+    Kw = torch.where(pm, Kw, eye)
+    kni = torch.where(mask, kni, torch.zeros_like(kni))
+    return masked_chol_solve_band_math(Kw, kni, kern_diag[rows_idx])
+
+
+def _plain_band(Xp, nbr, kern, block_size):
+    N = Xp.shape[0]
+    kern_diag = kern.diag(Xp)
+    bs = N if block_size is None else max(1, min(block_size, N))
+    idx = torch.arange(N, device=Xp.device)
+    parts = [_plain_rows(Xp, nbr[i0:i0 + bs], idx[i0:i0 + bs], kern, kern_diag)
+             for i0 in range(0, N, bs)]
+    return torch.cat(parts)
+
+
+def _previous_k(N: int, k: int, device) -> torch.Tensor:
+    idx = torch.arange(N, device=device)[:, None] - k + torch.arange(k, device=device)[None, :]
+    return torch.where(idx >= 0, idx, torch.full_like(idx, -1))
+
+
+def approx_root_prec_band(x, k: int, kern: Kernel, block_size=None, use_kernels=None):
+    """Banded upper-triangular root of the approximate precision,
+    U = (I−B)ᵀ F^(−1/2), as an (N, k+1) band: ``Uband[i, t] = U[i−k+t, i]``.
+
+    On the kernel device (auto) the windows go through the band kernel in
+    one launch (row 10's layout); the plain path builds the window Grams in
+    blocks of ``block_size`` points and runs the masked math."""
+    Xp = as_points(x)
+    if _use_kernels(use_kernels, Xp):
+        fused = _fused_band(Xp, k, kern)
+        if fused is not None:
+            return fused
+    return _plain_band(Xp, _previous_k(Xp.shape[0], k, Xp.device), kern, block_size)
+
+
+def approx_root_prec_sparse(x, nbr, kern: Kernel, block_size=None,
+                            use_kernels=None) -> SparseInvRoot:
+    """Sparse precision root for arbitrary predecessor sets ``nbr`` (N, k),
+    −1 padded: the band kernel on gathered windows (row 8's layout, no
+    nugget) where it serves, else the plain masked math."""
+    Xp = as_points(x)
+    nbr = torch.as_tensor(nbr, device=Xp.device).to(torch.int64)
+    k = nbr.shape[1]
+    band = None
+    if _use_kernels(use_kernels, Xp):
+        band = _fused_band(Xp, k, kern, nbr=nbr)
+    if band is None:
+        band = _plain_band(Xp, nbr, kern, block_size)
+    return SparseInvRoot(nbr=nbr, coeff=band[:, :k], diag=band[:, k])
+
+
+@posterior.register(NearestNeighbors)
+def _posterior_nn(nn: NearestNeighbors, fx: FiniteGP, y: torch.Tensor, **_):
+    """A PosteriorGP with the band as its precision: data (α = U Uᵀ δ,
+    C = inv(U Uᵀ), x, δ).  The root ignores ``fx``'s noise, as the JAX
+    package's does."""
+    if nn.ordering != "natural" or nn.neighbors != "previous":
+        raise NotImplementedError(
+            f"NearestNeighbors(ordering={nn.ordering!r}, neighbors={nn.neighbors!r}) is not "
+            "ported yet: it needs the host-side orderings (ROADMAP.md queue 3)")
+    Uband = approx_root_prec_band(fx.x, nn.k, fx.f.kernel, nn.block_size, nn.use_kernels)
+    delta = y - fx.mean()
+    alpha = band_U_matvec(Uband, band_Ut_matmul(Uband, delta))
+    return PosteriorGP(prior=fx.f, x=as_points(fx.x), alpha=alpha, rep=BandInvRoot(Uband),
+                       delta=delta)
+
+
+@approx_lml.register(NearestNeighbors)
+def _approx_lml_nn(nn: NearestNeighbors, fx: FiniteGP, y: torch.Tensor, **_):
+    """−(logdet C + N log 2π + αᵀδ)/2."""
+    post = _posterior_nn(nn, fx, y)
+    return -(post.rep.logdet() + y.shape[0] * _LOG2PI + post.alpha @ post.delta) / 2.0
+
+
+def predict_knn(fx: FiniteGP, y: torch.Tensor, xs, k: int = 32, test_block: int = 4096,
+                train_block: int = 65536, knn_mode: str = "auto", use_kernels=None):
+    """Vecchia serving: each test point conditions only on its k nearest
+    noisy observations (local kriging).  Returns the (mean, var) of the
+    latent f at ``xs``, without any (N, N*) cross-covariance.
+
+    The k-NN search (``ops.knn.knn_search``) runs a tile of ``test_block``
+    points at a time.  On the kernel device (scalar noise, a kernel that
+    unwraps, D ≤ 8, k ≤ 64) all N* windows then go through the band kernel in
+    one launch, with the noise ratio as a nugget on the neighbours' diagonal
+    only (``nugget_self=False``: slot k is the noise-free test point); the
+    band row is the kriging weight b = Kw⁻¹kni and the conditional variance
+    F in disguise.  Elsewhere the windows' Grams are built in PyTorch,
+    ``test_block`` points at a time, for the plain masked math.
+
+    Pass the signal kernel with the noise as ``fx``'s noise."""
+    Xp = as_points(fx.x)
+    Xs = as_points(xs)
+    idx, _ = knn_search(Xp, Xs, min(k, Xp.shape[0]), train_block, test_block, knn_mode)
+    return _krige(fx, y, Xs, idx, test_block, use_kernels)
+
+
+def _krige(fx: FiniteGP, y: torch.Tensor, Xs: torch.Tensor, idx: torch.Tensor,
+           test_block: int, use_kernels):
+    """``predict_knn`` after the search: (mean, var) at the test points Xs
+    (N*, D) from their neighbours' indices idx (N*, k)."""
+    Xp = as_points(fx.x)
+    N, D = Xp.shape
+    k = idx.shape[1]
+    kern = fx.f.kernel
+    delta = y - fx.mean()
+    noise = torch.as_tensor(fx.noise, dtype=Xp.dtype, device=Xp.device)
+    mean_s = fx.f.mean(Xs)
+
+    fused = None
+    # noise that is not a scalar has no single nugget ratio: the plain path
+    # (the JAX package's fused tier takes scalar noise only)
+    if noise.ndim == 0 and _use_kernels(use_kernels, Xp):
+        fused = _fused(kern, D, k)
+    if fused is not None:
+        kmap, scale, variance = fused
+        var_s = Xp.new_ones(()) if variance is None else _param(variance, Xp)
+        Xps = Xp if scale is None else Xp * _param(scale, Xp)
+        Xss = Xs if scale is None else Xs * _param(scale, Xs)
+        # the kriging weights are variance-invariant (U(σ²A) = U(A)/σ), so the
+        # unit-variance band serves; F = σ²·F_unit from its last entry
+        pts = torch.cat([Xps[idx], Xss[:, None, :]], dim=1)  # (N*, k+1, D)
+        valid = Xp.new_ones(()).expand(Xs.shape[0], k)
+        band = vecchia_band(pts.transpose(1, 2), valid, kmap, nugget=noise / var_s,
+                            nugget_self=False)
+        b = -band[:, :k] / band[:, k:]
+        mu = mean_s + torch.sum(b * delta[idx], dim=1)
+        var = var_s / torch.square(band[:, k])
+        return mu, torch.clamp(var, min=0.0)
+
+    noise_d = noise.expand(N) if noise.ndim == 0 else (noise if noise.ndim == 1
+                                                       else torch.diagonal(noise))
+    kdiag_s = kern.diag(Xs)
+    mus, variances = [], []
+    for i0 in range(0, Xs.shape[0], test_block):
+        w = idx[i0:i0 + test_block]
+        Kw, kni = _window_grams(kern, Xp[w], Xs[i0:i0 + test_block])
+        band = masked_chol_solve_band_math(Kw + torch.diag_embed(noise_d[w]), kni,
+                                           kdiag_s[i0:i0 + test_block])
+        b = -band[:, :k] / band[:, k:]
+        mus.append(mean_s[i0:i0 + test_block] + torch.sum(b * delta[w], dim=1))
+        variances.append(torch.clamp(1.0 / torch.square(band[:, k]), min=0.0))
+    return torch.cat(mus), torch.cat(variances)

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "gram_matvec.cu",
-            "gram_matvec_f64.cu")
+            "gram_matvec_f64.cu", "vecchia_band.cu", "vecchia_band_f64.cu")
 _HEADERS = ("kernel_maps.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
+_ll = ctypes.c_longlong
 # name: (argtypes, restype); every launching entry point returns a cudaError_t
 _SIGNATURES = {
     # z, coef, L, J, scratch, M, Mp, D, kmap, stream
@@ -55,6 +56,10 @@ _SIGNATURES = {
     # xq, zk, v, out, N, M, D, R, kmap, deriv, stream
     "agp_gram_matvec_f32": ((_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
     "agp_gram_matvec_f64": ((_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
+    # xw, its strides (n, d, j), valid, its strides (n, t), nugget, nugget_self, out,
+    # N, D, k, kmap, stream
+    "agp_vecchia_band_f32": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _i, _p, _i, _i, _i, _i, _p), _i),
+    "agp_vecchia_band_f64": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _i, _p, _i, _i, _i, _i, _p), _i),
     "agp_error_string": ((_i,), ctypes.c_char_p),
 }
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's SVGP serving and training paths and its
-matrix-free exact GP on one CUDA GPU.
+"""Smoke run of the PyTorch port's SVGP serving and training paths, its
+matrix-free exact GP and its Vecchia serving path on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -60,8 +60,24 @@ Phases (a failing phase raises, and the script exits non-zero):
    host syncs, ms a step and ms a serve of both paths (the plain path once:
    it is slow).
 
+8. The Vecchia serving slice (``bench.py``'s Vecchia rows; k = 32): (a) the
+   band kernel against its plain version in f64 and f32, every map, both
+   layouts, with and without a nugget, N ragged, duplicated points and
+   masked slots; (b) the band build (``approx_root_prec_band``, N = 10^6 on
+   linspace(0, 10^6), bare Matérn-3/2), the ``approx_lml`` value (y =
+   sin(x/3), softplus(0.55)·Matérn-3/2(ℓ = softplus(0.55)), noise 0),
+   ``predict_knn`` over 10^6 training and test points on [0, 1000]^2
+   (ℓ = 5, noise 0.1, tiles of 4096 × 65536) and the sparse build with
+   random predecessors at N = 2^18, each on the kernel path (one launch,
+   counted) and the plain path (none), against each other, with their
+   times, the k-NN search timed apart and its host syncs counted, and the
+   kernel alone at the build's and the sweep's shapes; (c) in f64,
+   ``approx_lml`` at N = 33, k = 32 against the dense exact ``logpdf``,
+   ``predict_knn`` at N = 32, k = 32 against the exact posterior, and the
+   kernel path against the plain path at N = 65536.
+
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-7 (each run with the counts
+source, launches in the path runs of phases 4-8 (each run with the counts
 set to 0 just before it), error, times and bound (the least time the card
 could take for the work: operations over the peak rate of their unit or
 bytes over the memory rate, whichever is larger); the last line is
@@ -83,8 +99,9 @@ import torch
 import approximategps_tpu_torch as tgp
 from approximategps_tpu_torch import convert
 from approximategps_tpu_torch.core import kernels as tk
-from approximategps_tpu_torch.models import iterative
-from approximategps_tpu_torch.ops import _build, gram_matvec, panel_chol, svgp_epilogue
+from approximategps_tpu_torch.models import iterative, vecchia
+from approximategps_tpu_torch.ops import _build, batched_chol, gram_matvec, knn, panel_chol, \
+    svgp_epilogue
 from approximategps_tpu_torch.utils.bijectors import softplus
 
 # every kernel's launch counter, by the name the kernels line gives it
@@ -94,6 +111,7 @@ COUNTERS = {
     "svgp_data_epilogue_bwd": svgp_epilogue.svgp_data_epilogue_bwd,
     "chol_inv": panel_chol.chol_inv,
     "gram_matvec": gram_matvec.gram_matvec,
+    "vecchia_band": batched_chol.vecchia_band,
 }
 
 
@@ -101,6 +119,7 @@ def reset_counts() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
     iterative.reset_stats()
+    knn.reset_stats()
     for k in gram_matvec.pullback_passes:
         gram_matvec.pullback_passes[k] = 0
 
@@ -133,6 +152,24 @@ N_GP, D_GP, N_GP64 = 100_000, 2, 8192
 GP_THETA = np.log(np.expm1(np.array([1.5, 1.2, 0.1])))
 GP_SLQ = dict(lanczos_iters=30, cg_tol=1e-5, cg_maxiter=400, block_size=8192)
 GP_PROBES, GP_RANK, GP_LR, GP_REFRESH, GP_STEPS, GP_N_TEST = 16, 512, 1e-2, 25, 5, 32
+# the Vecchia serving slice (bench.py's Vecchia rows, nothing cut but the
+# sparse build's N): the band build and approx_lml at N = 10^6 on
+# linspace(0, 10^6), predict_knn over 10^6 training and test points on
+# [0, 1000]^2, the sparse build at N = 2^18; k = 32 throughout
+N_VEC, VEC_K, VEC_BLOCK = 1_000_000, 32, 8192
+N_SWEEP, SWEEP_SIDE, SWEEP_TEST_BLOCK, SWEEP_TRAIN_BLOCK = 1_000_000, 1000.0, 4096, 65536
+N_SPARSE, N_VEC64 = 1 << 18, 65536
+VEC_THETA = np.array([0.55, 0.55, -np.inf])  # bench.py::vecchia_lml_grad, noise 0
+SWEEP_THETA = np.log(np.expm1(np.array([1.0, 5.0, 0.1])))  # variance 1, lengthscale 5, noise 0.1
+# f32 limit of the band kernel against its plain version, relative to the
+# largest entry: the two round each pivot in another order, and the window
+# Grams of points a lengthscale apart with 32 neighbours amplify that by
+# their conditioning (the same windows in f64 differ by about 60 eps), so
+# f32 sits near 1e-5; f64 1e-12
+BAND_RTOL32 = 1e-4
+# the Vecchia paths in f32, kernels against the plain path (the bordered
+# factorization against the masked one, each with its own rounding)
+VEC_RTOL = 1e-4
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
 # paper) × 132 SMs × 1.98 GHz boost
@@ -158,6 +195,15 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(result, host ms) of ``fn`` between two synchronises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, 1e3 * (time.perf_counter() - t0)
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -489,7 +535,8 @@ def phase_slice(dev) -> dict:
         print(f"slice launches: {launches}")
         n_blocks = -(-N_TEST // BLOCK)
         check(launches == {"gram_chol_inv": 1, "svgp_data_epilogue": n_blocks,
-                           "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0},
+                           "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0,
+                           "vecchia_band": 0},
               f"the posterior build launched kernel A once and the sweep kernel B "
               f"{n_blocks} times")
         check(mu.shape == var.shape == (N_TEST,), f"outputs of shape ({N_TEST},)")
@@ -605,7 +652,8 @@ def phase_minibatch(dev) -> dict:
     launches = read_counts()
     print(f"minibatch launches over {STEPS} steps: {launches}")
     check(launches == {"gram_chol_inv": STEPS, "svgp_data_epilogue": 0,
-                       "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0},
+                       "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0,
+                       "vecchia_band": 0},
           f"kernel A launched once a step, the epilogue never ({STEPS} steps)")
     losses = torch.stack(losses)
     check(bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all())
@@ -641,7 +689,8 @@ def phase_streaming(dev) -> dict:
     launches = read_counts()
     print(f"streaming launches: {launches}")
     check(launches == {"gram_chol_inv": 0, "svgp_data_epilogue": n_blocks,
-                       "svgp_data_epilogue_bwd": n_blocks, "chol_inv": 1, "gram_matvec": 0},
+                       "svgp_data_epilogue_bwd": n_blocks, "chol_inv": 1, "gram_matvec": 0,
+                       "vecchia_band": 0},
           f"kernel 4 launched once, the epilogue forward and backward {n_blocks} times each")
     check(bool(torch.isfinite(v)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
           "streaming value and gradients finite")
@@ -674,13 +723,6 @@ def phase_exact_gp(dev) -> dict:
             post = tgp.posterior_cg(build(theta), y, tol=GP_SLQ["cg_tol"], precond_rank=GP_RANK,
                                     block_size=GP_SLQ["block_size"])
             return post.mean_and_var(xs)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, 1e3 * (time.perf_counter() - t0)
 
     # the path, counted: the hyperparameter steps, then the serve
     reset_counts()
@@ -791,6 +833,261 @@ def phase_exact_gp(dev) -> dict:
     return launches
 
 
+def band_windows(X: torch.Tensor, k: int):
+    """Previous-k windows (N, D, k+1) of the points X (N, D) and their
+    (N, k) mask, as the JAX package's tests build them."""
+    N = X.shape[0]
+    idx = torch.arange(N, device=X.device)[:, None] - k + torch.arange(k, device=X.device)
+    xw = torch.cat([X[idx.clamp(min=0)], X[:, None, :]], dim=1).transpose(1, 2).contiguous()
+    return xw, (idx >= 0).to(X.dtype)
+
+
+def band_work(valid: torch.Tensor, D: int, sfu_per_pair: int, in_bytes: float, elt: int):
+    """(flops, bytes, special-function results) of the band kernel on these
+    windows, counted from its loops: (k+1)(k)(k−1)/6 + (k+1)k/2 FMAs for the
+    factor and k(k−1)/2 for the back substitution; for each pair of valid
+    slots D differences and D FMAs, about 4 flops of the map and its sqrt and
+    exp (SE: the exp alone); the band written once."""
+    N, k = valid.shape
+    kp1 = k + 1
+    fmas = kp1 * (kp1 - 1) * (kp1 - 2) // 6 + kp1 * (kp1 - 1) // 2 + k * (k - 1) // 2
+    nv = valid.double().sum(dim=1) + 1
+    pairs = float((nv * (nv - 1) / 2).sum())
+    return N * 2 * fmas + pairs * (3 * D + 4), in_bytes + elt * N * kp1, pairs * sfu_per_pair
+
+
+def parity_vecchia_band(dev) -> None:
+    """Phase 8 (a): the band kernel against its plain version on the card,
+    f64 and f32, every map, both layouts (row 10's has no nugget_self
+    switch), no nugget and a nugget with and without slot k, N ragged
+    against the 8-window blocks; previous-k windows of points about a
+    lengthscale apart, every tenth a copy of the one before (a deflated
+    pivot), the first k rows masked (those slots must be exactly 0)."""
+    rng = np.random.default_rng(SEED + 8)
+    maps = [cls().kernel_map() for cls in (tk.SqExponentialKernel, tk.Matern12Kernel,
+                                           tk.Matern32Kernel, tk.Matern52Kernel)]
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, BAND_RTOL32)):
+        for D, k, N in ((1, 32, 10001), (2, 32, 10001), (3, 7, 4099), (8, 64, 2049)):
+            X = (np.cumsum(rng.uniform(0.5, 1.5, (N, 1)), axis=0) if D == 1
+                 else rng.uniform(0.0, 4.0 * N ** (1.0 / D), (N, D)))
+            X[1::10] = X[0::10][: X[1::10].shape[0]]
+            xw, valid = band_windows(torch.tensor(X, dtype=dtype, device=dev), k)
+            xwT, validT = xw.permute(1, 2, 0).contiguous(), valid.T.contiguous()
+            worst, zeros = 0.0, True
+            for kmap in maps:
+                for nugget, self_ in ((None, True), (0.1, False), (0.1, True)):
+                    nug = None if nugget is None else torch.tensor([nugget], dtype=dtype,
+                                                                   device=dev)
+                    ref = batched_chol.vecchia_band_plain(xw, valid, kmap, nug, self_)
+                    outs = [batched_chol.vecchia_band(xw, valid, kmap, nug, self_)]
+                    if self_:
+                        outs.append(batched_chol.vecchia_band_t(xwT, validT, kmap, nug))
+                    for got in outs:
+                        worst = max(worst, rel_err(got, ref))
+                        zeros = zeros and bool((got[:, :k][valid == 0] == 0).all())
+            check(worst <= tol and zeros,
+                  f"vecchia_band {str(dtype)[6:]} N={N} D={D} k={k}, 4 maps, both layouts, no "
+                  f"nugget / nugget with and without slot k: rel err {worst:.3e} <= {tol:g}, "
+                  "masked slots exactly 0")
+
+
+def counted(fn, launches: dict):
+    """Run ``fn`` with every count from 0 and add its launches to
+    ``launches``; returns (result, this run's counts)."""
+    reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    for k in launches:
+        launches[k] += got[k]
+    return res, got
+
+
+def phase_vecchia(dev) -> tuple[dict, dict]:
+    """Phase 8: the Vecchia serving slice.  Returns (the path runs'
+    launches, the numbers of the kernels line)."""
+    parity_vecchia_band(dev)
+    launches = {k: 0 for k in COUNTERS}
+    only_band = lambda got: got["vecchia_band"] == 1 and sum(got.values()) == 1  # noqa: E731
+    f32 = torch.float32
+
+    def plain(fn):
+        """``fn`` on the plain path, host-timed once; it launches nothing."""
+        reset_counts()
+        with tgp.config_context(use_kernels=False):
+            res, ms = timed(fn)
+        check(sum(read_counts().values()) == 0, "the plain path launched no kernel")
+        return res, ms
+
+    # (b) the band build: bench.py::vecchia_build
+    x = torch.linspace(0.0, float(N_VEC), N_VEC, device=dev)
+    m32 = tgp.Matern32Kernel()
+    build = lambda: tgp.approx_root_prec_band(x, VEC_K, m32, block_size=VEC_BLOCK)  # noqa: E731
+    band, got = counted(build, launches)
+    check(only_band(got), f"band build N={N_VEC} k={VEC_K}: vecchia_band launched once, "
+          f"nothing else ({got})")
+    band0, build_plain_ms = plain(build)
+    out_of_range = torch.arange(VEC_K)[:, None] + torch.arange(VEC_K)[None, :] < VEC_K
+    e = rel_err(band, band0)
+    check(bool(torch.isfinite(band).all()) and bool((band[:VEC_K, :VEC_K][out_of_range.to(dev)]
+                                                      == 0).all()) and e <= VEC_RTOL,
+          f"band build: finite, out-of-range slots exactly 0, kernel vs plain path rel err "
+          f"{e:.3e} <= {VEC_RTOL:g}")
+    build_ms = cuda_ms(build, 5)
+    print(f"time band build (N={N_VEC}, k={VEC_K}): kernels {build_ms:.3f} ms, plain "
+          f"{build_plain_ms:.3f} ms (once, blocks of {VEC_BLOCK})")
+
+    # the kernel alone at the build's shape: row 10's windows, as the build makes them
+    rows = [torch.cat([x[:1].expand(VEC_K - t), x[:N_VEC - VEC_K + t]]) for t in range(VEC_K)]
+    xwT = torch.stack(rows + [x]).reshape(1, VEC_K + 1, N_VEC)
+    iota = torch.arange(N_VEC, device=dev)
+    validT = torch.stack([iota >= VEC_K - t for t in range(VEC_K)]).to(f32)
+    kmap = m32.kernel_map()
+    got_b = batched_chol.vecchia_band_t(xwT, validT, kmap)
+    ref_b = batched_chol.vecchia_band_plain(xwT.permute(2, 0, 1), validT.T, kmap)
+    numbers = {"max_abs_err": max_abs(got_b, ref_b),
+               "ms": cuda_ms(lambda: batched_chol.vecchia_band_t(xwT, validT, kmap), 10),
+               "plain_ms": cuda_ms(lambda: batched_chol.vecchia_band_plain(
+                   xwT.permute(2, 0, 1), validT.T, kmap), 2)}
+    numbers["bound_ms"], numbers["bound_by"] = bound(*band_work(
+        validT.T, 1, 2, 4 * (xwT.numel() + validT.numel()), 4))
+    print(f"time vecchia_band f32 at the build's shape (N={N_VEC}, k={VEC_K}, D=1, Matern-3/2, "
+          f"row 10 layout): kernel {numbers['ms']:.3f} ms, plain {numbers['plain_ms']:.3f} ms, "
+          f"bound {numbers['bound_ms']:.3f} ms ({numbers['bound_by']}); rel err "
+          f"{rel_err(got_b, ref_b):.3e}")
+    del xwT, validT, got_b, ref_b, band, band0
+
+    # the approx_lml value: bench.py::vecchia_lml_grad's value
+    y = torch.sin(x / 3.0)
+    fx = convert.build_vecchia_fx(convert.from_jax_params(VEC_THETA, device=dev, dtype=f32), x)
+    nn = tgp.NearestNeighbors(VEC_K, block_size=VEC_BLOCK)
+    with torch.no_grad():
+        lml = lambda: tgp.approx_lml(nn, fx, y)  # noqa: E731
+        v, got = counted(lml, launches)
+        check(only_band(got), f"approx_lml: vecchia_band launched once ({got})")
+        v0, lml_plain_ms = plain(lml)
+        e = abs(v.item() - v0.item()) / abs(v0.item())
+        check(math.isfinite(v.item()) and e <= VEC_RTOL,
+              f"approx_lml N={N_VEC}: {v.item():.8g} (kernels) vs {v0.item():.8g} (plain), rel "
+              f"err {e:.3e} <= {VEC_RTOL:g}")
+        lml_ms = cuda_ms(lml, 5)
+    print(f"time approx_lml value (N={N_VEC}): kernels {lml_ms:.3f} ms, plain "
+          f"{lml_plain_ms:.3f} ms (once)")
+
+    # predict_knn: bench.py::vecchia_predict_knn_sweep
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    X = SWEEP_SIDE * torch.rand((N_SWEEP, 2), generator=gen, device=dev)
+    Xs = SWEEP_SIDE * torch.rand((N_SWEEP, 2), generator=gen, device=dev)
+    ys = torch.randn((N_SWEEP,), generator=gen, device=dev)
+    theta_s = convert.from_jax_params(SWEEP_THETA, device=dev, dtype=f32)
+    fxs = convert.build_vecchia_fx(theta_s, X)
+    knn_kw = dict(train_block=SWEEP_TRAIN_BLOCK, test_block=SWEEP_TEST_BLOCK)
+    with torch.no_grad():
+        sweep = lambda: tgp.predict_knn(fxs, ys, Xs, k=VEC_K, **knn_kw)  # noqa: E731
+        (mu, var), got = counted(sweep, launches)
+        stats = dict(knn.stats)
+        check(only_band(got), f"predict_knn: vecchia_band launched once ({got})")
+        check(mu.shape == var.shape == (N_SWEEP,) and bool(torch.isfinite(mu).all())
+              and bool(torch.isfinite(var).all()) and bool((var > 0).all()),
+              f"predict_knn: mean and variance finite, variance positive, at {N_SWEEP} points")
+        print(f"predict_knn search: {stats['tiles']} tiles, {stats['host_syncs']} host syncs of "
+              f"the grid certificate, {stats['fallbacks']} fell back to the scan")
+        (mu0, var0), sweep_plain_ms = plain(sweep)
+        emu, evar = rel_err(mu, mu0), rel_err(var, var0)
+        check(emu <= VEC_RTOL and evar <= VEC_RTOL,
+              f"predict_knn, kernels vs plain path: rel err mu {emu:.3e}, var {evar:.3e} <= "
+              f"{VEC_RTOL:g}")
+        sweep_ms = cuda_ms(sweep, 3)
+        idx = knn.knn_search(X, Xs, VEC_K, **knn_kw)[0]
+        search_ms = cuda_ms(lambda: knn.knn_search(X, Xs, VEC_K, **knn_kw), 3)
+        # after the search: the gathers, the band and the kriging sums
+        krige_ms = cuda_ms(lambda: vecchia._krige(fxs, ys, Xs, idx, SWEEP_TEST_BLOCK, None), 5)
+        # the kernel alone at the sweep's shape: the windows predict_knn gives it
+        s = 1.0 / softplus(theta_s[1])
+        pts = torch.cat([(X * s)[idx], (Xs * s)[:, None, :]], dim=1)
+        xw, valid = pts.transpose(1, 2), X.new_ones(()).expand(N_SWEEP, VEC_K)
+        ratio = (softplus(theta_s[2]) / softplus(theta_s[0])).reshape(1)
+        band_fn = lambda: batched_chol.vecchia_band(xw, valid, kmap, ratio, False)  # noqa: E731
+        got_s = band_fn()
+        ref_s = batched_chol.vecchia_band_plain(xw, valid, kmap, ratio, False)
+        numbers["max_abs_err_sweep"] = max_abs(got_s, ref_s)
+        numbers["ms_sweep"] = cuda_ms(band_fn, 5)
+        numbers["plain_ms_sweep"] = cuda_ms(
+            lambda: batched_chol.vecchia_band_plain(xw, valid, kmap, ratio, False), 1)
+        numbers["bound_ms_sweep"], numbers["bound_by_sweep"] = bound(*band_work(
+            valid, 2, 2, 4 * (pts.numel() + 2), 4))
+        print(f"time vecchia_band f32 at the sweep's shape (N={N_SWEEP}, k={VEC_K}, D=2, "
+              f"nugget, row 8 layout as a view): kernel {numbers['ms_sweep']:.3f} ms, plain "
+              f"{numbers['plain_ms_sweep']:.3f} ms, bound {numbers['bound_ms_sweep']:.3f} ms "
+              f"({numbers['bound_by_sweep']}); rel err {rel_err(got_s, ref_s):.3e}")
+        del pts, xw, got_s, ref_s, idx
+    print(f"time predict_knn sweep (N=N*={N_SWEEP}, k={VEC_K}): kernels {sweep_ms:.3f} ms, plain "
+          f"{sweep_plain_ms:.3f} ms (once); timed apart: the k-NN search {search_ms:.3f} ms "
+          f"(host-bound: one sync a tile), the rest {krige_ms:.3f} ms (gathers, the band kernel "
+          f"{numbers['ms_sweep']:.3f} ms, the kriging sums)")
+
+    # the sparse build: bench.py::vecchia_sparse_build's predecessors at N = 2^18
+    rs = np.random.default_rng(0)
+    ar = np.arange(N_SPARSE)[:, None]
+    offs = np.sort(rs.integers(1, 1 << 30, size=(N_SPARSE, VEC_K)) % np.maximum(ar, 1), axis=1)
+    nbr = torch.tensor(np.where(ar > np.arange(VEC_K)[None, :], np.maximum(ar - 1 - offs, 0), -1),
+                       device=dev)
+    x0 = torch.linspace(0.0, float(N_SPARSE), N_SPARSE, device=dev)
+    sparse = lambda: tgp.approx_root_prec_sparse(x0, nbr, m32)  # noqa: E731
+    rep, got = counted(sparse, launches)
+    check(only_band(got), f"sparse build N={N_SPARSE}: vecchia_band launched once ({got})")
+    rep0, sparse_plain_ms = plain(sparse)
+    e = max(rel_err(rep.coeff, rep0.coeff), rel_err(rep.diag, rep0.diag))
+    check(e <= VEC_RTOL, f"sparse build, kernels vs plain path: rel err {e:.3e} <= {VEC_RTOL:g}")
+    print(f"time sparse build (N={N_SPARSE}, k={VEC_K}, random predecessors): kernels "
+          f"{cuda_ms(sparse, 5):.3f} ms, plain {sparse_plain_ms:.3f} ms (once)")
+
+    # (c) f64: full conditioning against the dense exact GP, then the kernel
+    # path against the plain path at N = 65536
+    f64 = torch.float64
+    th64 = convert.from_jax_params(VEC_THETA, device=dev, dtype=f64)
+    x33 = torch.linspace(0.0, 32.0, 33, dtype=f64, device=dev)
+    fx33 = convert.build_vecchia_fx(th64, x33)
+    y33 = torch.sin(x33 / 3.0)
+    v = tgp.approx_lml(tgp.NearestNeighbors(32), fx33, y33).item()
+    exact = tgp.logpdf(fx33, y33).item()
+    check(abs(v - exact) <= 1e-10 * abs(exact),
+          f"f64 approx_lml N=33 k=32 (full conditioning): {v:.12g} vs the exact logpdf "
+          f"{exact:.12g}, rel err {abs(v - exact) / abs(exact):.3e} <= 1e-10")
+    g64 = torch.Generator(device=dev).manual_seed(SEED + 10)
+    ths64 = convert.from_jax_params(SWEEP_THETA, device=dev, dtype=f64)
+    X32 = 30.0 * torch.rand((32, 2), generator=g64, device=dev, dtype=f64)
+    Xs32 = 30.0 * torch.rand((100, 2), generator=g64, device=dev, dtype=f64)
+    fx32 = convert.build_vecchia_fx(ths64, X32)
+    y32 = torch.randn((32,), generator=g64, device=dev, dtype=f64)
+    mu, var = tgp.predict_knn(fx32, y32, Xs32, k=32)
+    mu0, var0 = tgp.posterior(fx32, y32).mean_and_var(Xs32)
+    emu, evar = rel_err(mu, mu0), rel_err(var, var0)
+    check(emu <= 1e-10 and evar <= 1e-10, f"f64 predict_knn N=32 k=32 against the exact "
+          f"posterior: rel err mu {emu:.3e}, var {evar:.3e} <= 1e-10")
+    x64 = torch.linspace(0.0, float(N_VEC64), N_VEC64, dtype=f64, device=dev)
+    kern64 = fx33.f.kernel
+    reset_counts()
+    b64 = tgp.approx_root_prec_band(x64, VEC_K, kern64)
+    with tgp.config_context(use_kernels=False):
+        b64p = tgp.approx_root_prec_band(x64, VEC_K, kern64, block_size=VEC_BLOCK)
+    side = SWEEP_SIDE * math.sqrt(N_VEC64 / N_SWEEP)
+    Xp = side * torch.rand((N_VEC64, 2), generator=g64, device=dev, dtype=f64)
+    Xq = side * torch.rand((N_VEC64, 2), generator=g64, device=dev, dtype=f64)
+    yp = torch.randn((N_VEC64,), generator=g64, device=dev, dtype=f64)
+    fxp = convert.build_vecchia_fx(ths64, Xp)
+    mu, var = tgp.predict_knn(fxp, yp, Xq, k=VEC_K)
+    n_k = read_counts()["vecchia_band"]  # since the reset: the build's and this one
+    with tgp.config_context(use_kernels=False):
+        mu0, var0 = tgp.predict_knn(fxp, yp, Xq, k=VEC_K)
+    eb, emu, evar = rel_err(b64, b64p), rel_err(mu, mu0), rel_err(var, var0)
+    check(max(eb, emu, evar) <= 1e-12 and n_k == 2,
+          f"f64 N={N_VEC64} k={VEC_K}, kernels (2 launches) vs plain path: band build rel err "
+          f"{eb:.3e}, predict_knn mu {emu:.3e}, var {evar:.3e} <= 1e-12")
+    print(f"vecchia launches in the path runs: {launches}")
+    return launches, numbers
+
+
 def _plain(fn, *args):
     with tgp.config_context(use_kernels=False):
         return fn(*args)
@@ -807,6 +1104,7 @@ def main() -> None:
         "streaming": phase_streaming(dev),
         "exact_gp": phase_exact_gp(dev),
     }
+    by_path["vecchia"], numbers["vecchia_band"] = phase_vecchia(dev)
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),
@@ -818,7 +1116,13 @@ def main() -> None:
                      "approximategps_tpu/ops/panel_chol.py:338"),
         "gram_matvec": ("approximategps_tpu_torch/csrc/gram_matvec.cu",
                         "approximategps_tpu/ops/gram_matvec.py:151"),
+        "vecchia_band": ("approximategps_tpu_torch/csrc/vecchia_band.cu",
+                         "approximategps_tpu/ops/batched_chol.py:747"),
     }
+    # the one band kernel takes the place of rows 7, 8 and 10 of the table
+    also = {"vecchia_band": {"rows": [7, 8, 10], "replaces_also": [
+        "approximategps_tpu/ops/batched_chol.py:485",
+        "approximategps_tpu/ops/batched_chol.py:1134"]}}
     # bounds of kernels A, B, 3 and 4 at the shapes phase 3 timed them (f32,
     # M = 2048, B = 16384): a Cholesky and a triangular inverse are M³/3
     # FMAs each; var = diag(K0ᵀ Se K0) over Se's upper triangle M²B/2 FMAs;
@@ -838,11 +1142,12 @@ def main() -> None:
     kernels = []
     for k, (src, rep) in meta.items():
         per_path = {path: counts[k] for path, counts in by_path.items()}
-        extra = {} if k == "gram_matvec" else dict(zip(("bound_ms", "bound_by"), bounds[k]))
-        # no single PyTorch call computes any of the five functions
+        extra = dict(zip(("bound_ms", "bound_by"), bounds[k])) if k in bounds else {}
+        # no single PyTorch call computes any of the six functions
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": sum(per_path.values()), "launches_by_path": per_path,
-                        "library_ms": None, **extra, **numbers[k]})
+                        **also.get(k, {}), "launches": sum(per_path.values()),
+                        "launches_by_path": per_path, "library_ms": None, **extra,
+                        **numbers[k]})
     check(all(k["launches"] > 0 for k in kernels), "every kernel launched by a path run")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -300,3 +300,95 @@ def test_torch_cuda_logpdf_slq_runs_through_the_kernel(cuda):
         v0, g0 = value_and_grad()
     assert abs((v - v0).item()) <= 1e-8 * abs(v0.item())
     assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-7
+
+
+# -- the Vecchia band kernel -------------------------------------------------
+
+
+def _band_windows(N, D, k, seed):
+    """Previous-k windows of points about a lengthscale apart (the bench's
+    spacing), every tenth point a copy of the one before it (a deflated
+    pivot); the first k rows have masked slots."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0.0, 1.2 * N ** (1.0 / D), (N, D))
+    X[1::10] = X[0::10][: X[1::10].shape[0]]
+    idx = np.arange(N)[:, None] - k + np.arange(k)[None, :]
+    valid = (idx >= 0).astype(np.float64)
+    xw = np.concatenate([X[np.clip(idx, 0, N - 1)], X[:, None, :]], axis=1).swapaxes(1, 2)
+    return np.ascontiguousarray(xw), valid
+
+
+@pytest.mark.parametrize("layout", ["nd", "t"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_vecchia_band_matches_plain(cls, dtype, layout, cuda):
+    """Both layouts, with and without a nugget, slot k in and out of it, N
+    odd and ragged against the 8-window blocks; relative to the largest
+    entry: f64 1e-12, f32 1e-4 (each pivot rounds in another order, amplified
+    by the window Grams' conditioning); masked slots exactly 0."""
+    from approximategps_tpu_torch.ops import batched_chol
+
+    kmap = cls().kernel_map()
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for D, k, N in ((1, 32, 1001), (2, 32, 777), (3, 7, 501), (8, 64, 301)):
+        xw, valid = _band_windows(N, D, k, seed=D)
+        a, v = _t(xw, cuda, dtype), _t(valid, cuda, dtype)
+        for nugget, self_ in ((None, True), (0.1, False), (0.1, True)):
+            nug = None if nugget is None else torch.tensor([nugget], dtype=dtype, device=cuda)
+            before = batched_chol.vecchia_band.launches
+            if layout == "t" and self_:
+                got = batched_chol.vecchia_band_t(a.permute(1, 2, 0).contiguous(),
+                                                  v.T.contiguous(), kmap, nug)
+            else:
+                got = batched_chol.vecchia_band(a, v, kmap, nug, self_)
+            assert batched_chol.vecchia_band.launches == before + 1
+            ref = batched_chol.vecchia_band_plain(a, v, kmap, nug, self_)
+            assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol, (D, k, nugget)
+            assert bool((got[:, :k][v == 0] == 0).all())
+
+
+def test_torch_cuda_vecchia_band_raises_on_what_it_does_not_take(cuda):
+    from approximategps_tpu_torch.ops import batched_chol
+
+    kmap = tk.SqExponentialKernel().kernel_map()
+    xw = torch.zeros((10, 2, 5), device=cuda)
+    v = torch.ones((10, 4), device=cuda)
+    for args in [
+        (xw.bfloat16(), v.bfloat16()),
+        (torch.zeros((10, 9, 5), device=cuda), v),
+        (torch.zeros((10, 2, 66), device=cuda), torch.ones((10, 65), device=cuda)),
+        (xw, v.cpu()),
+        (xw, v.double()),
+        (xw, torch.ones((10, 3), device=cuda)),
+    ]:
+        with pytest.raises(ValueError):
+            batched_chol.vecchia_band_pass(*args, kmap)
+    with pytest.raises(ValueError):
+        batched_chol.vecchia_band_pass(xw, v, kmap, torch.ones(2, device=cuda))
+
+
+def test_torch_cuda_vecchia_paths_launch_once(cuda):
+    """The band build and ``predict_knn`` each launch the kernel once and
+    agree with the plain route in f64."""
+    from approximategps_tpu_torch.ops import batched_chol
+
+    rng = np.random.default_rng(12)
+    x = _t(np.cumsum(rng.uniform(0.5, 1.5, 3000)), cuda)
+    kern = 1.3 * tgp.with_lengthscale(tgp.Matern32Kernel(), 1.1)
+    before = batched_chol.vecchia_band.launches
+    band = tgp.approx_root_prec_band(x, 16, kern)
+    assert batched_chol.vecchia_band.launches == before + 1
+    with tgp.config_context(use_kernels=False):
+        band0 = tgp.approx_root_prec_band(x, 16, kern, block_size=1024)
+    assert ((band - band0).abs().max() / band0.abs().max()).item() <= 1e-12
+    X = _t(rng.uniform(0.0, 50.0, (4000, 2)), cuda)
+    Xs = _t(rng.uniform(0.0, 50.0, (900, 2)), cuda)
+    y = torch.sin(X[:, 0])
+    fx = tgp.GP(kern)(X, 0.1)
+    before = batched_chol.vecchia_band.launches
+    mu, var = tgp.predict_knn(fx, y, Xs, k=16, test_block=256)
+    assert batched_chol.vecchia_band.launches == before + 1
+    with tgp.config_context(use_kernels=False):
+        mu0, var0 = tgp.predict_knn(fx, y, Xs, k=16, test_block=256)
+    assert ((mu - mu0).abs().max() / mu0.abs().max()).item() <= 1e-12
+    assert ((var - var0).abs().max() / var0.abs().max()).item() <= 1e-12

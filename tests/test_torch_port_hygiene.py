@@ -26,6 +26,9 @@ def test_torch_port_imports_no_jax():
     proc = _run(
         "import sys, approximategps_tpu_torch as t\n"
         "t.posterior, t.build_svgp, t.convert.from_jax_params\n"
+        "t.NearestNeighbors, t.BandInvRoot, t.SparseInvRoot, t.approx_root_prec_band\n"
+        "t.approx_root_prec_sparse, t.band_Ut_matmul, t.band_U_matvec, t.predict_knn\n"
+        "t.knn_search, t.convert.build_vecchia_fx, t.ops.vecchia_band, t.ops.vecchia_band_t\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'approximategps_tpu' not in sys.modules\n"
     )
