@@ -6,8 +6,11 @@ carries the SVGP serving path (``posterior``, then
 ``elbo`` and the full-data ``streaming_elbo`` with their gradients, and
 ``adam_fit``; and the matrix-free exact GP: hyperparameter training on
 ``-logpdf_slq`` (``make_slq_hyperopt_step``) and serving through
-``posterior_cg``; and Vecchia serving: the banded precision root
-(``approx_root_prec_band``), its ``approx_lml`` and ``predict_knn``.
+``posterior_cg``; and Vecchia serving and training: the banded and sparse
+precision roots (``approx_root_prec_band``, the maximin / random orderings
+and nearest / scaled neighbour sets), ``approx_lml`` with its
+hyperparameter gradient (a white-noise nugget included) and
+``predict_knn``.
 Hand-written CUDA kernels for Hopper (``csrc/``) carry them
 on the GPU, each beside a plain PyTorch version that CPU tensors take:
 
@@ -21,17 +24,20 @@ on the GPU, each beside a plain PyTorch version that CPU tensors take:
   its pullback, under every CG, Lanczos and surrogate matvec;
 - ``ops.batched_chol.vecchia_band``: Vecchia band rows from point windows,
   window → Gram → bordered Cholesky in one pass, under the band build and
-  ``predict_knn``.
+  ``predict_knn``, and its pullback ``vecchia_band_bwd`` under every
+  Vecchia training step.
 
-The kernels are built with ``nvcc`` at first use (``ops/_build.py``).
+The kernels are built with ``nvcc`` at first use (``ops/_build.py``); the
+host-side orderings of ``native/`` with g++.
 """
 
 from . import config as _config_module
-from . import convert, core, models, ops, utils
+from . import convert, core, models, native, ops, utils
 from .config import config, config_context, set_config
 from .core import (
     GP,
     AbstractGP,
+    ConstantKernel,
     GaussianLikelihood,
     LatentFiniteGP,
     LatentGP,
@@ -48,7 +54,10 @@ from .core import (
     SEKernel,
     SqExponentialKernel,
     StationaryKernel,
+    SumKernel,
+    WhiteKernel,
     logpdf,
+    unwrap_stationary_nugget,
     with_lengthscale,
 )
 from .models import (
@@ -74,9 +83,11 @@ from .models import (
     posterior_cg,
     predict_knn,
     prior_kl,
+    resolve_ordering,
     streaming_elbo,
     woodbury_preconditioner,
 )
+from .native import maximin_ordering, nearest_predecessor_neighbors, scaled_ball_predecessors
 from .ops import knn_search
 from .utils import SVGPParams, adam_fit, build_svgp, init_svgp_params, make_slq_hyperopt_step
 
@@ -101,6 +112,10 @@ __all__ = [
     "Matern52Kernel",
     "ScaledKernel",
     "InputScaledKernel",
+    "WhiteKernel",
+    "ConstantKernel",
+    "SumKernel",
+    "unwrap_stationary_nugget",
     "with_lengthscale",
     "MultivariateNormal",
     "Centered",
@@ -133,5 +148,9 @@ __all__ = [
     "band_Ut_matmul",
     "band_U_matvec",
     "predict_knn",
+    "resolve_ordering",
+    "maximin_ordering",
+    "nearest_predecessor_neighbors",
+    "scaled_ball_predecessors",
     "knn_search",
 ]

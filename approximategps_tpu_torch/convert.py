@@ -3,7 +3,8 @@
 ``from_jax_params`` takes the JAX package's parameters (anything numpy can
 read: JAX arrays, numpy arrays) in each form the repo uses and returns the
 same form on the port's side, so that ``build_svgp`` / ``posterior`` /
-``build_exact_fx`` / ``build_vecchia_fx`` compute the same thing in both packages.  The tensors
+``build_exact_fx`` / ``build_vecchia_fx`` / ``build_vecchia_nugget_fx``
+compute the same thing in both packages.  The tensors
 land on the card unless the caller names another device.  Nothing here
 imports JAX.
 """
@@ -15,14 +16,14 @@ import torch
 
 from .core.distributions import MultivariateNormal
 from .core.gp import GP, FiniteGP
-from .core.kernels import Matern32Kernel, SqExponentialKernel, with_lengthscale
+from .core.kernels import Matern32Kernel, SqExponentialKernel, WhiteKernel, with_lengthscale
 from .models.api import posterior
 from .models.svgp import SparseVariationalApproximation, SVGPPosterior
 from .utils.bijectors import softplus
 from .utils.training import SVGPParams
 
 __all__ = ["from_jax_params", "build_posterior_from_bench_params", "build_exact_fx",
-           "build_vecchia_fx"]
+           "build_vecchia_fx", "build_vecchia_nugget_fx"]
 
 _BENCH_KEYS = ("k", "z", "m", "A")
 _THETA_LEN = 3  # raw (variance, lengthscale, noise variance) of the exact GP
@@ -44,8 +45,8 @@ def from_jax_params(params, *, device="cuda", dtype=torch.float32):
     - the exact GP's raw hyperparameter vector θ, shape (3,): raw
       (variance, lengthscale, noise variance), as ``tests/test_iterative.py``
       builds it, becomes a (3,) tensor for :func:`build_exact_fx`, and the
-      Vecchia model's raw (variance, lengthscale, noise variance) one for
-      :func:`build_vecchia_fx`.
+      Vecchia models' raw (variance, lengthscale, noise or nugget variance)
+      ones for :func:`build_vecchia_fx` and :func:`build_vecchia_nugget_fx`.
     """
     if isinstance(params, dict):
         if set(params) != set(_BENCH_KEYS):
@@ -90,3 +91,14 @@ def build_vecchia_fx(theta: torch.Tensor, x: torch.Tensor) -> FiniteGP:
     ``x`` with noise variance softplus(θ₂) (θ₂ = −inf gives noise 0)."""
     kernel = softplus(theta[0]) * with_lengthscale(Matern32Kernel(), softplus(theta[1]))
     return GP(kernel)(x, softplus(theta[2]))
+
+
+def build_vecchia_nugget_fx(theta: torch.Tensor, x: torch.Tensor) -> FiniteGP:
+    """The noisy-data Vecchia training model of ``bench.py``'s
+    ``vecchia_nugget_lml_grad`` from raw hyperparameters:
+    softplus(θ₀)·Matérn-3/2(lengthscale softplus(θ₁)) + softplus(θ₂)·White
+    at ``x`` with FiniteGP noise 0 (the precision root ignores that noise,
+    so the white term carries it)."""
+    kernel = (softplus(theta[0]) * with_lengthscale(Matern32Kernel(), softplus(theta[1]))
+              + softplus(theta[2]) * WhiteKernel())
+    return GP(kernel)(x, 0.0)

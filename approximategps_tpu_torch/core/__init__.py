@@ -15,6 +15,7 @@ from .gp import (
     predict_in_blocks,
 )
 from .kernels import (
+    ConstantKernel,
     ExponentialKernel,
     InputScaledKernel,
     Kernel,
@@ -28,9 +29,12 @@ from .kernels import (
     SEKernel,
     SqExponentialKernel,
     StationaryKernel,
+    SumKernel,
+    WhiteKernel,
     as_points,
     pairwise_sq_dist,
     unwrap_stationary,
+    unwrap_stationary_nugget,
     with_lengthscale,
 )
 from .likelihoods import GaussianLikelihood, Likelihood

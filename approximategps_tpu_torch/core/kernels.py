@@ -1,6 +1,6 @@
 """Kernel library and Gram construction (PyTorch port of
-``approximategps_tpu/core/kernels.py``, the parts the SVGP serving path
-reads).
+``approximategps_tpu/core/kernels.py``: the stationary maps, the white and
+constant kernels, scaling, sums and the unwrappers the fused kernels read).
 
 Kernels are plain dataclasses whose hyperparameters are tensors or floats.
 Gram matrices come from pairwise squared distances, computed by exact
@@ -34,8 +34,11 @@ __all__ = [
     "ExponentialKernel",
     "Matern32Kernel",
     "Matern52Kernel",
+    "WhiteKernel",
+    "ConstantKernel",
     "ScaledKernel",
     "InputScaledKernel",
+    "SumKernel",
     "with_lengthscale",
     "pairwise_sq_dist",
     "as_points",
@@ -43,6 +46,7 @@ __all__ = [
     "KernelMap",
     "dk_from_k_for",
     "unwrap_stationary",
+    "unwrap_stationary_nugget",
 ]
 
 
@@ -119,6 +123,13 @@ class Kernel:
 
     def diag(self, X) -> torch.Tensor:
         raise NotImplementedError
+
+    def __add__(self, other):
+        if isinstance(other, Kernel):
+            return SumKernel(self, other)
+        return SumKernel(self, ConstantKernel(other))
+
+    __radd__ = __add__
 
     def __mul__(self, other):
         if isinstance(other, Kernel):
@@ -265,6 +276,41 @@ def _param(v, like: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class WhiteKernel(Kernel):
+    """k(x, z) = δ(x == z).  The one-argument ``gram(X)`` is the identity by
+    index (iid noise on each observation, as the reference has it); the
+    two-argument gram compares the points' values, so points shared by X
+    and Z still meet."""
+
+    def gram(self, X, Z=None):
+        X = as_points(X)
+        if Z is None:
+            return torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
+        Z = as_points(Z)
+        return torch.all(X[:, None, :] == Z[None, :, :], dim=-1).to(X.dtype)
+
+    def diag(self, X):
+        X = as_points(X)
+        return X.new_ones((X.shape[0],))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ConstantKernel(Kernel):
+    """k(x, z) = value."""
+
+    value: torch.Tensor | float = 1.0
+
+    def gram(self, X, Z=None):
+        X = as_points(X)
+        Z = X if Z is None else as_points(Z)
+        return X.new_zeros((X.shape[0], Z.shape[0])) + _param(self.value, X)
+
+    def diag(self, X):
+        X = as_points(X)
+        return X.new_zeros((X.shape[0],)) + _param(self.value, X)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class ScaledKernel(Kernel):
     """variance * inner."""
 
@@ -296,6 +342,20 @@ class InputScaledKernel(Kernel):
 
     def diag(self, X):
         return self.inner.diag(self._tx(X))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SumKernel(Kernel):
+    """left + right."""
+
+    left: Kernel
+    right: Kernel
+
+    def gram(self, X, Z=None):
+        return self.left.gram(X, Z) + self.right.gram(X, Z)
+
+    def diag(self, X):
+        return self.left.diag(X) + self.right.diag(X)
 
 
 def with_lengthscale(kernel: Kernel, lengthscale) -> Kernel:
@@ -333,3 +393,62 @@ def unwrap_stationary(kern: Kernel):
     if not isinstance(kern, StationaryKernel):
         return None
     return kern.kernel_map(), scale, variance
+
+
+def _mul(a, b):
+    """The product of two optional factors (None is 1)."""
+    if a is None:
+        return b
+    return a if b is None else a * b
+
+
+def _unwrap_white(kern: Kernel):
+    """``σ²·White`` nests → σ² (a tensor, 1 for a bare white), or None.
+    Input scaling is absorbed: a positive rescaling keeps points equal or
+    distinct, so the white map is unchanged."""
+    variance = None
+    while isinstance(kern, (ScaledKernel, InputScaledKernel)):
+        if isinstance(kern, ScaledKernel):
+            variance = _mul(variance, _as_param(kern.variance))
+        kern = kern.inner
+    if not isinstance(kern, WhiteKernel):
+        return None
+    return torch.ones((), dtype=torch.float64) if variance is None else variance
+
+
+def unwrap_stationary_nugget(kern: Kernel):
+    """:func:`unwrap_stationary` with a nugget: decompose
+    ``σ²·(base ∘ ScaleTransform(s)) [+ τ²·White]``, outer factors included
+    (``c·(k + w·White)`` is ``c·k + c·w·White``), into ``(KernelMap,
+    input_scale, variance, nugget)``, ``nugget`` the τ² tensor or None
+    without a white term; None if the kernel is not of that form.
+
+    The noisy-data Vecchia training model: the white term becomes a
+    (τ²/σ²)·I shift on the window Gram's index diagonal, iid noise on each
+    observation, as the one-argument ``WhiteKernel.gram`` of the plain
+    path.  With duplicated sites the plain path's cross-covariance column
+    (the two-argument, value-equality white) also couples coincident points
+    and the fused one does not: dedupe the sites to keep the two equal."""
+    out_var = None
+    out_scale = None
+    while isinstance(kern, (ScaledKernel, InputScaledKernel)):
+        if isinstance(kern, ScaledKernel):
+            out_var = _mul(out_var, _as_param(kern.variance))
+        else:
+            out_scale = _mul(out_scale, _as_param(kern.scale))
+        kern = kern.inner
+    white = None
+    if isinstance(kern, SumKernel):
+        for a, b in ((kern.left, kern.right), (kern.right, kern.left)):
+            white = _unwrap_white(b)
+            if white is not None:
+                kern = a
+                break
+        else:
+            return None
+    base = unwrap_stationary(kern)
+    if base is None:
+        return None
+    kmap, scale, variance = base
+    return (kmap, _mul(out_scale, scale), _mul(out_var, variance),
+            None if white is None else _mul(out_var, white))

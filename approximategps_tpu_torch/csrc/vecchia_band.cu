@@ -9,15 +9,9 @@
 //   pallas_vecchia_band_lanes_t (the same on transposed windows).
 // Both layouts come in through strides, so neither is transposed or copied.
 //
-// For window n, slot t < k is neighbour t and slot k the conditioned point:
-//   1. Gm = g(r^2) over the k+1 slots, r^2 from exact coordinate differences;
-//   2. invalid neighbour slots become identity rows with zero coupling;
-//   3. the nugget adds to the valid diagonal (slot k only with nugget_self);
-//   4. chol(Gm): each pivot floored at 8 eps |Gm_jj| (the original diagonal)
-//      and a floored pivot deflates its column (off-diagonal entries 0);
-//   5. the last row of L is [w, sqrt(F)], w = L^-1 kni; b = L^-T w over the
-//      leading k x k block;
-//   6. out[n] = [-b F^-1/2, F^-1/2]; invalid slots give exactly 0 (b_t = 0).
+// For window n the factorization of vecchia_window.cuh, then: the last row of
+// L is [w, sqrt(F)], w = L^-1 kni; b = L^-T w over the leading k x k block;
+// out[n] = [-b F^-1/2, F^-1/2]; invalid slots give exactly 0 (b_t = 0).
 // Any N (the ragged last block is masked), 1 <= k <= 64, 1 <= D <= 8, f32 or
 // f64 computed in the input type, the four maps of kernel_maps.cuh.  The
 // nugget is read from device memory (null: none).
@@ -41,33 +35,17 @@
 // shuffles, which gives four times the warps for the same shared memory.
 // Layout [entry][window]: a team's lanes read neighbouring entries of one
 // window and the teams of a warp neighbouring windows, so a warp's access
-// touches 32 banks.  L is built row by row (up-looking): row i needs only
-// rows j < i and its own Gram entries, computed first into row i's place
-// (independent of each other, off the solve's dependent chain) and then
-// solved there four columns at a time (one load of row i feeds four sums).
-// Teams past the ragged end repeat the last window and store nothing, so
-// every lane of a warp takes the same path through the barriers.
+// touches 32 banks.  Teams past the ragged end repeat the last window and
+// store nothing, so every lane of a warp takes the same path through the
+// barriers.
 
 #include <cuda_runtime.h>
 
-#include "kernel_maps.cuh"
+#include "vecchia_window.cuh"
 
 namespace {
 
-constexpr int TEAM = 4;           // threads a window
-constexpr int W = 32 / TEAM;      // windows a block (one warp)
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-struct Eps;
-template <>
-struct Eps<float> {
-  static constexpr float value = 1.1920928955078125e-07f;
-};
-template <>
-struct Eps<double> {
-  static constexpr double value = 2.220446049250313e-16;
-};
+using namespace agp::vecchia;
 
 // values a window keeps in shared memory: coordinates (k+1)*D, the column
 // scales (k+1) and the triangle of rows 0..k
@@ -91,21 +69,6 @@ struct BandArgs {
   int N, k;
 };
 
-// the sum of v over the team's lanes, in every lane
-template <typename T>
-__device__ __forceinline__ T team_sum(T v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  return v + __shfl_xor_sync(kFull, v, 2);
-}
-
-// sum_t a[t] b[t] over t < n, entries W apart, summed over the team
-template <typename T>
-__device__ __forceinline__ T team_dot(const T* a, const T* b, int n, int lane) {
-  T s = T(0);
-  for (int t = lane; t < n; t += TEAM) s = fma(a[t * W], b[t * W], s);
-  return team_sum(s);
-}
-
 template <typename T, int D, int MAP>
 __global__ void __launch_bounds__(32) vecchia_band_kernel(const BandArgs<T> args) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -122,89 +85,11 @@ __global__ void __launch_bounds__(32) vecchia_band_kernel(const BandArgs<T> args
   T* const cs = X + kp1 * D * W;   // column scales: 1 / pivot, 0 where deflated
   T* const Lt = cs + kp1 * W;      // rows 0..k of L, row i from entry i(i+1)/2
 
-  const T* xn = args.xw + n * args.sxn;
-  for (int j = lane; j < kp1; j += TEAM)
-#pragma unroll
-    for (int d = 0; d < D; ++d) X[(j * D + d) * W] = xn[d * args.sxd + j * args.sxj];
-  unsigned long long vm = 0;  // bit t: neighbour t is valid
-  const T* vn = args.valid + n * args.svn;
-  for (int t = lane; t < k; t += TEAM)
-    if (vn[t * args.svj] != T(0)) vm |= 1ull << t;
-  vm |= __shfl_xor_sync(kFull, vm, 1);
-  vm |= __shfl_xor_sync(kFull, vm, 2);
+  const unsigned long long vm = load_window<T, D>(args.xw + n * args.sxn, args.sxd, args.sxj,
+                                                  args.valid + n * args.svn, args.svj, X, k, lane);
   const T nug = args.nugget != nullptr ? *args.nugget : T(0);
-  const T g0 = agp::kernel_map<T>(MAP, T(0));
-  const T eps8 = T(8) * Eps<T>::value;
-  __syncwarp();
-
-  for (int i = 0; i < kp1; ++i) {
-    const bool vi = i == k || ((vm >> i) & 1ull);
-    T xi[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) xi[d] = X[(i * D + d) * W];
-    T* const row = Lt + i * (i + 1) / 2 * W;
-    // Gm[i][j], j < i: zero coupling unless both slots are valid
-    for (int j = lane; j < i; j += TEAM) {
-      T g = T(0);
-      if (vi && ((vm >> j) & 1ull)) {
-        T r2 = T(0);
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const T dd = xi[d] - X[(j * D + d) * W];
-          r2 = fma(dd, dd, r2);
-        }
-        g = agp::kernel_map<T>(MAP, r2);
-      }
-      row[j * W] = g;
-    }
-    __syncwarp();
-    // row i of L = L_{<i}^-1 Gm[i][:i], four columns at a time
-    int j = 0;
-    for (; j + 4 <= i; j += 4) {
-      const T* const r0 = Lt + j * (j + 1) / 2 * W;
-      const T* const r1 = r0 + (j + 1) * W;
-      const T* const r2 = r1 + (j + 2) * W;
-      const T* const r3 = r2 + (j + 3) * W;
-      T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
-      for (int t = lane; t < j; t += TEAM) {
-        const T x = row[t * W];
-        s0 = fma(x, r0[t * W], s0);
-        s1 = fma(x, r1[t * W], s1);
-        s2 = fma(x, r2[t * W], s2);
-        s3 = fma(x, r3[t * W], s3);
-      }
-      T a0 = row[j * W] - team_sum(s0);
-      T a1 = row[(j + 1) * W] - team_sum(s1);
-      T a2 = row[(j + 2) * W] - team_sum(s2);
-      T a3 = row[(j + 3) * W] - team_sum(s3);
-      const T l0 = a0 * cs[j * W];
-      a1 = fma(-l0, r1[j * W], a1);
-      const T l1 = a1 * cs[(j + 1) * W];
-      a2 = fma(-l1, r2[(j + 1) * W], fma(-l0, r2[j * W], a2));
-      const T l2 = a2 * cs[(j + 2) * W];
-      a3 = fma(-l2, r3[(j + 2) * W], fma(-l1, r3[(j + 1) * W], fma(-l0, r3[j * W], a3)));
-      const T l3 = a3 * cs[(j + 3) * W];
-      __syncwarp();  // every lane has read the Gram entries it overwrites
-      row[(j + lane) * W] = lane == 0 ? l0 : lane == 1 ? l1 : lane == 2 ? l2 : l3;
-      __syncwarp();
-    }
-    for (; j < i; ++j) {
-      const T a = row[j * W] - team_dot(row, Lt + j * (j + 1) / 2 * W, j, lane);
-      __syncwarp();
-      if (lane == 0) row[j * W] = a * cs[j * W];
-      __syncwarp();
-    }
-    // the pivot, floored relative to the original diagonal
-    const T diag0 = vi ? g0 + ((i < k || nugget_self) ? nug : T(0)) : T(1);
-    const T d_raw = diag0 - team_dot(row, row, i, lane);
-    const T fl = eps8 * fabs(diag0);
-    const T sq = sqrt(d_raw >= fl ? d_raw : fl);
-    if (lane == 0) {
-      row[i * W] = sq;
-      cs[i * W] = d_raw >= fl ? T(1) / sq : T(0);
-    }
-    __syncwarp();
-  }
+  factor_window<T, D, MAP>(X, cs, Lt, static_cast<T*>(nullptr), vm, nug, nugget_self != 0, k,
+                           lane);
 
   // b = L_k^-T w over the leading k x k block, w = row k; b overwrites X
   const T* const rk = Lt + k * kp1 / 2 * W;
@@ -237,17 +122,6 @@ cudaError_t launch(const BandArgs<T>& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t by_map(int map, const BandArgs<T>& a, cudaStream_t s) {
-  switch (map) {
-    case 0: return launch<T, D, 0>(a, s);
-    case 1: return launch<T, D, 1>(a, s);
-    case 2: return launch<T, D, 2>(a, s);
-    case 3: return launch<T, D, 3>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 template <typename T>
 int vecchia_band(const void* xw, long long sxn, long long sxd, long long sxj, const void* valid,
                  long long svn, long long svj, const void* nugget, int nugget_self, void* out,
@@ -258,16 +132,9 @@ int vecchia_band(const void* xw, long long sxn, long long sxd, long long sxj, co
                       svn, svj, static_cast<const T*>(nugget), nugget_self,
                       static_cast<T*>(out), N, k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 1: return by_map<T, 1>(kmap, a, s);
-    case 2: return by_map<T, 2>(kmap, a, s);
-    case 3: return by_map<T, 3>(kmap, a, s);
-    case 4: return by_map<T, 4>(kmap, a, s);
-    case 5: return by_map<T, 5>(kmap, a, s);
-    case 6: return by_map<T, 6>(kmap, a, s);
-    case 7: return by_map<T, 7>(kmap, a, s);
-    default: return by_map<T, 8>(kmap, a, s);
-  }
+  return dispatch(D, kmap, [&](auto d, auto m) {
+    return launch<T, decltype(d)::value, decltype(m)::value>(a, s);
+  });
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
 """Approximate-inference models: SVGP serving and training, the
-matrix-free exact GP and Vecchia serving."""
+matrix-free exact GP and Vecchia serving and training."""
 
 from . import api, iterative, svgp, svgp_streaming, vecchia
 from .api import approx_lml, posterior
@@ -30,4 +30,5 @@ from .vecchia import (
     band_U_matvec,
     band_Ut_matmul,
     predict_knn,
+    resolve_ordering,
 )

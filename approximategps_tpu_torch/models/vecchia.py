@@ -1,5 +1,5 @@
-"""Nearest-neighbour (Vecchia) GP approximation: the serving half of the port
-of ``approximategps_tpu/models/vecchia.py``.
+"""Nearest-neighbour (Vecchia) GP approximation: the port of
+``approximategps_tpu/models/vecchia.py``.
 
 The joint factorises as ∏ p(f_i | f_{i−k:i−1}) over the k previous points in
 the given order, giving a sparse precision root U = (I−B)ᵀ F^(−1/2).  Under
@@ -9,20 +9,20 @@ Cholesky factorization of its window.
 
 On the kernel device the whole window → Gram → factor → band construction is
 the hand-written kernel of ``ops/batched_chol.py`` (``vecchia_band`` and
-``vecchia_band_t``); elsewhere, or where the kernel declines, the windows'
-Grams are built in PyTorch and factored by the plain masked math
-(``masked_chol_solve_band_math``).  The kernel declines, and the plain path
-runs, where the JAX package leaves its fused tier or where the kernel has a
-limit: a kernel that does not unwrap to a scaled stationary map, noise that
-is not a scalar (``predict_knn``), D > 8, and k > 64.
+``vecchia_band_t``), and its pullback the hand-written pullback kernel
+(``vecchia_band_bwd``); a ``σ²·k + τ²·White`` kernel rides them as a
+nugget τ²/σ² on the window Gram's diagonal.  Elsewhere, or where the kernel
+declines, the windows' Grams are built in PyTorch and factored by the plain
+masked math (``masked_chol_solve_band_math``).  The kernel declines, and the
+plain path runs, where the JAX package leaves its fused tier or where the
+kernel has a limit: a kernel that does not unwrap to a scaled stationary map
+(plus a white term for the root), noise that is not a scalar
+(``predict_knn``), D > 8, and k > 64.
 
-Ported here: ``NearestNeighbors`` with the natural order and previous-k
-neighbours, the band products, ``BandInvRoot``, ``approx_root_prec_band``,
-``posterior`` and ``approx_lml``, ``SparseInvRoot`` and
-``approx_root_prec_sparse`` for given predecessor sets, and
-``predict_knn``.  The maximin / random orderings and the nearest / scaled
-neighbour sets need the host-side ordering code of the JAX package's
-``native/``; they come with the training slice (``ROADMAP.md`` queue 3).
+Orderings other than the natural one and neighbour sets other than the
+previous k are host-side preprocessing (``native/``): the points are
+reordered and the root is the sparse one over gathered predecessor sets
+(``_posterior_nn_general``).
 """
 
 from __future__ import annotations
@@ -30,11 +30,19 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..config import config, kernel_device
 from ..core.gp import FiniteGP, PosteriorGP
-from ..core.kernels import Kernel, _param, as_points, unwrap_stationary
+from ..core.kernels import (
+    Kernel,
+    _as_param,
+    _param,
+    as_points,
+    unwrap_stationary,
+    unwrap_stationary_nugget,
+)
 from ..ops.batched_chol import (
     MAX_D,
     MAX_K,
@@ -42,6 +50,7 @@ from ..ops.batched_chol import (
     vecchia_band,
     vecchia_band_t,
 )
+from ..native import maximin_ordering, nearest_predecessor_neighbors, scaled_ball_predecessors
 from ..ops.knn import knn_search
 from .api import approx_lml, posterior
 
@@ -51,6 +60,7 @@ __all__ = [
     "SparseInvRoot",
     "approx_root_prec_band",
     "approx_root_prec_sparse",
+    "resolve_ordering",
     "band_Ut_matmul",
     "band_U_matvec",
     "predict_knn",
@@ -67,14 +77,24 @@ class NearestNeighbors:
     ``use_kernels``: None (auto) takes the band kernel on the kernel device
     (a CUDA tensor in f32 or f64) and the plain path elsewhere; True or False
     forces a route (True on a CPU tensor runs the kernel's autograd Function
-    with its plain inner pass).  ``ordering`` other than "natural" and
-    ``neighbors`` other than "previous" are not ported yet."""
+    with its plain inner passes).
+
+    ``ordering``: "natural" (as given), "random" or "maximin" (greedy
+    farthest-point, Guinness 2018).  ``neighbors``: "previous" (the last k
+    in the ordering: banded), "nearest" (the k nearest among all
+    predecessors) or "scaled" (the predecessors within ``rho``·ℓᵢ of point
+    i, ℓᵢ its distance to the ordered set, capped at the k nearest: the
+    KL-minimising pattern of Schäfer et al., arXiv 2004.14455).  ``rho``:
+    the ball's radius multiplier for "scaled" (larger is denser and more
+    accurate; 2–4 in practice).  Orderings and neighbour sets other than
+    the defaults are computed on the host from the inputs' values."""
 
     k: int
     block_size: int | None = None
     use_kernels: bool | None = None
     ordering: str = "natural"
     neighbors: str = "previous"
+    rho: float = 3.0
 
 
 def _shift(X: torch.Tensor, sh: int) -> torch.Tensor:
@@ -162,31 +182,39 @@ def _use_kernels(use_kernels: bool | None, t: torch.Tensor) -> bool:
     return config.use_kernels and kernel_device(t)
 
 
-def _fused(kern: Kernel, D: int, k: int):
-    """``unwrap_stationary(kern)`` where the band kernel takes the problem,
-    else None: the plain path runs for a kernel that does not unwrap to a
-    scaled stationary map (the JAX package leaves its fused tier there too)
-    and beyond the kernel's limits, D > 8 or k > 64 (the JAX package's
-    serving path leaves its unrolled band math above k = 48)."""
+def _fused(kern: Kernel, D: int, k: int, unwrap=unwrap_stationary):
+    """``unwrap(kern)`` where the band kernel takes the problem, else None:
+    the plain path runs for a kernel that does not unwrap (the JAX package
+    leaves its fused tier there too) and beyond the kernel's limits, D > 8
+    or k > 64 (the JAX package's serving path leaves its unrolled band math
+    above k = 48)."""
     if not 1 <= D <= MAX_D or not 1 <= k <= MAX_K:
         return None
-    return unwrap_stationary(kern)
+    return unwrap(kern)
 
 
 def _fused_band(Xp: torch.Tensor, k: int, kern: Kernel, nbr=None):
     """The band by the kernel, or None where it declines (:func:`_fused`).
 
     Lengthscales fold into the inputs and the variance post-scales the band
-    (U(σ²k) = U(k)/σ).  ``nbr=None`` conditions on the previous k points:
-    the windows are built N-minor as k shifts of each coordinate row (the
-    (D, k+1, N) layout of row 10); an (N, k) ``nbr`` (−1 pads) gathers
-    arbitrary predecessor windows in the (N, D, k+1) layout of row 8, as a
-    view of the gathered (N, k+1, D) points."""
+    (U(σ²k) = U(k)/σ); a white term τ²·White becomes the kernel's nugget
+    τ²/σ², formed on the inputs' device in at least f32 and never a host
+    float, so its gradient reaches τ² and σ².  ``nbr=None`` conditions on
+    the previous k points: the windows are built N-minor as k shifts of each
+    coordinate row (the (D, k+1, N) layout of row 10); an (N, k) ``nbr``
+    (−1 pads) gathers arbitrary predecessor windows in the (N, D, k+1)
+    layout of row 8, as a view of the gathered (N, k+1, D) points."""
     N, D = Xp.shape
-    unwrapped = _fused(kern, D, k)
+    unwrapped = _fused(kern, D, k, unwrap_stationary_nugget)
     if unwrapped is None:
         return None
-    kmap, scale, variance = unwrapped
+    kmap, scale, variance, white = unwrapped
+    ratio = None
+    if white is not None:
+        rdt = torch.promote_types(Xp.dtype, torch.float32)
+        ratio = _as_param(white).to(device=Xp.device, dtype=rdt)
+        if variance is not None:
+            ratio = ratio / _as_param(variance).to(device=Xp.device, dtype=rdt)
     Xs = Xp if scale is None else Xp * _param(scale, Xp)
     if nbr is None:
         rows = []
@@ -198,11 +226,11 @@ def _fused_band(Xp: torch.Tensor, k: int, kern: Kernel, nbr=None):
         xwT = torch.stack(rows).reshape(D, k + 1, N)
         iota = torch.arange(N, device=Xp.device)
         validT = torch.stack([iota >= k - t for t in range(k)]).to(Xp.dtype)
-        Uband = vecchia_band_t(xwT, validT, kmap)
+        Uband = vecchia_band_t(xwT, validT, kmap, ratio)
     else:
         valid = (nbr >= 0).to(Xp.dtype)
         pts = torch.cat([Xs[torch.clamp(nbr, 0, N - 1)], Xs[:, None, :]], dim=1)
-        Uband = vecchia_band(pts.transpose(1, 2), valid, kmap)
+        Uband = vecchia_band(pts.transpose(1, 2), valid, kmap, ratio)
     if variance is not None:
         Uband = Uband / torch.sqrt(_param(variance, Uband))
     return Uband
@@ -263,8 +291,8 @@ def approx_root_prec_band(x, k: int, kern: Kernel, block_size=None, use_kernels=
 def approx_root_prec_sparse(x, nbr, kern: Kernel, block_size=None,
                             use_kernels=None) -> SparseInvRoot:
     """Sparse precision root for arbitrary predecessor sets ``nbr`` (N, k),
-    −1 padded: the band kernel on gathered windows (row 8's layout, no
-    nugget) where it serves, else the plain masked math."""
+    −1 padded: the band kernel on gathered windows (row 8's layout) where
+    it serves, else the plain masked math."""
     Xp = as_points(x)
     nbr = torch.as_tensor(nbr, device=Xp.device).to(torch.int64)
     k = nbr.shape[1]
@@ -282,9 +310,7 @@ def _posterior_nn(nn: NearestNeighbors, fx: FiniteGP, y: torch.Tensor, **_):
     C = inv(U Uᵀ), x, δ).  The root ignores ``fx``'s noise, as the JAX
     package's does."""
     if nn.ordering != "natural" or nn.neighbors != "previous":
-        raise NotImplementedError(
-            f"NearestNeighbors(ordering={nn.ordering!r}, neighbors={nn.neighbors!r}) is not "
-            "ported yet: it needs the host-side orderings (ROADMAP.md queue 3)")
+        return _posterior_nn_general(nn, fx, y)
     Uband = approx_root_prec_band(fx.x, nn.k, fx.f.kernel, nn.block_size, nn.use_kernels)
     delta = y - fx.mean()
     alpha = band_U_matvec(Uband, band_Ut_matmul(Uband, delta))
@@ -367,3 +393,42 @@ def _krige(fx: FiniteGP, y: torch.Tensor, Xs: torch.Tensor, idx: torch.Tensor,
         mus.append(mean_s[i0:i0 + test_block] + torch.sum(b * delta[w], dim=1))
         variances.append(torch.clamp(1.0 / torch.square(band[:, k]), min=0.0))
     return torch.cat(mus), torch.cat(variances)
+
+
+def resolve_ordering(x, ordering: str, key=None) -> np.ndarray:
+    """The (N,) permutation of ``ordering`` on the host (numpy): "natural",
+    "maximin" or "random" (numpy's generator seeded with ``key``, 0 by
+    default, as the JAX package seeds it)."""
+    Xp = as_points(x)
+    if ordering == "natural":
+        return np.arange(Xp.shape[0])
+    if ordering == "maximin":
+        return maximin_ordering(Xp.detach().cpu().numpy())
+    if ordering == "random":
+        return np.random.default_rng(0 if key is None else int(key)).permutation(Xp.shape[0])
+    raise ValueError(f"unknown ordering: {ordering!r}")
+
+
+def _posterior_nn_general(nn: NearestNeighbors, fx: FiniteGP, y: torch.Tensor):
+    """Other orderings and neighbour sets: reorder the data on the host,
+    build the sparse root over the gathered predecessor sets, and return a
+    PosteriorGP over the reordered points (predictions do not depend on the
+    order)."""
+    Xp = as_points(fx.x)
+    Xh = Xp.detach().cpu().numpy()  # the host copy the ordering code reads
+    order = resolve_ordering(Xh, nn.ordering)
+    if nn.neighbors == "nearest":
+        nbr = nearest_predecessor_neighbors(Xh, order, nn.k)
+    elif nn.neighbors == "scaled":
+        nbr = scaled_ball_predecessors(Xh, order, nn.rho, nn.k)
+    elif nn.neighbors == "previous":
+        nbr = _previous_k(Xp.shape[0], nn.k, "cpu")
+    else:
+        raise ValueError(f"unknown neighbors: {nn.neighbors!r}")
+    order_t = torch.as_tensor(order, device=Xp.device)
+    Xo = Xp[order_t]
+    rep = approx_root_prec_sparse(Xo, torch.as_tensor(nbr, device=Xp.device), fx.f.kernel,
+                                  nn.block_size, nn.use_kernels)
+    delta = y[order_t] - fx.f.mean(Xo)
+    alpha = rep.u_matvec(rep.whiten(delta))
+    return PosteriorGP(prior=fx.f, x=Xo, alpha=alpha, rep=rep, delta=delta)

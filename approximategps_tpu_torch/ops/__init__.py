@@ -6,6 +6,8 @@ from . import batched_chol, gram_matvec, knn, panel_chol, svgp_epilogue
 from .batched_chol import (
     masked_chol_solve_band_math,
     vecchia_band,
+    vecchia_band_bwd,
+    vecchia_band_bwd_pass,
     vecchia_band_pass,
     vecchia_band_plain,
     vecchia_band_t,

@@ -24,8 +24,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "gram_matvec.cu",
-            "gram_matvec_f64.cu", "vecchia_band.cu", "vecchia_band_f64.cu")
-_HEADERS = ("kernel_maps.cuh",)
+            "gram_matvec_f64.cu", "vecchia_band.cu", "vecchia_band_f64.cu", "vecchia_band_bwd.cu",
+            "vecchia_band_bwd_f64.cu")
+_HEADERS = ("kernel_maps.cuh", "vecchia_window.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,6 +61,12 @@ _SIGNATURES = {
     # N, D, k, kmap, stream
     "agp_vecchia_band_f32": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _i, _p, _i, _i, _i, _i, _p), _i),
     "agp_vecchia_band_f64": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _i, _p, _i, _i, _i, _i, _p), _i),
+    # the forward's xw, valid, nugget and nugget_self, gbar and its strides (n, j), xbar and
+    # its strides (n, d, j), nbar, N, D, k, kmap, stream
+    "agp_vecchia_band_bwd_f32": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _i, _p, _ll, _ll, _p, _ll,
+                                  _ll, _ll, _p, _i, _i, _i, _i, _p), _i),
+    "agp_vecchia_band_bwd_f64": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _i, _p, _ll, _ll, _p, _ll,
+                                  _ll, _ll, _p, _i, _i, _i, _i, _p), _i),
     "agp_error_string": ((_i,), ctypes.c_char_p),
 }
 

@@ -17,15 +17,17 @@ modified-Cholesky deflation of the JAX package.  One hand-written kernel,
 :func:`vecchia_band_t` ((D, k+1, N) windows, row 10) hand it views and
 nothing is transposed or copied.
 
-Both are one ``torch.autograd.Function``.  Only its inner pass,
-:func:`vecchia_band_pass`, switches: the kernel for a CUDA tensor,
+Both are one ``torch.autograd.Function``.  Only its inner passes switch on the
+device.  Forward, :func:`vecchia_band_pass`: the kernel for a CUDA tensor,
 :func:`vecchia_band_plain` (the bordered (k+1) Cholesky of rows 8 and 10 in
-PyTorch) for a CPU tensor.  The backward is the recompute pullback of row
-7's own JAX backward (``_vecchia_band_bwd``): rebuild
-:func:`window_gram_inputs` under autograd and apply the closed-form band
-pullback :func:`band_bwd`, which gives the nugget's cotangent too.  It is
-plain PyTorch on both devices; the fused pullback kernel of row 9 replaces it
-on the card with the training slice.  The serving path never calls it.
+PyTorch) for a CPU tensor.  Backward, :func:`vecchia_band_bwd_pass`: the
+hand-written pullback ``csrc/vecchia_band_bwd.cu`` (row 9,
+``_vecchia_band_lanes_bwd_pallas_t``) for a CUDA tensor, and for a CPU
+tensor its plain version, :func:`_recompute_pullback`: row 7's own JAX
+backward (``_vecchia_band_bwd``), which rebuilds :func:`window_gram_inputs`
+under autograd and applies the closed-form band pullback :func:`band_bwd`,
+the nugget's cotangent included.  :func:`vecchia_band_bwd` is the pullback
+on its own.
 
 :func:`masked_chol_solve_band_math` is the plain masked-column math from
 prebuilt Grams (the JAX package's XLA ``batched_chol_solve_band_unrolled``),
@@ -49,11 +51,13 @@ __all__ = [
     "vecchia_band_t",
     "vecchia_band_pass",
     "vecchia_band_plain",
+    "vecchia_band_bwd",
+    "vecchia_band_bwd_pass",
 ]
 
 MAX_D = 8  # coordinates a window point may have (the kernel's template range)
 MAX_K = 64  # neighbours a window may have
-_BWD_CHUNK = 16384  # windows the recompute pullback takes at a time
+_BWD_CHUNK = 16384  # windows the plain pullback takes at a time
 
 
 def _floor(x: torch.Tensor) -> torch.Tensor:
@@ -170,9 +174,9 @@ def window_gram_inputs(w, valid, kmap: KernelMap, nugget=None, nugget_self: bool
     (Kw (B, k, k), kni (B, k), kdiag (B,)) of the band's math.
 
     Invalid neighbour slots become identity rows with zero coupling.  A
-    ``nugget`` (a one-element tensor) adds to the valid neighbours'
-    diagonal and, with ``nugget_self``, to kdiag (slot k).  Differentiable
-    in ``w`` and ``nugget``."""
+    ``nugget`` (a one-element tensor, or one value a window, (B,)) adds to
+    the valid neighbours' diagonal and, with ``nugget_self``, to kdiag
+    (slot k).  Differentiable in ``w`` and ``nugget``."""
     k = valid.shape[-1]
     G = kmap.k_of_r2(_window_r2(w))
     pm = valid[:, :, None] * valid[:, None, :]
@@ -181,9 +185,9 @@ def window_gram_inputs(w, valid, kmap: KernelMap, nugget=None, nugget_self: bool
     kni = G[:, :k, k] * valid
     kdiag = G[:, k, k]
     if nugget is not None:
-        Kw = Kw + nugget * (eye * pm)
+        Kw = Kw + nugget.reshape(-1, 1, 1) * (eye * pm)
         if nugget_self:
-            kdiag = kdiag + nugget
+            kdiag = kdiag + nugget.reshape(-1)
     return Kw, kni, kdiag
 
 
@@ -242,6 +246,28 @@ def vecchia_band_plain(xw, valid, kmap: KernelMap, nugget=None,
 # ---------------------------------------------------------------------------
 
 
+def _check_cuda_args(what: str, xw, valid, nugget, gbar=None) -> None:
+    """Raise unless the kernel takes these tensors: windows (N, D <= 8,
+    k + 1) with 1 <= k <= 64, an (N, k) mask, an optional one-element nugget
+    and an optional (N, k + 1) cotangent, on one CUDA device in f32 or f64."""
+    tensors = [t for t in (xw, valid, nugget, gbar) if t is not None]
+    dtype = xw.dtype
+    if (
+        not all(t.is_cuda and t.device == xw.device and t.dtype == dtype for t in tensors)
+        or dtype not in (torch.float32, torch.float64)
+        or xw.ndim != 3 or valid.ndim != 2
+        or not 1 <= xw.shape[1] <= MAX_D or not 2 <= xw.shape[2] <= MAX_K + 1
+        or tuple(valid.shape) != (xw.shape[0], xw.shape[2] - 1)
+        or (nugget is not None and nugget.numel() != 1)
+        or (gbar is not None and tuple(gbar.shape) != (xw.shape[0], xw.shape[2]))
+    ):
+        raise ValueError(
+            f"{what}: needs windows (N, D <= {MAX_D}, k + 1) with 1 <= k <= {MAX_K}, a "
+            "(N, k) mask, an optional one-element nugget and (backward) an (N, k + 1) "
+            "cotangent, on one CUDA device in f32 or f64; got "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in tensors]}")
+
+
 def vecchia_band_pass(xw, valid, kmap: KernelMap, nugget=None,
                       nugget_self: bool = True) -> torch.Tensor:
     """Band rows of the windows ``xw`` (N, D, k+1), any strides, with the
@@ -252,26 +278,13 @@ def vecchia_band_pass(xw, valid, kmap: KernelMap, nugget=None,
     :func:`vecchia_band` is."""
     if xw.device.type == "cpu":
         return vecchia_band_plain(xw, valid, kmap, nugget, nugget_self)
-    tensors = [xw, valid] + ([] if nugget is None else [nugget])
-    dtype = xw.dtype
-    if (
-        not all(t.is_cuda and t.device == xw.device and t.dtype == dtype for t in tensors)
-        or dtype not in (torch.float32, torch.float64)
-        or xw.ndim != 3 or valid.ndim != 2
-        or not 1 <= xw.shape[1] <= MAX_D or not 2 <= xw.shape[2] <= MAX_K + 1
-        or tuple(valid.shape) != (xw.shape[0], xw.shape[2] - 1)
-        or (nugget is not None and nugget.numel() != 1)
-    ):
-        raise ValueError(
-            f"vecchia_band: needs windows (N, D <= {MAX_D}, k + 1) with 1 <= k <= {MAX_K}, a "
-            "(N, k) mask and an optional one-element nugget, on one CUDA device in f32 or "
-            f"f64; got {[(tuple(t.shape), t.dtype, str(t.device)) for t in tensors]}")
+    _check_cuda_args("vecchia_band", xw, valid, nugget)
     N, D, kp1 = xw.shape
-    out = torch.empty((N, kp1), dtype=dtype, device=xw.device)
+    out = torch.empty((N, kp1), dtype=xw.dtype, device=xw.device)
     if N == 0:
         return out
     lib = _build.load_library()
-    fn = lib.agp_vecchia_band_f32 if dtype == torch.float32 else lib.agp_vecchia_band_f64
+    fn = lib.agp_vecchia_band_f32 if xw.dtype == torch.float32 else lib.agp_vecchia_band_f64
     stream = torch.cuda.current_stream(xw.device).cuda_stream
     sx, sv = xw.stride(), valid.stride()
     with torch.cuda.device(xw.device):
@@ -284,18 +297,26 @@ def vecchia_band_pass(xw, valid, kmap: KernelMap, nugget=None,
 
 
 def _recompute_pullback(xw, valid, kmap, nugget, nugget_self, gbar, need_x, need_nug):
-    """(x̄w, nugget‾) by the recompute pullback, in chunks of windows."""
+    """The plain version of the pullback kernel: (x̄w, the nugget's
+    per-window partials (N,)) by recomputing each chunk of windows' Grams
+    under autograd, with the nugget taken one value a window, and applying
+    :func:`band_bwd`, ``_BWD_CHUNK`` windows at a time."""
+    N = xw.shape[0]
     xw_bar = torch.zeros_like(xw) if need_x else None
-    nug_bar = torch.zeros_like(nugget) if need_nug else None
-    for i0 in range(0, xw.shape[0], _BWD_CHUNK):
+    nug_bar = xw.new_zeros(N) if need_nug else None
+    for i0 in range(0, N, _BWD_CHUNK):
         sl = slice(i0, i0 + _BWD_CHUNK)
         w = xw[sl].detach().requires_grad_(need_x)
-        nug = None if nugget is None else nugget.detach().requires_grad_(need_nug)
+        nug = None if nugget is None else (
+            nugget.detach().reshape(1).expand(w.shape[0]).clone().requires_grad_(need_nug))
         with torch.enable_grad():
             Kw, kni, kdiag = window_gram_inputs(w, valid[sl], kmap, nug, nugget_self)
         bars = band_bwd(Kw.detach(), kni.detach(), kdiag.detach(), gbar[sl])
         wanted = [t for t, need in ((w, need_x), (nug, need_nug)) if need]
-        grads = list(torch.autograd.grad((Kw, kni, kdiag), wanted, bars, allow_unused=True))
+        # without x̄w and without slot k's nugget only Kw depends on the nugget
+        outs = [(t, b) for t, b in zip((Kw, kni, kdiag), bars) if t.requires_grad]
+        grads = list(torch.autograd.grad([t for t, _ in outs], wanted, [b for _, b in outs],
+                                         allow_unused=True))
         if need_x:
             g = grads.pop(0)
             if g is not None:
@@ -303,8 +324,49 @@ def _recompute_pullback(xw, valid, kmap, nugget, nugget_self, gbar, need_x, need
         if need_nug:
             g = grads.pop(0)
             if g is not None:
-                nug_bar += g
+                nug_bar[sl] = g
     return xw_bar, nug_bar
+
+
+def vecchia_band_bwd_pass(xw, valid, kmap: KernelMap, nugget, nugget_self: bool, gbar,
+                          need_x: bool = True, need_nug: bool = True, per_window: bool = False):
+    """(x̄w, nugget‾), the pullback of :func:`vecchia_band_pass` at the band
+    cotangent ``gbar`` (N, k+1), each None where not needed (nugget‾ always
+    where there is no nugget).  A CPU tensor takes :func:`_recompute_pullback`;
+    a CUDA tensor launches the kernel of ``csrc/vecchia_band_bwd.cu`` or
+    raises.  x̄w comes in ``xw``'s strides where it is dense (row 10's
+    (D, k+1, N) view gets a (D, k+1, N) cotangent).  Both routes give the
+    nugget's per-window partials (N,): nugget‾, shaped like ``nugget``, is
+    their fixed-order sum on the device, or with ``per_window`` the partials
+    themselves."""
+    need_nug = need_nug and nugget is not None
+    if xw.device.type == "cpu":
+        xw_bar, nbar = _recompute_pullback(xw, valid, kmap, nugget, nugget_self, gbar, need_x,
+                                           need_nug)
+    else:
+        _check_cuda_args("vecchia_band_bwd", xw, valid, nugget, gbar)
+        N, D, kp1 = xw.shape
+        xw_bar = torch.empty_like(xw)
+        nbar = None if nugget is None else torch.empty(N, dtype=xw.dtype, device=xw.device)
+        if N > 0:
+            lib = _build.load_library()
+            fn = (lib.agp_vecchia_band_bwd_f32 if xw.dtype == torch.float32
+                  else lib.agp_vecchia_band_bwd_f64)
+            stream = torch.cuda.current_stream(xw.device).cuda_stream
+            sx, sv, sg, sb = xw.stride(), valid.stride(), gbar.stride(), xw_bar.stride()
+            with torch.cuda.device(xw.device):
+                err = fn(xw.data_ptr(), sx[0], sx[1], sx[2], valid.data_ptr(), sv[0], sv[1],
+                         None if nugget is None else nugget.data_ptr(), int(nugget_self),
+                         gbar.data_ptr(), sg[0], sg[1], xw_bar.data_ptr(), sb[0], sb[1], sb[2],
+                         None if nbar is None else nbar.data_ptr(), N, D, kp1 - 1,
+                         int(kmap.id), stream)
+            _build.check(err, "vecchia_band_bwd")
+            vecchia_band_bwd.launches += 1
+    if not need_nug:
+        nbar = None
+    elif not per_window:
+        nbar = torch.sum(nbar).reshape(nugget.shape)
+    return (xw_bar if need_x else None), nbar
 
 
 class _VecchiaBand(torch.autograd.Function):
@@ -316,13 +378,10 @@ class _VecchiaBand(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        # the recompute pullback of the JAX package's row-7 backward, plain
-        # PyTorch on both devices: the fused pullback kernel of row 9 takes
-        # its place on the card with the training slice
         xw, valid, nugget = ctx.saved_tensors
         need_x, _, need_nug = ctx.needs_input_grad[:3]
-        xw_bar, nug_bar = _recompute_pullback(xw, valid, ctx.kmap, nugget, ctx.nugget_self,
-                                              gbar.to(xw.dtype), need_x, need_nug)
+        xw_bar, nug_bar = vecchia_band_bwd_pass(xw, valid, ctx.kmap, nugget, ctx.nugget_self,
+                                                gbar.to(xw.dtype), need_x, need_nug)
         return xw_bar, None, nug_bar, None, None
 
 
@@ -355,4 +414,15 @@ def vecchia_band_t(xwT: torch.Tensor, validT: torch.Tensor, kmap: KernelMap,
     return _VecchiaBand.apply(xwT.permute(2, 0, 1), validT.T, _nugget(nugget, xwT), kmap, True)
 
 
+def vecchia_band_bwd(xw: torch.Tensor, valid: torch.Tensor, kmap: KernelMap, gbar: torch.Tensor,
+                     nugget=None, nugget_self: bool = True, per_window: bool = False):
+    """The pullback of :func:`vecchia_band` (row 9 of the kernel table) on its
+    own: (x̄w, nugget‾) of ⟨gbar, vecchia_band(xw, valid, kmap, nugget,
+    nugget_self)⟩; nugget‾ is None without a nugget, and with ``per_window``
+    the (N,) partials of each window instead of their sum."""
+    return vecchia_band_bwd_pass(xw, valid, kmap, _nugget(nugget, xw), nugget_self, gbar,
+                                 per_window=per_window)
+
+
 vecchia_band.launches = 0
+vecchia_band_bwd.launches = 0

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's SVGP serving and training paths, its
-matrix-free exact GP and its Vecchia serving path on one CUDA GPU.
+matrix-free exact GP and its Vecchia serving and training paths on one CUDA
+GPU.
 
     python3 chip_smoke.py
 
@@ -76,8 +77,28 @@ Phases (a failing phase raises, and the script exits non-zero):
    ``predict_knn`` at N = 32, k = 32 against the exact posterior, and the
    kernel path against the plain path at N = 65536.
 
+9. Vecchia training (``bench.py::vecchia_lml_grad`` and
+   ``vecchia_nugget_lml_grad``; k = 32): (a) the pullback kernel against its
+   plain version (the recompute pullback) in f64 and f32, every map, both
+   layouts, no nugget and a nugget with and without slot k, N ragged,
+   masked slots and exact duplicates among the neighbours, x̄w and the
+   nugget's cotangent (window by window and in total), f32 also against the
+   plain version in f64 on the same windows, then checked and timed at the
+   path's shape; (b) the value and θ-gradient of ``approx_lml`` at N = 10^6
+   on linspace(0, 10^6), y = sin(x/3), softplus(0.55)·Matérn-3/2(ℓ =
+   softplus(0.55)), noise 0, on three routes (kernels forward and backward;
+   the kernel forward with the recompute pullback; the plain path), one
+   launch of each kernel a step on the first and none on the last, checked
+   against each other and an f64 run, with each route's lengthscale error
+   beside the one its point cotangents' residue predicts; (c) the same for the noisy-data model + softplus(0.02)·White;
+   (d) five Adam steps (``adam_fit``, lr 1e-2) on (c); (e) the maximin
+   ordering with scaled (ρ = 3) and nearest neighbours at N = 2^16, D = 2,
+   the host ordering timed apart; (f) in f64, the θ-gradients at N = 33,
+   k = 32 (full conditioning) against autograd of the dense exact
+   ``logpdf``, and the kernel path against the plain path at N = 65536.
+
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-8 (each run with the counts
+source, launches in the path runs of phases 4-9 (each run with the counts
 set to 0 just before it), error, times and bound (the least time the card
 could take for the work: operations over the peak rate of their unit or
 bytes over the memory rate, whichever is larger); the last line is
@@ -86,6 +107,7 @@ bytes over the memory rate, whichever is larger); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -112,6 +134,7 @@ COUNTERS = {
     "chol_inv": panel_chol.chol_inv,
     "gram_matvec": gram_matvec.gram_matvec,
     "vecchia_band": batched_chol.vecchia_band,
+    "vecchia_band_bwd": batched_chol.vecchia_band_bwd,
 }
 
 
@@ -170,6 +193,40 @@ BAND_RTOL32 = 1e-4
 # the Vecchia paths in f32, kernels against the plain path (the bordered
 # factorization against the masked one, each with its own rounding)
 VEC_RTOL = 1e-4
+# Vecchia training (bench.py::vecchia_lml_grad and vecchia_nugget_lml_grad):
+# phase 8's N = 10^6, k = 32 and blocks of 8192; the nugget model's raw θ;
+# the general orderings at N = 2^16 in 2-D (points about a lengthscale
+# apart); f64 checks at N = 65536; five Adam steps
+NUGGET_THETA = np.array([0.55, 0.55, 0.02])
+N_ORDER, SIDE_ORDER, RHO, N_TRAIN64, ADAM_STEPS, ADAM_LR = 1 << 16, 256.0, 3.0, 65536, 5, 1e-2
+# f32 limits of the pullback kernel against its plain version (f64 1e-10).
+# x̄w, relative to its largest entry: both solve with each window's Gram
+# twice, in other orders, and 33 points a lengthscale apart in 1-D amplify
+# that rounding about 2000× (the two differ by about 2100 eps in f64 on the
+# same windows), about 2.5e-4 in f32; phase 9 (a) prints the f32 plain
+# version's own distance from the f64 one beside the kernel's
+BWD_XW_RTOL32 = 1e-3
+# the nugget's cotangent: each window's share relative to the largest share
+# and the total relative to the sum of the shares' magnitudes Σ|p|: with
+# random cotangents the shares cancel (Σ|p|/|Σp| is printed, and reaches 3e4
+# on some maps and windows), so f32 rounds the total at eps of Σ|p|, not of
+# |Σp|
+BWD_NUG_RTOL32 = 1e-4
+# phase 9 (a)'s (D, k, N): N ragged against the 8-window blocks, k at the
+# kernel's limits
+BWD_PARITY = ((1, 32, 10001), (2, 32, 10001), (3, 7, 4099), (8, 64, 2049))
+# the f32 θ-gradients at N = 10^6, relative to their largest entry.  The
+# lengthscale entry is Σᵢ xᵢ·∂L/∂xᵢ over points up to 10^6: the point
+# cotangents sum to 0 by translation invariance, but in f32 each path leaves
+# a residue r = Σ∂L/∂x / Σ|∂L/∂x| of about eps, which that entry multiplies by
+# C = Σ|xᵢ·∂L/∂xᵢ| / |Σ xᵢ·∂L/∂xᵢ| (about 10^5 here): its error is about r·C,
+# printed for each path beside the measured one; the other entries do not
+# cancel.  Kernels against the recompute route (the same forward, so the
+# pullback alone) and against the f64 run:
+TRAIN_ROUTE_RTOL32 = TRAIN_F64_RTOL32 = 1e-3
+# kernels against the plain path on the lengthscale entry, whose own residue
+# puts it further from the f64 run (its other entries are held at VEC_RTOL)
+TRAIN_PLAIN_RTOL32 = 1e-2
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
 # paper) × 132 SMs × 1.98 GHz boost
@@ -536,7 +593,7 @@ def phase_slice(dev) -> dict:
         n_blocks = -(-N_TEST // BLOCK)
         check(launches == {"gram_chol_inv": 1, "svgp_data_epilogue": n_blocks,
                            "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0,
-                           "vecchia_band": 0},
+                           "vecchia_band": 0, "vecchia_band_bwd": 0},
               f"the posterior build launched kernel A once and the sweep kernel B "
               f"{n_blocks} times")
         check(mu.shape == var.shape == (N_TEST,), f"outputs of shape ({N_TEST},)")
@@ -653,7 +710,7 @@ def phase_minibatch(dev) -> dict:
     print(f"minibatch launches over {STEPS} steps: {launches}")
     check(launches == {"gram_chol_inv": STEPS, "svgp_data_epilogue": 0,
                        "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0,
-                       "vecchia_band": 0},
+                       "vecchia_band": 0, "vecchia_band_bwd": 0},
           f"kernel A launched once a step, the epilogue never ({STEPS} steps)")
     losses = torch.stack(losses)
     check(bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all())
@@ -690,7 +747,7 @@ def phase_streaming(dev) -> dict:
     print(f"streaming launches: {launches}")
     check(launches == {"gram_chol_inv": 0, "svgp_data_epilogue": n_blocks,
                        "svgp_data_epilogue_bwd": n_blocks, "chol_inv": 1, "gram_matvec": 0,
-                       "vecchia_band": 0},
+                       "vecchia_band": 0, "vecchia_band_bwd": 0},
           f"kernel 4 launched once, the epilogue forward and backward {n_blocks} times each")
     check(bool(torch.isfinite(v)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
           "streaming value and gradients finite")
@@ -1088,6 +1145,347 @@ def phase_vecchia(dev) -> tuple[dict, dict]:
     return launches, numbers
 
 
+def bwd_windows(X: torch.Tensor, k: int):
+    """Previous-k windows of the points X (N, D) as phase 9 (a) checks the
+    pullback on them: the (N, k) mask (the first k rows masked) and the
+    gathered (N, k+1, D) points, every third window repeating a neighbour in
+    the next slot (an exact duplicate, a deflated pivot).  No window's point
+    repeats a neighbour: that sets F at its floor, where roundoff decides the
+    pullback on every path (u₀ = F^(−1/2) amplifies it by 1/√(8 eps))."""
+    N = X.shape[0]
+    ar = torch.arange(N, device=X.device)
+    idx = ar[:, None] - k + torch.arange(k, device=X.device)
+    rep = (ar % 3 == 0) & (idx[:, 0] >= 0)
+    idx[rep, 1] = idx[rep, 0]
+    pts = torch.cat([X[idx.clamp(min=0)], X[:, None, :]], dim=1)
+    return pts, (idx >= 0).to(X.dtype)
+
+
+def bwd_work(valid: torch.Tensor, D: int, sfu_per_pair: int, in_bytes: float, elt: int):
+    """(flops, bytes, special-function results) of the pullback on these
+    windows, counted from its loops: the forward's factor, three triangular
+    solves of k(k−1)/2 FMAs and three k-dots; for each pair of valid slots
+    its Gram entry (D differences, D FMAs, about 4 flops of the map, a sqrt
+    and an exp, which also serve g′) and about 4 + 2D flops of Ḡ, r̄² and the
+    two x̄w updates; x̄w and the nugget partial written once."""
+    N, k = valid.shape
+    kp1 = k + 1
+    fmas = (kp1 * (kp1 - 1) * (kp1 - 2) // 6 + kp1 * (kp1 - 1) // 2 + 3 * k * (k - 1) // 2
+            + 3 * k)
+    nv = valid.double().sum(dim=1) + 1
+    pairs = float((nv * (nv - 1) / 2).sum())
+    return (N * 2 * fmas + pairs * (3 * D + 4 + 4 + 2 * D), in_bytes + elt * N * (D * kp1 + 1),
+            pairs * sfu_per_pair)
+
+
+@contextlib.contextmanager
+def recompute_pullback():
+    """The band's backward through its plain version, the recompute
+    pullback, as the tree had it before the pullback kernel: route 2 of
+    phase 9, timed beside the kernel."""
+    real = batched_chol.vecchia_band_bwd_pass
+
+    def plain(xw, valid, kmap, nugget, nugget_self, gbar, need_x=True, need_nug=True,
+              per_window=False):
+        x_bar, parts = batched_chol._recompute_pullback(xw, valid, kmap, nugget, nugget_self,
+                                                        gbar, need_x, need_nug and nugget is not None)
+        if parts is None or per_window:
+            return x_bar, parts
+        return x_bar, torch.sum(parts).reshape(nugget.shape)
+
+    batched_chol.vecchia_band_bwd_pass = plain
+    try:
+        yield
+    finally:
+        batched_chol.vecchia_band_bwd_pass = real
+
+
+def bwd_parity(xw, valid, kmap, g, nug, self_) -> dict:
+    """The pullback kernel against its plain version on these windows: x̄w's
+    error relative to its largest entry ("x"), the nugget's per-window
+    shares' relative to the largest share ("p"), the total's relative to
+    |Σp| ("total") and the shares' cancellation Σ|p|/|Σp| ("cancel"); for
+    f32 windows also the kernel's and the f32 plain version's errors against
+    the plain version in f64 on the same windows ("x64", "p64", "plain_x64",
+    "plain_p64"); "layout": x̄w in the windows' strides, its masked slots
+    exactly 0; "max_abs": the largest absolute difference."""
+    got_x, got_t = batched_chol.vecchia_band_bwd(xw, valid, kmap, g, nug, self_)
+    _, got_p = batched_chol.vecchia_band_bwd(xw, valid, kmap, g, nug, self_, per_window=True)
+    k, has_nug = valid.shape[1], nug is not None
+
+    def plain(dtype):
+        c = [None if t is None else t.to(dtype) for t in (xw, valid, nug, g)]
+        return batched_chol._recompute_pullback(c[0], c[1], kmap, c[2], self_, c[3], True,
+                                                has_nug)
+
+    ref_x, ref_p = plain(xw.dtype)
+    out = {"x": rel_err(got_x, ref_x), "max_abs": max_abs(got_x, ref_x),
+           "layout": got_x.stride() == xw.stride() and bool(
+               (got_x[:, :, :k].transpose(1, 2)[valid == 0] == 0).all())}
+    if has_nug:
+        total = ref_p.double().sum().item()
+        out.update(p=rel_err(got_p, ref_p), total=abs(got_t.item() - total) / abs(total),
+                   cancel=ref_p.double().abs().sum().item() / abs(total),
+                   max_abs=max(out["max_abs"], max_abs(got_p, ref_p)))
+    if xw.dtype == torch.float32:
+        ref64_x, ref64_p = plain(torch.float64)
+        out.update(x64=rel_err(got_x, ref64_x), plain_x64=rel_err(ref_x, ref64_x))
+        if has_nug:
+            out.update(p64=rel_err(got_p, ref64_p), plain_p64=rel_err(ref_p, ref64_p))
+    return out
+
+
+def bwd_within(e: dict, tol_x: float, tol_n: float) -> bool:
+    """x̄w within tol_x and the shares within tol_n of both references, and
+    the total within tol_n of Σ|p| (f32) or of |Σp| (f64)."""
+    f32 = "x64" in e
+    ok = e["layout"] and max(e["x"], e.get("x64", 0.0)) <= tol_x
+    if "p" in e:
+        ok = ok and max(e["p"], e.get("p64", 0.0)) <= tol_n
+        ok = ok and e["total"] <= tol_n * (e["cancel"] if f32 else 1.0)
+    return ok
+
+
+def parity_vecchia_band_bwd(dev) -> None:
+    """Phase 9 (a): the pullback kernel against its plain version on the
+    card, f64 and f32 on the same windows, every map, both layouts (row 10's
+    (D, k+1, N) view and row 8's gathered (N, k+1, D) view), no nugget and a
+    nugget with and without slot k, N ragged against the 8-window blocks,
+    masked slots and exact duplicates among the neighbours; x̄w (in the
+    layout it came in, its masked slots exactly 0) and the nugget's
+    cotangent, window by window and in total (:func:`bwd_parity`)."""
+    rng = np.random.default_rng(SEED + 11)
+    maps = [cls().kernel_map() for cls in (tk.SqExponentialKernel, tk.Matern12Kernel,
+                                           tk.Matern32Kernel, tk.Matern52Kernel)]
+    for D, k, N in BWD_PARITY:
+        X = (np.cumsum(rng.uniform(0.5, 1.5, (N, 1)), axis=0) if D == 1
+             else rng.uniform(0.0, 1.2 * N ** (1.0 / D), (N, D)))
+        gn = rng.standard_normal((N, k + 1))
+        for dtype, tol_x, tol_n in ((torch.float64, 1e-10, 1e-10),
+                                    (torch.float32, BWD_XW_RTOL32, BWD_NUG_RTOL32)):
+            # the f32 points in both precisions, so that both see the same windows
+            Xt = torch.tensor(X, dtype=torch.float32, device=dev).to(dtype)
+            pts, valid = bwd_windows(Xt, k)
+            gathered = pts.transpose(1, 2)  # row 8's layout, a view
+            rows10 = pts.permute(2, 1, 0).contiguous().permute(2, 0, 1)  # row 10's, a view
+            g = torch.tensor(gn, dtype=torch.float32, device=dev).to(dtype)
+            worst, ok = {}, True
+            for kmap in maps:
+                for nugget, self_ in ((None, True), (0.1, False), (0.1, True)):
+                    nug = None if nugget is None else torch.tensor([nugget], dtype=dtype,
+                                                                   device=dev)
+                    for xw in (gathered, rows10):
+                        e = bwd_parity(xw, valid, kmap, g, nug, self_)
+                        ok = ok and bwd_within(e, tol_x, tol_n)
+                        for key, val in e.items():
+                            if key != "layout":
+                                worst[key] = max(worst.get(key, 0.0), val)
+            f32 = dtype == torch.float32
+            vs64 = lambda a, b: (f" (vs f64 {worst[a]:.3e}; the f32 plain version's "  # noqa: E731
+                                 f"{worst[b]:.3e})" if f32 else "")
+            check(ok, f"vecchia_band_bwd {str(dtype)[6:]} N={N} D={D} k={k}, 4 maps, both "
+                  f"layouts, no nugget / nugget with and without slot k: x̄w rel err "
+                  f"{worst['x']:.3e}{vs64('x64', 'plain_x64')} <= {tol_x:g}; nugget shares "
+                  f"{worst['p']:.3e}{vs64('p64', 'plain_p64')} <= {tol_n:g}, total "
+                  f"{worst['total']:.3e} of |Σp| <= {tol_n:g}"
+                  + (" × Σ|p|/|Σp|" if f32 else "")
+                  + f" (Σ|p|/|Σp| up to {worst['cancel']:.1f}); x̄w in the windows' strides, "
+                  "masked slots exactly 0")
+
+
+def lml_value_and_grad(build, theta0, x, y, nn, points: bool = False):
+    """(approx_lml, its θ-gradient) of the model ``build(θ, x)`` at θ0, and
+    with ``points`` its gradient in the points x too."""
+    theta = torch.tensor(theta0, dtype=x.dtype, device=x.device).requires_grad_()
+    if points:
+        x = x.detach().requires_grad_()
+    v = tgp.approx_lml(nn, build(theta, x), y)
+    return (v.detach(), *torch.autograd.grad(v, (theta, x) if points else (theta,)))
+
+
+def train_row(dev, name: str, build, theta0, launches: dict) -> None:
+    """Phase 9 (b) and (c): one bench training row at N = 10^6 on its three
+    routes, checked and timed; each f32 route's lengthscale error against
+    the f64 run beside the r·C its point cotangents' residue predicts."""
+    x = torch.linspace(0.0, float(N_VEC), N_VEC, device=dev)
+    y = torch.sin(x / 3.0)
+    nn = tgp.NearestNeighbors(VEC_K, block_size=VEC_BLOCK)
+    step = lambda points=False: lml_value_and_grad(build, theta0, x, y, nn, points)  # noqa: E731
+    runs = {}
+    runs["kernels"], got = counted(lambda: step(True), launches)
+    check(got["vecchia_band"] == 1 and got["vecchia_band_bwd"] == 1 and sum(got.values()) == 2,
+          f"{name}: one launch of the band kernel and one of its pullback a step ({got})")
+    ms = {"kernels": cuda_ms(step, 5)}
+    reset_counts()
+    with recompute_pullback():
+        runs["recompute route"] = step(True)
+        ms["recompute"] = cuda_ms(step, 5)
+    check(read_counts()["vecchia_band_bwd"] == 0, f"{name}: the recompute route launched no "
+          "pullback kernel")
+    reset_counts()
+    with tgp.config_context(use_kernels=False):
+        runs["plain"], ms["plain"] = timed(lambda: step(True))
+    check(sum(read_counts().values()) == 0, f"{name}: the plain path launched no kernel")
+    v64, g64, gx64 = lml_value_and_grad(build, theta0, x.double(), y.double(), nn, True)
+    xg = x.double() * gx64
+    C = xg.abs().sum().item() / abs(xg.sum().item())
+    scale64 = g64.abs().max().item()
+    for route, (v_r, g_r, gx_r) in runs.items():
+        res = gx_r.double().sum().item() / gx_r.double().abs().sum().item()
+        print(f"{name} {route}: gradient {g_r.tolist()}, value {v_r.item():.9g}; lengthscale "
+              f"entry {abs(g_r[1].item() - g64[1].item()) / scale64:.3e} from the f64 run, r·C "
+              f"{abs(res) * C * abs(g64[1].item()) / scale64:.3e} (residue r {res:.3e}, "
+              f"C {C:.4g})")
+    print(f"{name} f64 kernels: gradient {g64.tolist()}, value {v64.item():.12g}")
+    (v, g, _), (v0, g0, _) = runs["kernels"], runs["plain"]
+    g2 = runs["recompute route"][1]
+    e0 = abs(v.item() - v0.item()) / abs(v0.item())
+    e64 = abs(v.item() - v64.item()) / abs(v64.item())
+    eg2, eg64 = rel_err(g, g2), rel_err(g, g64)
+    scale0 = g0.double().abs().max().item()
+    eg0_ell = abs(g[1].item() - g0[1].item()) / scale0
+    eg0_other = max(abs(g[i].item() - g0[i].item()) for i in (0, 2)) / scale0
+    finite = bool(torch.isfinite(g).all()) and math.isfinite(v.item())
+    check(finite and max(e0, e64) <= VEC_RTOL and eg2 <= TRAIN_ROUTE_RTOL32
+          and eg64 <= TRAIN_F64_RTOL32 and eg0_other <= VEC_RTOL
+          and eg0_ell <= TRAIN_PLAIN_RTOL32,
+          f"{name} N={N_VEC} k={VEC_K} f32: value rel err {e0:.3e} (plain), {e64:.3e} (f64) <= "
+          f"{VEC_RTOL:g}; gradient rel err {eg2:.3e} (recompute route) <= "
+          f"{TRAIN_ROUTE_RTOL32:g}, {eg64:.3e} (f64; the plain path's {rel_err(g0, g64):.3e}) "
+          f"<= {TRAIN_F64_RTOL32:g}; against the plain path {eg0_other:.3e} (σ², τ²) <= "
+          f"{VEC_RTOL:g}, {eg0_ell:.3e} (lengthscale) <= {TRAIN_PLAIN_RTOL32:g}")
+    print(f"time {name} value and gradient (N={N_VEC}, k={VEC_K}): kernels {ms['kernels']:.3f} ms, "
+          f"kernel forward + recompute pullback {ms['recompute']:.3f} ms (CUDA events, medians "
+          f"of 5), plain {ms['plain']:.3f} ms (once)")
+
+
+def phase_vecchia_train(dev) -> tuple[dict, dict]:
+    """Phase 9: Vecchia training.  Returns (the path runs' launches, the
+    numbers of the kernels line for the pullback kernel)."""
+    parity_vecchia_band_bwd(dev)
+    launches = {k: 0 for k in COUNTERS}
+    f32 = torch.float32
+
+    # (a) the pullback kernel alone at the nugget row's shape: row 10's windows
+    x = torch.linspace(0.0, float(N_VEC), N_VEC, device=dev)
+    s = 1.0 / softplus(torch.tensor(NUGGET_THETA[1], device=dev, dtype=f32))
+    xs = x * s
+    rows = [torch.cat([xs[:1].expand(VEC_K - t), xs[:N_VEC - VEC_K + t]]) for t in range(VEC_K)]
+    xwT = torch.stack(rows + [xs]).reshape(1, VEC_K + 1, N_VEC)
+    iota = torch.arange(N_VEC, device=dev)
+    validT = torch.stack([iota >= VEC_K - t for t in range(VEC_K)]).to(f32)
+    xw, valid = xwT.permute(2, 0, 1), validT.T
+    th = torch.tensor(NUGGET_THETA, device=dev, dtype=f32)
+    ratio = (softplus(th[2]) / softplus(th[0])).reshape(1)
+    g = torch.randn((N_VEC, VEC_K + 1), generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+    kmap = tk.Matern32Kernel().kernel_map()
+    e = bwd_parity(xw, valid, kmap, g, ratio, True)
+    check(bwd_within(e, BWD_XW_RTOL32, BWD_NUG_RTOL32),
+          f"vecchia_band_bwd f32 at the training step's shape (N={N_VEC}, k={VEC_K}, D=1, "
+          f"Matern-3/2, nugget, row 10 layout): x̄w rel err {e['x']:.3e} (vs f64 {e['x64']:.3e}; "
+          f"the f32 plain version's {e['plain_x64']:.3e}) <= {BWD_XW_RTOL32:g}; nugget shares "
+          f"{e['p']:.3e} (vs f64 {e['p64']:.3e}) <= {BWD_NUG_RTOL32:g}, total {e['total']:.3e} "
+          f"of |Σp| <= {BWD_NUG_RTOL32:g} × Σ|p|/|Σp| ({e['cancel']:.1f}); x̄w in the windows' "
+          "strides, masked slots exactly 0")
+    numbers = {"max_abs_err": e["max_abs"],
+               "ms": cuda_ms(lambda: batched_chol.vecchia_band_bwd(xw, valid, kmap, g, ratio), 10),
+               "plain_ms": cuda_ms(lambda: batched_chol._recompute_pullback(
+                   xw, valid, kmap, ratio, True, g, True, True), 2)}
+    numbers["bound_ms"], numbers["bound_by"] = bound(*bwd_work(
+        valid, 1, 2, 4 * (xwT.numel() + validT.numel() + g.numel() + 1), 4))
+    print(f"time vecchia_band_bwd f32 at the training step's shape (N={N_VEC}, k={VEC_K}, D=1, "
+          f"Matern-3/2, nugget, row 10 layout): kernel {numbers['ms']:.3f} ms, plain (the "
+          f"recompute pullback) {numbers['plain_ms']:.3f} ms, bound {numbers['bound_ms']:.3f} ms "
+          f"({numbers['bound_by']})")
+    del xwT, validT, xw, valid, g, rows, xs
+
+    # (b), (c) the two bench training rows on their three routes
+    train_row(dev, "vecchia_lml_grad", convert.build_vecchia_fx, VEC_THETA, launches)
+    train_row(dev, "vecchia_nugget_lml_grad", convert.build_vecchia_nugget_fx, NUGGET_THETA,
+              launches)
+
+    # (d) Adam on (c)
+    y = torch.sin(x / 3.0)
+    nn = tgp.NearestNeighbors(VEC_K, block_size=VEC_BLOCK)
+    params = {"theta": torch.tensor(NUGGET_THETA, device=dev, dtype=f32)}
+    loss = lambda p, xb, yb: -tgp.approx_lml(  # noqa: E731
+        nn, convert.build_vecchia_nugget_fx(p["theta"], xb), yb)
+    ((params, losses), got), adam_ms = timed(lambda: counted(
+        lambda: tgp.adam_fit(loss, params, [(x, y)] * ADAM_STEPS, learning_rate=ADAM_LR),
+        launches))
+    losses = [v.item() for v in losses]
+    check(got["vecchia_band"] == got["vecchia_band_bwd"] == ADAM_STEPS
+          and all(map(math.isfinite, losses)) and bool(torch.isfinite(params["theta"]).all()),
+          f"{ADAM_STEPS} Adam steps (lr {ADAM_LR:g}) on -approx_lml of the nugget model: losses "
+          f"{losses}, θ {params['theta'].tolist()}, finite; launches {got}")
+    print(f"time {ADAM_STEPS} Adam steps (N={N_VEC}, k={VEC_K}, nugget model): {adam_ms:.3f} ms "
+          f"(host clock, first steps included)")
+
+    # (e) the general orderings: maximin with scaled and with nearest neighbours
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    Xo = SIDE_ORDER * torch.rand((N_ORDER, 2), generator=gen, device=dev)
+    yo = torch.sin(Xo[:, 0] / 3.0)
+    check(tgp.native.native_available(), "the host ordering code built with g++")
+    for neighbors in ("scaled", "nearest"):
+        t0 = time.perf_counter()
+        order = tgp.resolve_ordering(Xo, "maximin")
+        Xh = Xo.cpu().numpy()
+        nbr = (tgp.scaled_ball_predecessors(Xh, order, RHO, VEC_K) if neighbors == "scaled"
+               else tgp.nearest_predecessor_neighbors(Xh, order, VEC_K))
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        nn = tgp.NearestNeighbors(VEC_K, ordering="maximin", neighbors=neighbors, rho=RHO)
+        step = lambda: lml_value_and_grad(  # noqa: E731
+            convert.build_vecchia_nugget_fx, NUGGET_THETA, Xo, yo, nn)
+        ((v, g), got), step_ms = timed(lambda: counted(step, launches))
+        check(got["vecchia_band"] == 1 and got["vecchia_band_bwd"] == 1,
+              f"maximin + {neighbors}: one launch of each kernel ({got})")
+        reset_counts()
+        with tgp.config_context(use_kernels=False):
+            (v0, g0), plain_ms = timed(step)
+        check(sum(read_counts().values()) == 0, "the plain path launched no kernel")
+        e, eg = abs(v.item() - v0.item()) / abs(v0.item()), rel_err(g, g0)
+        filled = float((torch.as_tensor(nbr) >= 0).double().mean())
+        check(e <= VEC_RTOL and eg <= VEC_RTOL,
+              f"maximin + {neighbors} (ρ = {RHO:g}) N={N_ORDER} D=2 k={VEC_K} f32, nugget model: "
+              f"value rel err {e:.3e}, gradient {eg:.3e} <= {VEC_RTOL:g} (kernels vs plain "
+              f"path; points within 256 of 0, so no entry cancels); {filled:.3f} of the slots "
+              "filled")
+        print(f"time maximin + {neighbors} (N={N_ORDER}): host ordering and neighbour sets "
+              f"{host_ms:.3f} ms, value and gradient with them {step_ms:.3f} ms (kernels, once), "
+              f"{plain_ms:.3f} ms (plain, once)")
+
+    # (f) f64: full conditioning against the dense exact GP, then the kernel
+    # path against the plain path at N = 65536
+    f64 = torch.float64
+    x33 = torch.linspace(0.0, 32.0, 33, dtype=f64, device=dev)
+    y33 = torch.sin(x33 / 3.0)
+    x64 = torch.linspace(0.0, float(N_TRAIN64), N_TRAIN64, dtype=f64, device=dev)
+    y64 = torch.sin(x64 / 3.0)
+    for name, build, theta0 in (("noise 0", convert.build_vecchia_fx, VEC_THETA),
+                                ("nugget", convert.build_vecchia_nugget_fx, NUGGET_THETA)):
+        v, g = lml_value_and_grad(build, theta0, x33, y33, tgp.NearestNeighbors(32))
+        theta = torch.tensor(theta0, dtype=f64, device=dev).requires_grad_()
+        ve = tgp.logpdf(build(theta, x33), y33)
+        (ge,) = torch.autograd.grad(ve, theta)
+        e, eg = abs(v.item() - ve.item()) / abs(ve.item()), rel_err(g, ge)
+        check(e <= 1e-10 and eg <= 1e-10,
+              f"f64 {name} N=33 k=32 (full conditioning) vs autograd of the dense exact logpdf: "
+              f"value rel err {e:.3e}, θ-gradient {eg:.3e} <= 1e-10 ({g.tolist()})")
+        nn = tgp.NearestNeighbors(VEC_K, block_size=VEC_BLOCK)
+        reset_counts()
+        v, g = lml_value_and_grad(build, theta0, x64, y64, nn)
+        got = read_counts()
+        with tgp.config_context(use_kernels=False):
+            v0, g0 = lml_value_and_grad(build, theta0, x64, y64, nn)
+        e, eg = abs(v.item() - v0.item()) / abs(v0.item()), rel_err(g, g0)
+        check(e <= 1e-12 and eg <= 1e-10 and got["vecchia_band_bwd"] == 1,
+              f"f64 {name} N={N_TRAIN64} k={VEC_K}, kernels (one pullback launch) vs plain path: "
+              f"value rel err {e:.3e} <= 1e-12, θ-gradient {eg:.3e} <= 1e-10")
+    print(f"vecchia training launches in the path runs: {launches}")
+    return launches, numbers
+
+
 def _plain(fn, *args):
     with tgp.config_context(use_kernels=False):
         return fn(*args)
@@ -1105,6 +1503,7 @@ def main() -> None:
         "exact_gp": phase_exact_gp(dev),
     }
     by_path["vecchia"], numbers["vecchia_band"] = phase_vecchia(dev)
+    by_path["vecchia_train"], numbers["vecchia_band_bwd"] = phase_vecchia_train(dev)
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),
@@ -1118,6 +1517,8 @@ def main() -> None:
                         "approximategps_tpu/ops/gram_matvec.py:151"),
         "vecchia_band": ("approximategps_tpu_torch/csrc/vecchia_band.cu",
                          "approximategps_tpu/ops/batched_chol.py:747"),
+        "vecchia_band_bwd": ("approximategps_tpu_torch/csrc/vecchia_band_bwd.cu",
+                             "approximategps_tpu/ops/batched_chol.py:1029"),
     }
     # the one band kernel takes the place of rows 7, 8 and 10 of the table
     also = {"vecchia_band": {"rows": [7, 8, 10], "replaces_also": [
@@ -1143,7 +1544,7 @@ def main() -> None:
     for k, (src, rep) in meta.items():
         per_path = {path: counts[k] for path, counts in by_path.items()}
         extra = dict(zip(("bound_ms", "bound_by"), bounds[k])) if k in bounds else {}
-        # no single PyTorch call computes any of the six functions
+        # no single PyTorch call computes any of the seven functions
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         **also.get(k, {}), "launches": sum(per_path.values()),
                         "launches_by_path": per_path, "library_ms": None, **extra,

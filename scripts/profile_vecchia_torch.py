@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's Vecchia serving path goes, on one
-CUDA GPU.
+"""Where the time of the PyTorch port's Vecchia serving and training paths
+goes, on one CUDA GPU.
 
     python3 scripts/profile_vecchia_torch.py
 
 Builds ``chip_smoke.py``'s phase-8 configurations (the band build on
 linspace(0, 10^6) with a bare Matérn-3/2 and k = 32; ``predict_knn`` over
 10^6 training and test points on [0, 1000]^2, lengthscale 5, noise 0.1,
-k = 32, tiles of 4096 × 65536), runs each once to warm up, then profiles one
-band build, one k-NN search alone and one ``predict_knn`` sweep with
-``torch.profiler``: the device time by kernel name and the device's busy
-share of the wall time (``profile_exact_gp_torch.profile``).  Prints the
+k = 32, tiles of 4096 × 65536) and phase 9 (b)'s training step (the value
+and θ-gradient of ``approx_lml`` at N = 10^6 on linspace(0, 10^6), y =
+sin(x/3), softplus(0.55)·Matérn-3/2(ℓ = softplus(0.55)), k = 32), runs each
+once to warm up, then profiles one band build, one k-NN search alone, one
+``predict_knn`` sweep and one training step with ``torch.profiler``: the
+device time by kernel name and the device's busy share of the wall time
+(``profile_exact_gp_torch.profile``).  Prints the
 card's name and power limit first.  Needs a CUDA device (it exits non-zero
 without one).
 """
@@ -60,6 +63,14 @@ def main() -> None:
         knn.reset_stats()
         profile(f"one predict_knn sweep (N=N*={cs.N_SWEEP}, k={cs.VEC_K})", sweep)
         print(f"  search: {knn.stats}")
+    del X, Xs, fx
+
+    y = torch.sin(x / 3.0)
+    nn = tgp.NearestNeighbors(cs.VEC_K, block_size=cs.VEC_BLOCK)
+    step = lambda: cs.lml_value_and_grad(  # noqa: E731
+        convert.build_vecchia_fx, cs.VEC_THETA, x, y, nn)
+    step()
+    profile(f"one training step, vecchia_lml_grad (N={cs.N_VEC}, k={cs.VEC_K})", step)
 
 
 if __name__ == "__main__":

@@ -392,3 +392,114 @@ def test_torch_cuda_vecchia_paths_launch_once(cuda):
         mu0, var0 = tgp.predict_knn(fx, y, Xs, k=16, test_block=256)
     assert ((mu - mu0).abs().max() / mu0.abs().max()).item() <= 1e-12
     assert ((var - var0).abs().max() / var0.abs().max()).item() <= 1e-12
+
+
+# -- the Vecchia band pullback kernel (row 9) ----------------------------------
+
+
+def _bwd_windows(N, D, k, seed):
+    """Previous-k windows (N, D, k+1) of points about a lengthscale apart and
+    their (N, k) mask; every third window repeats a neighbour in the next slot
+    (a deflated pivot), and the first k rows have masked slots.  No window's
+    point repeats a neighbour: that sets F at its floor, where roundoff decides
+    the pullback (u₀ = F^(−1/2) amplifies it by about 1/√(8 eps))."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0.0, 1.2 * N ** (1.0 / D), (N, D))
+    idx = np.arange(N)[:, None] - k + np.arange(k)[None, :]
+    rep = (np.arange(N) % 3 == 0) & (idx[:, 0] >= 0)
+    idx[rep, 1] = idx[rep, 0]
+    xw = np.concatenate([X[np.clip(idx, 0, N - 1)], X[:, None, :]], axis=1).swapaxes(1, 2)
+    return np.ascontiguousarray(xw), (idx >= 0).astype(np.float64)
+
+
+@pytest.mark.parametrize("layout", ["nd", "t"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_vecchia_band_bwd_matches_plain(cls, dtype, layout, cuda):
+    """The pullback kernel against its plain version (the recompute pullback)
+    on the card: x̄w and each window's share of the nugget's cotangent, both
+    layouts (x̄w comes back in the layout of the windows), no nugget and a
+    nugget with and without slot k, N ragged against the 8-window blocks;
+    relative to the largest entry (the nugget's total relative to the sum of
+    the shares' magnitudes, since with random cotangents the shares cancel):
+    f64 1e-10, f32 1e-4 (both solve with the window Grams twice, in other
+    orders)."""
+    from approximategps_tpu_torch.ops import batched_chol
+
+    kmap = cls().kernel_map()
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for D, k, N in ((1, 32, 1001), (2, 32, 777), (3, 7, 501), (8, 64, 301)):
+        xw, valid = _bwd_windows(N, D, k, seed=D)
+        a, v = _t(xw, cuda, dtype), _t(valid, cuda, dtype)
+        if layout == "t":
+            a = a.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+        g = _t(np.random.default_rng(k).standard_normal((N, k + 1)), cuda, dtype)
+        for nugget, self_ in ((None, True), (0.1, False), (0.1, True)):
+            nug = None if nugget is None else torch.tensor([nugget], dtype=dtype, device=cuda)
+            before = batched_chol.vecchia_band_bwd.launches
+            got_x, got_n = batched_chol.vecchia_band_bwd(a, v, kmap, g, nug, self_)
+            _, got_p = batched_chol.vecchia_band_bwd(a, v, kmap, g, nug, self_, per_window=True)
+            assert batched_chol.vecchia_band_bwd.launches == before + 2
+            ref_x, ref_p = batched_chol._recompute_pullback(a, v, kmap, nug, self_, g, True,
+                                                            nug is not None)
+            assert got_x.stride() == a.stride()
+            assert ((got_x - ref_x).abs().max() / ref_x.abs().max()).item() <= tol, (D, k, nugget)
+            assert bool((got_x[:, :, :k].permute(0, 2, 1)[v == 0] == 0).all())
+            if nug is not None:
+                assert got_n.shape == (1,) and got_n.device == a.device
+                assert ((got_p - ref_p).abs().max() / ref_p.abs().max()).item() <= tol, (D, k)
+                assert abs((got_n - ref_p.sum()).item()) <= tol * ref_p.abs().sum().item()
+
+
+def test_torch_cuda_vecchia_band_bwd_raises_on_what_it_does_not_take(cuda):
+    from approximategps_tpu_torch.ops import batched_chol
+
+    kmap = tk.SqExponentialKernel().kernel_map()
+    xw = torch.zeros((10, 2, 5), device=cuda)
+    v = torch.ones((10, 4), device=cuda)
+    g = torch.zeros((10, 5), device=cuda)
+    for args in [
+        (xw.bfloat16(), v.bfloat16(), kmap, g.bfloat16()),
+        (torch.zeros((10, 9, 5), device=cuda), v, kmap, g),
+        (torch.zeros((10, 2, 66), device=cuda), torch.ones((10, 65), device=cuda), kmap,
+         torch.zeros((10, 66), device=cuda)),
+        (xw, v, kmap, g.cpu()),
+        (xw, v, kmap, g.double()),
+        (xw, v, kmap, torch.zeros((10, 4), device=cuda)),
+    ]:
+        with pytest.raises(ValueError):
+            batched_chol.vecchia_band_bwd(*args)
+    with pytest.raises(ValueError):
+        batched_chol.vecchia_band_bwd_pass(xw, v, kmap, torch.ones(2, device=cuda), True, g)
+
+
+@pytest.mark.parametrize("ordering", ["natural", "maximin"])
+def test_torch_cuda_vecchia_training_step_launches_both_kernels(ordering, cuda):
+    """One ``approx_lml`` value and θ-gradient of σ²·Matérn-3/2 + τ²·White
+    (f64, N = 3000): the band kernel and its pullback launch once each, and
+    the value and all three gradient entries agree with the plain route
+    (1e-12 and 1e-10 relative)."""
+    from approximategps_tpu_torch import convert
+    from approximategps_tpu_torch.ops import batched_chol
+
+    rng = np.random.default_rng(13)
+    x = _t(np.sort(rng.uniform(0.0, 2400.0, 3000)) if ordering == "natural"
+           else rng.uniform(0.0, 50.0, (3000, 2)), cuda)
+    y = torch.sin(x if x.ndim == 1 else x[:, 0])
+    nn = tgp.NearestNeighbors(16, ordering=ordering,
+                              neighbors="previous" if ordering == "natural" else "scaled")
+
+    def value_and_grad():
+        theta = _t([0.55, 0.55, 0.02], cuda).requires_grad_()
+        v = tgp.approx_lml(nn, convert.build_vecchia_nugget_fx(theta, x), y)
+        return v.detach(), torch.autograd.grad(v, theta)[0]
+
+    c0, c1 = batched_chol.vecchia_band.launches, batched_chol.vecchia_band_bwd.launches
+    v, g = value_and_grad()
+    assert batched_chol.vecchia_band.launches == c0 + 1
+    assert batched_chol.vecchia_band_bwd.launches == c1 + 1
+    with tgp.config_context(use_kernels=False):
+        v0, g0 = value_and_grad()
+    assert batched_chol.vecchia_band.launches == c0 + 1
+    assert abs((v - v0).item()) <= 1e-12 * abs(v0.item())
+    assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-10

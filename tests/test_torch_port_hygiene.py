@@ -29,6 +29,10 @@ def test_torch_port_imports_no_jax():
         "t.NearestNeighbors, t.BandInvRoot, t.SparseInvRoot, t.approx_root_prec_band\n"
         "t.approx_root_prec_sparse, t.band_Ut_matmul, t.band_U_matvec, t.predict_knn\n"
         "t.knn_search, t.convert.build_vecchia_fx, t.ops.vecchia_band, t.ops.vecchia_band_t\n"
+        "t.WhiteKernel, t.SumKernel, t.ConstantKernel, t.unwrap_stationary_nugget\n"
+        "t.resolve_ordering, t.maximin_ordering, t.nearest_predecessor_neighbors\n"
+        "t.scaled_ball_predecessors, t.convert.build_vecchia_nugget_fx, t.ops.vecchia_band_bwd\n"
+        "t.ops.vecchia_band_bwd_pass, t.native.native_available\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'approximategps_tpu' not in sys.modules\n"
     )

@@ -274,7 +274,17 @@ def test_torch_vecchia_declines_run_the_plain_path(spy):
 
 
 def test_torch_vecchia_other_orderings_are_not_ported():
+    """The other orderings and neighbour sets are ported
+    (``test_torch_vecchia_train.py``); what is not, an unknown ordering or
+    neighbour set, raises ValueError, as in the JAX package."""
     fx = _torch_fx(THETA, np.linspace(0.0, 5.0, 10))
-    for kw in ({"ordering": "maximin"}, {"neighbors": "nearest"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgp.posterior(tgp.NearestNeighbors(3, **kw), fx, torch.zeros(10, dtype=torch.float64))
+    y = torch.zeros(10, dtype=torch.float64)
+    for kw, what in (({"ordering": "hilbert"}, "unknown ordering"),
+                     ({"neighbors": "ball"}, "unknown neighbors"),
+                     ({"ordering": "maximin", "neighbors": "ball"}, "unknown neighbors")):
+        with pytest.raises(ValueError, match=what):
+            tgp.posterior(tgp.NearestNeighbors(3, **kw), fx, y)
+        with pytest.raises(ValueError, match=what):
+            jv._posterior_nn(agp.NearestNeighbors(3, **kw), _jax_fx(jnp.asarray(THETA),
+                                                                    jnp.linspace(0.0, 5.0, 10)),
+                             jnp.zeros(10))
