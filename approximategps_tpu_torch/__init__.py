@@ -10,7 +10,9 @@ carries the SVGP serving path (``posterior``, then
 precision roots (``approx_root_prec_band``, the maximin / random orderings
 and nearest / scaled neighbour sets), ``approx_lml`` with its
 hyperparameter gradient (a white-noise nugget included) and
-``predict_knn``.
+``predict_knn``, with the kernels that do not unwrap (rational quadratic,
+periodic, linear, polynomial, products) and noise that is not a scalar on the
+windowed tier.
 Hand-written CUDA kernels for Hopper (``csrc/``) carry them
 on the GPU, each beside a plain PyTorch version that CPU tensors take:
 
@@ -25,7 +27,11 @@ on the GPU, each beside a plain PyTorch version that CPU tensors take:
 - ``ops.batched_chol.vecchia_band``: Vecchia band rows from point windows,
   window → Gram → bordered Cholesky in one pass, under the band build and
   ``predict_knn``, and its pullback ``vecchia_band_bwd`` under every
-  Vecchia training step.
+  Vecchia training step;
+- ``ops.batched_chol.batched_chol_solve_band``: band rows from prebuilt
+  window Grams, under the windowed Vecchia tier;
+- ``ops.gram.stationary_gram``: g(r²(X, Z)) with r² and the map fused, under
+  non-symmetric Grams with ``gram_mode="fused"``.
 
 The kernels are built with ``nvcc`` at first use (``ops/_build.py``); the
 host-side orderings of ``native/`` with g++.
@@ -41,6 +47,7 @@ from .core import (
     GaussianLikelihood,
     LatentFiniteGP,
     LatentGP,
+    LinearKernel,
     ExponentialKernel,
     FiniteGP,
     InputScaledKernel,
@@ -49,6 +56,10 @@ from .core import (
     Matern32Kernel,
     Matern52Kernel,
     MultivariateNormal,
+    PeriodicKernel,
+    PolynomialKernel,
+    ProductKernel,
+    RationalQuadraticKernel,
     RBFKernel,
     ScaledKernel,
     SEKernel,
@@ -110,6 +121,11 @@ __all__ = [
     "ExponentialKernel",
     "Matern32Kernel",
     "Matern52Kernel",
+    "RationalQuadraticKernel",
+    "PeriodicKernel",
+    "LinearKernel",
+    "PolynomialKernel",
+    "ProductKernel",
     "ScaledKernel",
     "InputScaledKernel",
     "WhiteKernel",

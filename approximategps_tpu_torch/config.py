@@ -8,7 +8,8 @@ factorization and data-term routes), never model options.
 
 Value names differ from the JAX package where they named TPU machinery:
 ``use_pallas`` is ``use_kernels``, the ``"pallas"`` / ``"xla"`` routes are
-``"auto"`` / ``"plain"``, and the ``"mxu"`` distance mode is ``"matmul"``.
+``"auto"`` / ``"plain"``, the ``"mxu"`` distance mode is ``"matmul"``, and
+the ``"pallas"`` Gram mode is ``"fused"``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,13 @@ class _Config:
     # Pairwise-distance implementation for Gram matrices:
     #   "broadcast": exact (x - z)**2 broadcasting
     #   "matmul":    |x|^2 + |z|^2 - 2 x z^T on centred inputs
-    #   "auto":      broadcast below gram_auto_threshold (N*M*D), else matmul
+    #   "fused":     non-symmetric Grams of a kernel with a CUDA map through
+    #                the fused Gram kernel (ops/gram.stationary_gram: the
+    #                kernel on a CUDA tensor, its plain version on the CPU);
+    #                symmetric Grams take broadcast and maps with a
+    #                parameter (rational quadratic, periodic) matmul
+    #   "auto":      broadcast below gram_auto_threshold (N*M*D), else
+    #                matmul; never fused, as in the JAX package
     gram_mode: str = os.environ.get("AGP_GRAM_MODE", "auto")
     gram_auto_threshold: int = 1 << 22
     # Whether the hand-written CUDA kernels may serve at all.  A wrapper

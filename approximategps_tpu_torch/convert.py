@@ -3,8 +3,9 @@
 ``from_jax_params`` takes the JAX package's parameters (anything numpy can
 read: JAX arrays, numpy arrays) in each form the repo uses and returns the
 same form on the port's side, so that ``build_svgp`` / ``posterior`` /
-``build_exact_fx`` / ``build_vecchia_fx`` / ``build_vecchia_nugget_fx``
-compute the same thing in both packages.  The tensors
+``build_exact_fx`` / ``build_vecchia_fx`` / ``build_vecchia_nugget_fx`` /
+``build_vecchia_rq_fx`` / ``build_knn_hetero_fx`` compute the same thing in
+both packages.  The tensors
 land on the card unless the caller names another device.  Nothing here
 imports JAX.
 """
@@ -16,17 +17,24 @@ import torch
 
 from .core.distributions import MultivariateNormal
 from .core.gp import GP, FiniteGP
-from .core.kernels import Matern32Kernel, SqExponentialKernel, WhiteKernel, with_lengthscale
+from .core.kernels import (
+    Matern32Kernel,
+    RationalQuadraticKernel,
+    SqExponentialKernel,
+    WhiteKernel,
+    with_lengthscale,
+)
 from .models.api import posterior
 from .models.svgp import SparseVariationalApproximation, SVGPPosterior
 from .utils.bijectors import softplus
 from .utils.training import SVGPParams
 
 __all__ = ["from_jax_params", "build_posterior_from_bench_params", "build_exact_fx",
-           "build_vecchia_fx", "build_vecchia_nugget_fx"]
+           "build_vecchia_fx", "build_vecchia_nugget_fx", "build_vecchia_rq_fx",
+           "build_knn_hetero_fx"]
 
 _BENCH_KEYS = ("k", "z", "m", "A")
-_THETA_LEN = 3  # raw (variance, lengthscale, noise variance) of the exact GP
+_THETA_LENS = (3, 4)  # raw θ of the exact GP and the Vecchia models (3), and of the RQ model
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -46,19 +54,20 @@ def from_jax_params(params, *, device="cuda", dtype=torch.float32):
       (variance, lengthscale, noise variance), as ``tests/test_iterative.py``
       builds it, becomes a (3,) tensor for :func:`build_exact_fx`, and the
       Vecchia models' raw (variance, lengthscale, noise or nugget variance)
-      ones for :func:`build_vecchia_fx` and :func:`build_vecchia_nugget_fx`.
+      ones for :func:`build_vecchia_fx` and :func:`build_vecchia_nugget_fx`,
+      and the (4,) raw θ of :func:`build_vecchia_rq_fx`.
     """
     if isinstance(params, dict):
         if set(params) != set(_BENCH_KEYS):
             raise ValueError(f"expected the bench dict with keys {_BENCH_KEYS}, got {sorted(params)}")
         return {k: _tensor(params[k], device, dtype) for k in _BENCH_KEYS}
-    if hasattr(params, "shape") and tuple(params.shape) == (_THETA_LEN,):
+    if hasattr(params, "shape") and tuple(params.shape) in {(n,) for n in _THETA_LENS}:
         return _tensor(params, device, dtype)
     try:
         fields = {name: getattr(params, name) for name in SVGPParams._fields}
     except AttributeError as exc:
         raise TypeError(
-            f"expected the bench dict, SVGPParams or a ({_THETA_LEN},) exact-GP θ, "
+            f"expected the bench dict, SVGPParams or a raw θ of shape (3,) or (4,), "
             f"got {type(params).__name__}"
         ) from exc
     return SVGPParams(**{k: _tensor(v, device, dtype) for k, v in fields.items()})
@@ -102,3 +111,25 @@ def build_vecchia_nugget_fx(theta: torch.Tensor, x: torch.Tensor) -> FiniteGP:
     kernel = (softplus(theta[0]) * with_lengthscale(Matern32Kernel(), softplus(theta[1]))
               + softplus(theta[2]) * WhiteKernel())
     return GP(kernel)(x, 0.0)
+
+
+def build_vecchia_rq_fx(theta: torch.Tensor, x: torch.Tensor) -> FiniteGP:
+    """The noisy-data Vecchia model with a kernel that does not unwrap, from
+    raw hyperparameters: softplus(θ₀)·RationalQuadratic(α = softplus(θ₂))
+    with lengthscale softplus(θ₁), + softplus(θ₃)·White, at ``x`` with
+    FiniteGP noise 0 (the white term carries the noise, as in
+    :func:`build_vecchia_nugget_fx`).  Its root runs the windowed tier."""
+    kernel = (softplus(theta[0]) * with_lengthscale(RationalQuadraticKernel(softplus(theta[2])),
+                                                    softplus(theta[1]))
+              + softplus(theta[3]) * WhiteKernel())
+    return GP(kernel)(x, 0.0)
+
+
+def build_knn_hetero_fx(theta: torch.Tensor, x: torch.Tensor,
+                        noise_vec: torch.Tensor) -> FiniteGP:
+    """``predict_knn``'s model with noise that is not a scalar, from raw
+    (variance, lengthscale): softplus(θ₀)·Matérn-3/2(lengthscale
+    softplus(θ₁)) at ``x`` with the per-point noise variances ``noise_vec``
+    (N,)."""
+    kernel = softplus(theta[0]) * with_lengthscale(Matern32Kernel(), softplus(theta[1]))
+    return GP(kernel)(x, noise_vec)

@@ -21,9 +21,14 @@ from .kernels import (
     Kernel,
     KernelMap,
     KernelMapId,
+    LinearKernel,
     Matern12Kernel,
     Matern32Kernel,
     Matern52Kernel,
+    PeriodicKernel,
+    PolynomialKernel,
+    ProductKernel,
+    RationalQuadraticKernel,
     RBFKernel,
     ScaledKernel,
     SEKernel,

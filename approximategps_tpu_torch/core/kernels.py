@@ -1,16 +1,20 @@
 """Kernel library and Gram construction (PyTorch port of
-``approximategps_tpu/core/kernels.py``: the stationary maps, the white and
-constant kernels, scaling, sums and the unwrappers the fused kernels read).
+``approximategps_tpu/core/kernels.py``: the stationary maps, the rational
+quadratic and periodic kernels, the white, constant, linear and polynomial
+kernels, scaling, sums, products and the unwrappers the fused kernels read).
 
 Kernels are plain dataclasses whose hyperparameters are tensors or floats.
 Gram matrices come from pairwise squared distances, computed by exact
 broadcasting or by the ``|x|² + |z|² − 2·x zᵀ`` matmul identity on centred
-inputs.
+inputs, or (``gram_mode="fused"``) by the fused Gram kernel of
+``ops/gram.py``.
 
 A CUDA kernel cannot call a Python function, so where the JAX package
 identifies a stationary map by its ``staticmethod``, the port gives each map
 a :class:`KernelMap`: an integer id the CUDA side switches on, beside the
-PyTorch function the plain versions use.
+PyTorch function the plain versions use.  Kernels whose map closes over a
+parameter (rational quadratic, periodic) have none, and leave the fused
+tiers, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,11 +38,16 @@ __all__ = [
     "ExponentialKernel",
     "Matern32Kernel",
     "Matern52Kernel",
+    "RationalQuadraticKernel",
+    "PeriodicKernel",
     "WhiteKernel",
     "ConstantKernel",
+    "LinearKernel",
+    "PolynomialKernel",
     "ScaledKernel",
     "InputScaledKernel",
     "SumKernel",
+    "ProductKernel",
     "with_lengthscale",
     "pairwise_sq_dist",
     "as_points",
@@ -74,7 +83,9 @@ def pairwise_sq_dist(X, Z, mode: str | None = None) -> torch.Tensor:
 
     ``broadcast`` is exact (differences squared); ``matmul`` uses the
     |x|²-identity on inputs centred on the joint mean, whose error scales
-    with eps·max|x−c|² rather than eps·max|x|²."""
+    with eps·max|x−c|² rather than eps·max|x|²; ``fused``, which names a
+    Gram kernel and not a distance, takes ``matmul`` here, as the JAX
+    package's ``"pallas"`` does."""
     X = as_points(X)
     Z = as_points(Z)
     if mode is None:
@@ -82,7 +93,7 @@ def pairwise_sq_dist(X, Z, mode: str | None = None) -> torch.Tensor:
     if mode == "broadcast":
         diff = X[:, None, :] - Z[None, :, :]
         return torch.sum(diff * diff, dim=-1)
-    if mode != "matmul":
+    if mode not in ("matmul", "fused"):
         raise ValueError(f"unknown distance mode {mode!r}")
     center = 0.5 * (X.mean(dim=0) + Z.mean(dim=0))
     X = X - center
@@ -133,17 +144,18 @@ class Kernel:
 
     def __mul__(self, other):
         if isinstance(other, Kernel):
-            return NotImplemented
+            return ProductKernel(self, other)
         return ScaledKernel(self, other)
 
     __rmul__ = __mul__
 
 
 class StationaryKernel(Kernel):
-    """Kernels of the form k(x, z) = g(||x - z||²).  Subclasses define
-    ``k_of_r2`` as a staticmethod and name their map in ``map_id``."""
+    """Kernels of the form k(x, z) = g(||x - z||²).  Parameter-free maps
+    define ``k_of_r2`` as a staticmethod and name their map in ``map_id``;
+    a map that closes over a parameter is a method and has ``map_id`` None."""
 
-    map_id: KernelMapId
+    map_id: KernelMapId | None = None
 
     @staticmethod
     def k_of_r2(r2: torch.Tensor) -> torch.Tensor:
@@ -155,7 +167,11 @@ class StationaryKernel(Kernel):
         gives there (its double-where sqrt has a zero gradient at 0)."""
         raise NotImplementedError
 
-    def kernel_map(self) -> KernelMap:
+    def kernel_map(self) -> KernelMap | None:
+        """The map the CUDA kernels implement, or None for a map that closes
+        over a parameter."""
+        if self.map_id is None:
+            return None
         return KernelMap(self.map_id, type(self).k_of_r2, type(self).dk_of_r2)
 
     def gram(self, X, Z=None) -> torch.Tensor:
@@ -168,6 +184,15 @@ class StationaryKernel(Kernel):
             # identity's eps·max|x−c|² error breaks PSD-ness for data spans
             # ≫ √jitter, so they always take exact broadcast distances
             mode = "broadcast"
+        if mode == "fused":
+            kmap = self.kernel_map()
+            if kmap is not None:
+                from ..ops.gram import stationary_gram
+
+                return stationary_gram(X, Z, kmap)
+            # a map with a parameter has no kernel: the matmul distances,
+            # as the JAX package's "pallas" mode takes its MXU route there
+            mode = "matmul"
         return self.k_of_r2(pairwise_sq_dist(X, Z, mode))
 
     def diag(self, X) -> torch.Tensor:
@@ -263,6 +288,30 @@ class Matern52Kernel(StationaryKernel):
         return torch.where(r2 > 0, (-5.0 / 6.0) * (1.0 + t) * torch.exp(-t), 5.0 / 3.0)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class RationalQuadraticKernel(StationaryKernel):
+    """k(x,z) = (1 + r²/(2α))^(−α).  Its map closes over α, so it has no
+    CUDA map and does not unwrap."""
+
+    alpha: torch.Tensor | float = 2.0
+
+    def k_of_r2(self, r2):
+        a = _param(self.alpha, r2)
+        return (1.0 + r2 / (2.0 * a)) ** (-a)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PeriodicKernel(StationaryKernel):
+    """The 1-D periodic (MacKay) kernel exp(−2 sin²(π r / p)).  Its map
+    closes over the period, so it has no CUDA map and does not unwrap."""
+
+    period: torch.Tensor | float = 1.0
+
+    def k_of_r2(self, r2):
+        s = torch.sin(math.pi * _safe_r(r2) / _param(self.period, r2))
+        return torch.exp(-2.0 * s * s)
+
+
 def _as_param(v) -> torch.Tensor:
     """A hyperparameter as a tensor; Python and numpy numbers become f64 so
     that no precision is lost before the cast to the inputs' dtype."""
@@ -308,6 +357,37 @@ class ConstantKernel(Kernel):
     def diag(self, X):
         X = as_points(X)
         return X.new_zeros((X.shape[0],)) + _param(self.value, X)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LinearKernel(Kernel):
+    """k(x, z) = x·z (a full-precision matmul: TF32 stays off)."""
+
+    def gram(self, X, Z=None):
+        X = as_points(X)
+        Z = X if Z is None else as_points(Z)
+        return X @ Z.T
+
+    def diag(self, X):
+        X = as_points(X)
+        return torch.sum(X * X, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PolynomialKernel(Kernel):
+    """k(x, z) = (x·z + c)^degree."""
+
+    degree: int = 2
+    c: torch.Tensor | float = 0.0
+
+    def gram(self, X, Z=None):
+        X = as_points(X)
+        Z = X if Z is None else as_points(Z)
+        return (X @ Z.T + _param(self.c, X)) ** self.degree
+
+    def diag(self, X):
+        X = as_points(X)
+        return (torch.sum(X * X, dim=-1) + _param(self.c, X)) ** self.degree
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -358,6 +438,20 @@ class SumKernel(Kernel):
         return self.left.diag(X) + self.right.diag(X)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProductKernel(Kernel):
+    """left · right, entry by entry (``k1 * k2``)."""
+
+    left: Kernel
+    right: Kernel
+
+    def gram(self, X, Z=None):
+        return self.left.gram(X, Z) * self.right.gram(X, Z)
+
+    def diag(self, X):
+        return self.left.diag(X) * self.right.diag(X)
+
+
 def with_lengthscale(kernel: Kernel, lengthscale) -> Kernel:
     """k((x - z) / lengthscale); ``lengthscale`` scalar or (D,)."""
     return InputScaledKernel(kernel, 1.0 / _as_param(lengthscale))
@@ -375,8 +469,10 @@ _DK_FROM_K = {KernelMapId.SE: SqExponentialKernel.dk_from_k}
 def unwrap_stationary(kern: Kernel):
     """Decompose ``σ²·(base ∘ ScaleTransform(s))`` nests into
     ``(KernelMap, input_scale, variance)``, or None if the kernel is not a
-    (possibly scaled) parameter-free stationary kernel.  ``input_scale`` and
-    ``variance`` are None where no wrapper supplies them."""
+    (possibly scaled) parameter-free stationary kernel (the rational
+    quadratic and periodic maps close over a parameter: None).
+    ``input_scale`` and ``variance`` are None where no wrapper supplies
+    them."""
     variance = None
     scale = None
     while True:
@@ -390,9 +486,10 @@ def unwrap_stationary(kern: Kernel):
             kern = kern.inner
         else:
             break
-    if not isinstance(kern, StationaryKernel):
+    kmap = kern.kernel_map() if isinstance(kern, StationaryKernel) else None
+    if kmap is None:
         return None
-    return kern.kernel_map(), scale, variance
+    return kmap, scale, variance
 
 
 def _mul(a, b):

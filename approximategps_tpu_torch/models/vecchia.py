@@ -11,13 +11,16 @@ On the kernel device the whole window → Gram → factor → band construction 
 the hand-written kernel of ``ops/batched_chol.py`` (``vecchia_band`` and
 ``vecchia_band_t``), and its pullback the hand-written pullback kernel
 (``vecchia_band_bwd``); a ``σ²·k + τ²·White`` kernel rides them as a
-nugget τ²/σ² on the window Gram's diagonal.  Elsewhere, or where the kernel
-declines, the windows' Grams are built in PyTorch and factored by the plain
-masked math (``masked_chol_solve_band_math``).  The kernel declines, and the
-plain path runs, where the JAX package leaves its fused tier or where the
-kernel has a limit: a kernel that does not unwrap to a scaled stationary map
-(plus a white term for the root), noise that is not a scalar
-(``predict_knn``), D > 8, and k > 64.
+nugget τ²/σ² on the window Gram's diagonal.  Where that kernel does not take
+the problem — a kernel that does not unwrap to a scaled stationary map (plus
+a white term for the root: the rational quadratic, periodic, linear,
+polynomial and product kernels), noise that is not a scalar
+(``predict_knn``), or D > 8 — the windows' Grams are built in PyTorch
+through each kernel's own ``gram`` and factored by row 6's kernel
+(``batched_chol_solve_band``, the JAX package's windowed tier behind
+``use_pallas=True``).  Elsewhere (a CPU tensor, kernels off) and above
+k = 64 the same Grams go to the plain masked math
+(``masked_chol_solve_band_math``).
 
 Orderings other than the natural one and neighbour sets other than the
 previous k are host-side preprocessing (``native/``): the points are
@@ -46,6 +49,7 @@ from ..core.kernels import (
 from ..ops.batched_chol import (
     MAX_D,
     MAX_K,
+    batched_chol_solve_band,
     masked_chol_solve_band_math,
     vecchia_band,
     vecchia_band_t,
@@ -73,11 +77,11 @@ _LOG2PI = math.log(2.0 * math.pi)
 class NearestNeighbors:
     """k-nearest-neighbour (Vecchia) approximation.
 
-    ``block_size`` chunks the plain path's window Grams to bound memory;
-    ``use_kernels``: None (auto) takes the band kernel on the kernel device
-    (a CUDA tensor in f32 or f64) and the plain path elsewhere; True or False
-    forces a route (True on a CPU tensor runs the kernel's autograd Function
-    with its plain inner passes).
+    ``block_size`` chunks the windowed tier's Grams to bound memory;
+    ``use_kernels``: None (auto) takes the kernels on the kernel device (a
+    CUDA tensor in f32 or f64) and the plain path elsewhere; True or False
+    forces a route (True on a CPU tensor runs the kernels' autograd
+    Functions with their plain inner passes).
 
     ``ordering``: "natural" (as given), "random" or "maximin" (greedy
     farthest-point, Guinness 2018).  ``neighbors``: "previous" (the last k
@@ -184,10 +188,9 @@ def _use_kernels(use_kernels: bool | None, t: torch.Tensor) -> bool:
 
 def _fused(kern: Kernel, D: int, k: int, unwrap=unwrap_stationary):
     """``unwrap(kern)`` where the band kernel takes the problem, else None:
-    the plain path runs for a kernel that does not unwrap (the JAX package
-    leaves its fused tier there too) and beyond the kernel's limits, D > 8
-    or k > 64 (the JAX package's serving path leaves its unrolled band math
-    above k = 48)."""
+    the windowed tier runs for a kernel that does not unwrap (the JAX
+    package leaves its fused tier there too) and beyond the kernel's limits,
+    D > 8 or k > 64."""
     if not 1 <= D <= MAX_D or not 1 <= k <= MAX_K:
         return None
     return unwrap(kern)
@@ -245,9 +248,16 @@ def _window_grams(kern: Kernel, Xw: torch.Tensor, xi: torch.Tensor):
     return Kw, kni
 
 
-def _plain_rows(Xp, nbr_rows, rows_idx, kern, kern_diag):
+def _band_solver(kernels: bool, k: int):
+    """The band rows of prebuilt Grams: row 6's kernel (its autograd
+    Function) on the kernel route up to its k limit, else the plain masked
+    math."""
+    return batched_chol_solve_band if kernels and k <= MAX_K else masked_chol_solve_band_math
+
+
+def _window_rows(Xp, nbr_rows, rows_idx, kern, kern_diag, solve):
     """Band rows of the points ``rows_idx`` with predecessor positions
-    ``nbr_rows`` (−1 masked): masked window Grams, then the masked math."""
+    ``nbr_rows`` (−1 masked): masked window Grams, then ``solve``."""
     N = Xp.shape[0]
     mask = nbr_rows >= 0
     Kw, kni = _window_grams(kern, Xp[torch.clamp(nbr_rows, 0, N - 1)], Xp[rows_idx])
@@ -255,15 +265,17 @@ def _plain_rows(Xp, nbr_rows, rows_idx, kern, kern_diag):
     eye = torch.eye(nbr_rows.shape[1], dtype=Kw.dtype, device=Kw.device)
     Kw = torch.where(pm, Kw, eye)
     kni = torch.where(mask, kni, torch.zeros_like(kni))
-    return masked_chol_solve_band_math(Kw, kni, kern_diag[rows_idx])
+    return solve(Kw, kni, kern_diag[rows_idx])
 
 
-def _plain_band(Xp, nbr, kern, block_size):
+def _windowed_band(Xp, nbr, kern, block_size, kernels: bool):
+    """The band of the windowed tier, ``block_size`` points at a time."""
     N = Xp.shape[0]
     kern_diag = kern.diag(Xp)
+    solve = _band_solver(kernels, nbr.shape[1])
     bs = N if block_size is None else max(1, min(block_size, N))
     idx = torch.arange(N, device=Xp.device)
-    parts = [_plain_rows(Xp, nbr[i0:i0 + bs], idx[i0:i0 + bs], kern, kern_diag)
+    parts = [_window_rows(Xp, nbr[i0:i0 + bs], idx[i0:i0 + bs], kern, kern_diag, solve)
              for i0 in range(0, N, bs)]
     return torch.cat(parts)
 
@@ -278,29 +290,32 @@ def approx_root_prec_band(x, k: int, kern: Kernel, block_size=None, use_kernels=
     U = (I−B)ᵀ F^(−1/2), as an (N, k+1) band: ``Uband[i, t] = U[i−k+t, i]``.
 
     On the kernel device (auto) the windows go through the band kernel in
-    one launch (row 10's layout); the plain path builds the window Grams in
-    blocks of ``block_size`` points and runs the masked math."""
+    one launch (row 10's layout); where it declines, the windowed tier
+    builds the window Grams in blocks of ``block_size`` points for row 6's
+    kernel, one launch a block; the plain path does the same with the
+    masked math."""
     Xp = as_points(x)
-    if _use_kernels(use_kernels, Xp):
+    kernels = _use_kernels(use_kernels, Xp)
+    if kernels:
         fused = _fused_band(Xp, k, kern)
         if fused is not None:
             return fused
-    return _plain_band(Xp, _previous_k(Xp.shape[0], k, Xp.device), kern, block_size)
+    return _windowed_band(Xp, _previous_k(Xp.shape[0], k, Xp.device), kern, block_size, kernels)
 
 
 def approx_root_prec_sparse(x, nbr, kern: Kernel, block_size=None,
                             use_kernels=None) -> SparseInvRoot:
     """Sparse precision root for arbitrary predecessor sets ``nbr`` (N, k),
     −1 padded: the band kernel on gathered windows (row 8's layout) where
-    it serves, else the plain masked math."""
+    it serves, else the windowed tier (row 6 on the kernel route, the plain
+    masked math elsewhere)."""
     Xp = as_points(x)
     nbr = torch.as_tensor(nbr, device=Xp.device).to(torch.int64)
     k = nbr.shape[1]
-    band = None
-    if _use_kernels(use_kernels, Xp):
-        band = _fused_band(Xp, k, kern, nbr=nbr)
+    kernels = _use_kernels(use_kernels, Xp)
+    band = _fused_band(Xp, k, kern, nbr=nbr) if kernels else None
     if band is None:
-        band = _plain_band(Xp, nbr, kern, block_size)
+        band = _windowed_band(Xp, nbr, kern, block_size, kernels)
     return SparseInvRoot(nbr=nbr, coeff=band[:, :k], diag=band[:, k])
 
 
@@ -337,8 +352,11 @@ def predict_knn(fx: FiniteGP, y: torch.Tensor, xs, k: int = 32, test_block: int 
     one launch, with the noise ratio as a nugget on the neighbours' diagonal
     only (``nugget_self=False``: slot k is the noise-free test point); the
     band row is the kriging weight b = Kw⁻¹kni and the conditional variance
-    F in disguise.  Elsewhere the windows' Grams are built in PyTorch,
-    ``test_block`` points at a time, for the plain masked math.
+    F in disguise.  Otherwise (noise that is not a scalar, a kernel that
+    does not unwrap, D > 8) the windows' Grams are built in PyTorch,
+    ``test_block`` points at a time, for row 6's kernel on the kernel device
+    (one launch a block, k ≤ 64: the JAX package's k > 48 branch, whose
+    k ≤ 48 twin is the same math) and the plain masked math elsewhere.
 
     Pass the signal kernel with the noise as ``fx``'s noise."""
     Xp = as_points(fx.x)
@@ -359,10 +377,11 @@ def _krige(fx: FiniteGP, y: torch.Tensor, Xs: torch.Tensor, idx: torch.Tensor,
     noise = torch.as_tensor(fx.noise, dtype=Xp.dtype, device=Xp.device)
     mean_s = fx.f.mean(Xs)
 
+    kernels = _use_kernels(use_kernels, Xp)
     fused = None
-    # noise that is not a scalar has no single nugget ratio: the plain path
-    # (the JAX package's fused tier takes scalar noise only)
-    if noise.ndim == 0 and _use_kernels(use_kernels, Xp):
+    # noise that is not a scalar has no single nugget ratio: the windowed
+    # tier (the JAX package's fused tier takes scalar noise only)
+    if noise.ndim == 0 and kernels:
         fused = _fused(kern, D, k)
     if fused is not None:
         kmap, scale, variance = fused
@@ -383,12 +402,12 @@ def _krige(fx: FiniteGP, y: torch.Tensor, Xs: torch.Tensor, idx: torch.Tensor,
     noise_d = noise.expand(N) if noise.ndim == 0 else (noise if noise.ndim == 1
                                                        else torch.diagonal(noise))
     kdiag_s = kern.diag(Xs)
+    solve = _band_solver(kernels, k)
     mus, variances = [], []
     for i0 in range(0, Xs.shape[0], test_block):
         w = idx[i0:i0 + test_block]
         Kw, kni = _window_grams(kern, Xp[w], Xs[i0:i0 + test_block])
-        band = masked_chol_solve_band_math(Kw + torch.diag_embed(noise_d[w]), kni,
-                                           kdiag_s[i0:i0 + test_block])
+        band = solve(Kw + torch.diag_embed(noise_d[w]), kni, kdiag_s[i0:i0 + test_block])
         b = -band[:, :k] / band[:, k:]
         mus.append(mean_s[i0:i0 + test_block] + torch.sum(b * delta[w], dim=1))
         variances.append(torch.clamp(1.0 / torch.square(band[:, k]), min=0.0))

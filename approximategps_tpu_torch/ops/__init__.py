@@ -2,8 +2,10 @@
 version.  Importing these modules builds nothing; ``_build.load_library``
 runs ``nvcc`` at the first launch."""
 
-from . import batched_chol, gram_matvec, knn, panel_chol, svgp_epilogue
+from . import batched_chol, gram, gram_matvec, knn, panel_chol, svgp_epilogue
 from .batched_chol import (
+    batched_chol_solve_band,
+    batched_chol_solve_band_pass,
     masked_chol_solve_band_math,
     vecchia_band,
     vecchia_band_bwd,
@@ -11,6 +13,12 @@ from .batched_chol import (
     vecchia_band_pass,
     vecchia_band_plain,
     vecchia_band_t,
+)
+from .gram import (
+    stationary_gram,
+    stationary_gram_bwd,
+    stationary_gram_pass,
+    stationary_gram_plain,
 )
 from .gram_matvec import (
     fused_stationary_matvec,

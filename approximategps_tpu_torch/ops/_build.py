@@ -25,7 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "gram_matvec.cu",
             "gram_matvec_f64.cu", "vecchia_band.cu", "vecchia_band_f64.cu", "vecchia_band_bwd.cu",
-            "vecchia_band_bwd_f64.cu")
+            "vecchia_band_bwd_f64.cu", "band_rows.cu", "band_rows_f64.cu", "stationary_gram.cu",
+            "stationary_gram_f64.cu")
 _HEADERS = ("kernel_maps.cuh", "vecchia_window.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,6 +68,15 @@ _SIGNATURES = {
                                   _ll, _ll, _p, _i, _i, _i, _i, _p), _i),
     "agp_vecchia_band_bwd_f64": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _i, _p, _ll, _ll, _p, _ll,
                                   _ll, _ll, _p, _i, _i, _i, _i, _p), _i),
+    # kw and its strides (n, i, j), kni and its strides (n, t), kdiag and its stride, out, B, k,
+    # stream
+    "agp_band_rows_f32": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _ll, _p, _i, _i, _p), _i),
+    "agp_band_rows_f64": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _ll, _p, _i, _i, _p), _i),
+    # x and its strides (b, n, d), z and its strides (b, m, d), out, B, N, M, D, kmap, stream
+    "agp_stationary_gram_f32": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _ll, _p, _i, _i, _i, _i, _i,
+                                 _p), _i),
+    "agp_stationary_gram_f64": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _ll, _p, _i, _i, _i, _i, _i,
+                                 _p), _i),
     "agp_error_string": ((_i,), ctypes.c_char_p),
 }
 

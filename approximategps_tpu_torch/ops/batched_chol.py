@@ -1,7 +1,8 @@
 """Vecchia band rows: the port of ``approximategps_tpu/ops/batched_chol.py``'s
 fused window → Gram → factor → band kernels ``pallas_vecchia_band`` (row 7
 of the kernel table), ``pallas_vecchia_band_lanes`` (row 8) and
-``pallas_vecchia_band_lanes_t`` (row 10).
+``pallas_vecchia_band_lanes_t`` (row 10), of their pullback (row 9), and of
+``batched_chol_solve_band`` (row 6), the band rows from prebuilt Grams.
 
 All three have one contract: point windows → band rows.  Window slot t < k
 is neighbour t, slot k the conditioned point; invalid neighbour slots become
@@ -29,9 +30,17 @@ under autograd and applies the closed-form band pullback :func:`band_bwd`,
 the nugget's cotangent included.  :func:`vecchia_band_bwd` is the pullback
 on its own.
 
-:func:`masked_chol_solve_band_math` is the plain masked-column math from
-prebuilt Grams (the JAX package's XLA ``batched_chol_solve_band_unrolled``),
-with the same closed-form pullback; it is not a kernel.
+:func:`batched_chol_solve_band` (row 6) takes prebuilt masked Grams (Kw,
+kni, kdiag), as the windowed tier builds them for kernels that do not unwrap
+to a map of the band kernel, or for noise that is not a scalar.  Its
+autograd Function's forward, :func:`batched_chol_solve_band_pass`, launches
+the hand-written kernel ``csrc/band_rows.cu`` for a CUDA tensor (or raises)
+and runs :func:`masked_chol_solve_band_math`, the plain masked-column math
+(the JAX package's XLA ``batched_chol_solve_band_unrolled``), for a CPU
+tensor; its backward is the closed-form :func:`band_bwd` on both devices,
+the port of the JAX custom VJP ``_band_bwd``, which is not a Pallas kernel.
+:func:`masked_chol_solve_band_math` is the same Function with the plain
+forward on every device.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ __all__ = [
     "MAX_D",
     "MAX_K",
     "band_bwd",
+    "batched_chol_solve_band",
+    "batched_chol_solve_band_pass",
     "masked_chol_solve_band_math",
     "window_gram_inputs",
     "vecchia_band",
@@ -56,7 +67,7 @@ __all__ = [
 ]
 
 MAX_D = 8  # coordinates a window point may have (the kernel's template range)
-MAX_K = 64  # neighbours a window may have
+MAX_K = 64  # neighbours a window may have (the band kernel's and row 6's limit)
 _BWD_CHUNK = 16384  # windows the plain pullback takes at a time
 
 
@@ -136,25 +147,77 @@ def band_bwd(A, c, kdiag, gbar):
     return A_bar, c_bar, F_bar
 
 
-class _MaskedBand(torch.autograd.Function):
+def _masked_band_plain(A, c, kdiag):
+    L, live = _masked_chol_factor(A)
+    return _band_from_solve(c, _masked_spd_solve(L, live, c), kdiag)[0]
+
+
+def batched_chol_solve_band_pass(Kw: torch.Tensor, kni: torch.Tensor,
+                                 kdiag: torch.Tensor) -> torch.Tensor:
+    """Band rows of prebuilt masked Grams Kw (B, k, k) (only the lower
+    triangle is read), kni (B, k), kdiag (B,), any strides.  A CPU tensor
+    takes the plain masked math; a CUDA tensor launches the kernel of
+    ``csrc/band_rows.cu`` or raises.  Not differentiable itself:
+    :func:`batched_chol_solve_band` is."""
+    if Kw.device.type == "cpu":
+        return _masked_band_plain(Kw, kni, kdiag)
+    dtype = Kw.dtype
+    if (
+        not all(t.is_cuda and t.device == Kw.device and t.dtype == dtype for t in (kni, kdiag))
+        or dtype not in (torch.float32, torch.float64)
+        or Kw.ndim != 3 or not 1 <= Kw.shape[1] <= MAX_K or Kw.shape[2] != Kw.shape[1]
+        or tuple(kni.shape) != tuple(Kw.shape[:2]) or tuple(kdiag.shape) != (Kw.shape[0],)
+    ):
+        raise ValueError(
+            f"batched_chol_solve_band: needs Kw (B, k, k) with 1 <= k <= {MAX_K}, kni (B, k) "
+            "and kdiag (B,) on one CUDA device in f32 or f64; got "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in (Kw, kni, kdiag)]}")
+    B, k, _ = Kw.shape
+    out = torch.empty((B, k + 1), dtype=dtype, device=Kw.device)
+    if B == 0:
+        return out
+    lib = _build.load_library()
+    fn = lib.agp_band_rows_f32 if dtype == torch.float32 else lib.agp_band_rows_f64
+    stream = torch.cuda.current_stream(Kw.device).cuda_stream
+    sk, sc = Kw.stride(), kni.stride()
+    with torch.cuda.device(Kw.device):
+        err = fn(Kw.data_ptr(), sk[0], sk[1], sk[2], kni.data_ptr(), sc[0], sc[1],
+                 kdiag.data_ptr(), kdiag.stride(0), out.data_ptr(), B, k, stream)
+    _build.check(err, "batched_chol_solve_band")
+    batched_chol_solve_band.launches += 1
+    return out
+
+
+class _BandRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, A, c, kdiag):
+    def forward(ctx, A, c, kdiag, plain):
         ctx.save_for_backward(A, c, kdiag)
-        L, live = _masked_chol_factor(A)
-        return _band_from_solve(c, _masked_spd_solve(L, live, c), kdiag)[0]
+        return _masked_band_plain(A, c, kdiag) if plain else batched_chol_solve_band_pass(
+            A, c, kdiag)
 
     @staticmethod
     def backward(ctx, gbar):
-        return band_bwd(*ctx.saved_tensors, gbar)
+        A, c, kdiag = ctx.saved_tensors
+        return (*band_bwd(A, c, kdiag, gbar.to(A.dtype)), None)
 
 
 def masked_chol_solve_band_math(A: torch.Tensor, c: torch.Tensor,
                                 kdiag: torch.Tensor) -> torch.Tensor:
     """Band rows from prebuilt masked Grams: A (B, k, k), c (B, k), kdiag
     (B,) → (B, k+1) = [−b·F^(−1/2), F^(−1/2)], b = A⁻¹c, F = kdiag − c·b
-    floored at 8·eps·kdiag.  Plain PyTorch, batched over B with a Python
-    loop over the k columns; differentiable through :func:`band_bwd`."""
-    return _MaskedBand.apply(A, c, kdiag)
+    floored at 8·eps·kdiag.  Plain PyTorch on every device (the plain
+    version of row 6), batched over B with a Python loop over the k
+    columns; differentiable through :func:`band_bwd`."""
+    return _BandRows.apply(A, c, kdiag, True)
+
+
+def batched_chol_solve_band(Kw: torch.Tensor, kni: torch.Tensor,
+                            kdiag: torch.Tensor) -> torch.Tensor:
+    """Row 6 of the kernel table: :func:`masked_chol_solve_band_math`'s
+    band rows through the hand-written kernel on a CUDA tensor (k ≤ 64;
+    the plain masked math on a CPU tensor), differentiable through the same
+    closed-form :func:`band_bwd`."""
+    return _BandRows.apply(Kw, kni, kdiag, False)
 
 
 # ---------------------------------------------------------------------------
@@ -426,3 +489,4 @@ def vecchia_band_bwd(xw: torch.Tensor, valid: torch.Tensor, kmap: KernelMap, gba
 
 vecchia_band.launches = 0
 vecchia_band_bwd.launches = 0
+batched_chol_solve_band.launches = 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's SVGP serving and training paths, its
-matrix-free exact GP and its Vecchia serving and training paths on one CUDA
-GPU.
+matrix-free exact GP, its Vecchia serving and training paths, the Vecchia
+tier on prebuilt Grams and the fused Gram on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -97,8 +97,30 @@ Phases (a failing phase raises, and the script exits non-zero):
    k = 32 (full conditioning) against autograd of the dense exact
    ``logpdf``, and the kernel path against the plain path at N = 65536.
 
+10. Row 6, the band rows from prebuilt Grams: (a) the kernel against the
+    plain masked math on the same Grams in f64 and f32, k = 1, 7, 32 and 64,
+    B ragged, masked slots and deflated pivots, a strided Kw, then at 10^6
+    windows of the training path (k = 32), checked and timed; (b) the value
+    and θ-gradient of ``approx_lml`` for σ²·RQ(α = 2)∘ℓ + τ²·White (raw θ
+    (0.55, 0.55, softplus⁻¹(2), 0.02)) on ``bench.py::vecchia_lml_grad``'s
+    data, N = 10^6, k = 32, blocks of 8192: the RQ kernel does not unwrap,
+    so row 6 launches once a block (123) and the band kernel never; checked
+    against the plain path (once), each route's point-cotangent residue r
+    and the lengthscale entry's cancellation C printed, with f64 checks
+    against the dense exact GP (N = 33) and the plain path (N = 65536); (c) ``predict_knn`` over 10^6 training and test points on
+    [0, 1000]^2 with per-point noise 0.1·(1 + u), Matérn-3/2 (ℓ = 5), k = 64
+    (the JAX package's row-6 branch), tiles of 4096: row 6 once a tile
+    (245), checked against the plain path and in f64 at 65536 points.
+11. Row 11, the fused stationary Gram: (a) the kernel against its plain
+    version, four maps, f64 and f32, at the minibatch step's Kuf
+    (2048 × 8192, D = 8), (1000, 777, 1) and (129, 4099, 11), pairs at
+    r = 0, then timed at the step's shape; (b) phase 5's minibatch step
+    under ``gram_mode="fused"``: row 11 once a cross-Gram the step builds
+    (counted on the default path), step 1's loss and gradients against the
+    plain path (f32), 30 Adam steps, ms a step beside the default mode's.
+
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-9 (each run with the counts
+source, launches in the path runs of phases 4-11 (each run with the counts
 set to 0 just before it), error, times and bound (the least time the card
 could take for the work: operations over the peak rate of their unit or
 bytes over the memory rate, whichever is larger); the last line is
@@ -122,8 +144,8 @@ import approximategps_tpu_torch as tgp
 from approximategps_tpu_torch import convert
 from approximategps_tpu_torch.core import kernels as tk
 from approximategps_tpu_torch.models import iterative, vecchia
-from approximategps_tpu_torch.ops import _build, batched_chol, gram_matvec, knn, panel_chol, \
-    svgp_epilogue
+from approximategps_tpu_torch.ops import _build, batched_chol, gram, gram_matvec, knn, \
+    panel_chol, svgp_epilogue
 from approximategps_tpu_torch.utils.bijectors import softplus
 
 # every kernel's launch counter, by the name the kernels line gives it
@@ -135,6 +157,8 @@ COUNTERS = {
     "gram_matvec": gram_matvec.gram_matvec,
     "vecchia_band": batched_chol.vecchia_band,
     "vecchia_band_bwd": batched_chol.vecchia_band_bwd,
+    "batched_chol_solve_band": batched_chol.batched_chol_solve_band,
+    "stationary_gram": gram.stationary_gram,
 }
 
 
@@ -149,6 +173,11 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def only(**counts) -> dict:
+    """Every kernel's count 0 but the ones named."""
+    return {name: counts.get(name, 0) for name in COUNTERS}
 
 SEED = 0
 M, D = 2048, 8
@@ -227,6 +256,28 @@ TRAIN_ROUTE_RTOL32 = TRAIN_F64_RTOL32 = 1e-3
 # kernels against the plain path on the lengthscale entry, whose own residue
 # puts it further from the f64 run (its other entries are held at VEC_RTOL)
 TRAIN_PLAIN_RTOL32 = 1e-2
+# Row 6 (phase 10): the Vecchia tier that runs on prebuilt Grams.  (b) the RQ + white
+# training model on bench.py::vecchia_lml_grad's data: raw θ = (variance, lengthscale,
+# α = softplus⁻¹(2), the JAX default, nugget); (c) predict_knn with per-point noise
+# 0.1·(1 + u) at k = 64, the JAX package's row-6 branch (k > 48), on
+# bench.py::vecchia_predict_knn_sweep's points, raw (variance 1, ℓ = 5)
+RQ_THETA = np.array([0.55, 0.55, math.log(math.expm1(2.0)), 0.02])
+HETERO_K, HETERO_THETA = 64, np.log(np.expm1(np.array([1.0, 5.0])))
+# (a)'s (D, k, B): k at 1, 7, 32 and the kernel's limit of 64, B ragged against the
+# 8-window blocks; the timed shape: 10^6 windows at k = 32
+ROWS_PARITY = ((1, 1, 10001), (1, 7, 10001), (2, 32, 10001), (8, 64, 2049))
+N_ROWS64 = 65536
+# f32 limit of row 6 against its plain version, relative to the largest entry: the two
+# factor the same Grams in another summation order (the kernel splits each dot over four
+# lanes and folds four columns at a time), and windows a lengthscale apart amplify that
+# rounding by their conditioning, as for the band kernel (BAND_RTOL32)
+ROWS_RTOL32 = 1e-4
+# Row 11 (phase 11): (a)'s (N, M, D): the minibatch step's Kuf, ragged tiles at D = 1,
+# two coordinate chunks at D = 11; f32 limit relative to the largest entry: r² summed in
+# another order (FMAs over the coordinates against the plain version's sum of squares),
+# a few eps of each entry
+GRAM_PARITY = ((M, BATCH, D), (1000, 777, 1), (129, 4099, 11))
+GRAM_RTOL32 = 1e-5
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
 # paper) × 132 SMs × 1.98 GHz boost
@@ -591,9 +642,7 @@ def phase_slice(dev) -> dict:
         launches = read_counts()
         print(f"slice launches: {launches}")
         n_blocks = -(-N_TEST // BLOCK)
-        check(launches == {"gram_chol_inv": 1, "svgp_data_epilogue": n_blocks,
-                           "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0,
-                           "vecchia_band": 0, "vecchia_band_bwd": 0},
+        check(launches == only(gram_chol_inv=1, svgp_data_epilogue=n_blocks),
               f"the posterior build launched kernel A once and the sweep kernel B "
               f"{n_blocks} times")
         check(mu.shape == var.shape == (N_TEST,), f"outputs of shape ({N_TEST},)")
@@ -708,9 +757,7 @@ def phase_minibatch(dev) -> dict:
     torch.cuda.synchronize()
     launches = read_counts()
     print(f"minibatch launches over {STEPS} steps: {launches}")
-    check(launches == {"gram_chol_inv": STEPS, "svgp_data_epilogue": 0,
-                       "svgp_data_epilogue_bwd": 0, "chol_inv": 0, "gram_matvec": 0,
-                       "vecchia_band": 0, "vecchia_band_bwd": 0},
+    check(launches == only(gram_chol_inv=STEPS),
           f"kernel A launched once a step, the epilogue never ({STEPS} steps)")
     losses = torch.stack(losses)
     check(bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all())
@@ -745,9 +792,8 @@ def phase_streaming(dev) -> dict:
     torch.cuda.synchronize()
     launches = read_counts()
     print(f"streaming launches: {launches}")
-    check(launches == {"gram_chol_inv": 0, "svgp_data_epilogue": n_blocks,
-                       "svgp_data_epilogue_bwd": n_blocks, "chol_inv": 1, "gram_matvec": 0,
-                       "vecchia_band": 0, "vecchia_band_bwd": 0},
+    check(launches == only(svgp_data_epilogue=n_blocks, svgp_data_epilogue_bwd=n_blocks,
+                           chol_inv=1),
           f"kernel 4 launched once, the epilogue forward and backward {n_blocks} times each")
     check(bool(torch.isfinite(v)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
           "streaming value and gradients finite")
@@ -1486,6 +1532,329 @@ def phase_vecchia_train(dev) -> tuple[dict, dict]:
     return launches, numbers
 
 
+def rows_grams(N: int, Dw: int, k: int, dev, dtype, point_repeats: bool):
+    """Masked (Kw, kni, kdiag, valid) under Matérn-3/2 of previous-k windows
+    of points about a lengthscale apart (sorted in 1-D, as the bench's): the
+    first k rows masked (identity rows, zero coupling), every third window
+    with a neighbour repeated in the next slot (a deflated pivot), and with
+    ``point_repeats`` every tenth point a copy of the one before (F at its
+    floor, where f32 roundoff decides the answer: f64 only)."""
+    rng = np.random.default_rng(SEED + 13 + k)
+    X = (np.cumsum(rng.uniform(0.5, 1.5, (N, 1)), axis=0) if Dw == 1
+         else rng.uniform(0.0, 1.2 * N ** (1.0 / Dw), (N, Dw)))
+    if point_repeats:
+        X[1::10] = X[0::10][: X[1::10].shape[0]]
+    idx = np.arange(N)[:, None] - k + np.arange(k)[None, :]
+    if k >= 2:
+        rep = (np.arange(N) % 3 == 0) & (idx[:, 0] >= 0)
+        idx[rep, 1] = idx[rep, 0]
+    xw = np.concatenate([X[np.clip(idx, 0, N - 1)], X[:, None, :]], axis=1).swapaxes(1, 2)
+    valid = torch.tensor((idx >= 0).astype(np.float64), dtype=dtype, device=dev)
+    xw = torch.tensor(np.ascontiguousarray(xw), dtype=dtype, device=dev)
+    return (*batched_chol.window_gram_inputs(xw, valid, tk.Matern32Kernel().kernel_map()), valid)
+
+
+def rows_work(N: int, k: int, elt: int):
+    """(flops, bytes) of row 6 on N windows, counted from its loops: the
+    factor's dots k(k−1)(k−2)/6, pivots k(k−1)/2 and column scalings
+    k(k+1)/2 FMAs, the two substitutions k(k−1) and F's dot k; Kw's lower
+    triangle, kni and kdiag read once, the band written once."""
+    fmas = k * (k - 1) * (k - 2) // 6 + k * (k - 1) // 2 + k * (k + 1) // 2 + k * (k - 1) + k
+    return N * 2 * fmas, elt * N * (k * (k + 1) // 2 + k + 1 + k + 1)
+
+
+def parity_band_rows(dev) -> None:
+    """Phase 10 (a): row 6 against the plain masked math on the same Grams,
+    f64 and f32, a strided Kw beside the contiguous one; f32 also against
+    the f64 plain version of the same windows."""
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, ROWS_RTOL32)):
+        f32 = dtype == torch.float32
+        for Dw, k, N in ROWS_PARITY:
+            Kw, kni, kd, valid = rows_grams(N, Dw, k, dev, dtype, point_repeats=not f32)
+            ref = batched_chol.masked_chol_solve_band_math(Kw, kni, kd)
+            worst, zeros = 0.0, True
+            for A in (Kw, Kw.transpose(1, 2).contiguous().transpose(1, 2)):
+                got = batched_chol.batched_chol_solve_band(A, kni, kd)
+                worst = max(worst, rel_err(got, ref))
+                zeros = zeros and bool((got[:, :k][valid == 0] == 0).all())
+            note = ""
+            if f32:
+                ref64 = batched_chol.masked_chol_solve_band_math(Kw.double(), kni.double(),
+                                                                 kd.double())
+                note = (f" (vs the f64 plain version {rel_err(got, ref64):.3e}; the f32 plain "
+                        f"version's {rel_err(ref, ref64):.3e})")
+            deflated = int((batched_chol._masked_chol_factor(Kw)[1] == 0).sum())
+            check(worst <= tol and zeros,
+                  f"batched_chol_solve_band {str(dtype)[6:]} B={N} D={Dw} k={k}, contiguous and "
+                  f"strided Kw, {deflated} deflated pivots: rel err {worst:.3e} <= {tol:g}{note}, "
+                  "masked slots exactly 0")
+
+
+def phase_band_rows(dev) -> tuple[dict, dict]:
+    """Phase 10: row 6 under kernels that do not unwrap and noise that is not
+    a scalar.  Returns (the path runs' launches, the kernels line's numbers)."""
+    parity_band_rows(dev)
+    launches = {k: 0 for k in COUNTERS}
+    f32, f64 = torch.float32, torch.float64
+
+    # (a) the kernel alone at 10^6 windows, k = 32: the training path's Grams
+    x = torch.linspace(0.0, float(N_VEC), N_VEC, device=dev)
+    y = torch.sin(x / 3.0)
+    theta = torch.tensor(RQ_THETA, device=dev, dtype=f32)
+    kern = convert.build_vecchia_rq_fx(theta, x).f.kernel
+    with torch.no_grad():
+        Xp = x[:, None]
+        Kw, kni, kd = vecchia._window_rows(Xp, vecchia._previous_k(N_VEC, VEC_K, dev),
+                                           torch.arange(N_VEC, device=dev), kern,
+                                           kern.diag(Xp), lambda *a: a)
+        got = batched_chol.batched_chol_solve_band_pass(Kw, kni, kd)
+        ref = batched_chol.masked_chol_solve_band_math(Kw, kni, kd)
+        e = rel_err(got, ref)
+        check(e <= ROWS_RTOL32, f"batched_chol_solve_band f32 at 10^6 windows of the RQ training "
+              f"path, k={VEC_K}: rel err {e:.3e} <= {ROWS_RTOL32:g}")
+        numbers = {"max_abs_err": max_abs(got, ref),
+                   "ms": cuda_ms(lambda: batched_chol.batched_chol_solve_band_pass(Kw, kni, kd),
+                                 10),
+                   "plain_ms": cuda_ms(lambda: batched_chol.masked_chol_solve_band_math(
+                       Kw, kni, kd), 2)}
+        numbers["bound_ms"], numbers["bound_by"] = bound(*rows_work(N_VEC, VEC_K, 4))
+    print(f"time batched_chol_solve_band f32 (B={N_VEC}, k={VEC_K}, the RQ path's Grams): kernel "
+          f"{numbers['ms']:.3f} ms, plain {numbers['plain_ms']:.3f} ms, bound "
+          f"{numbers['bound_ms']:.3f} ms ({numbers['bound_by']})")
+    # and at the shapes of one launch of the paths: a training block, a sweep tile at k = 64
+    sub = [(Kw[:VEC_BLOCK], kni[:VEC_BLOCK], kd[:VEC_BLOCK], "block", VEC_K)]
+    Kt, ct, dt, _ = rows_grams(SWEEP_TEST_BLOCK, 2, HETERO_K, dev, f32, point_repeats=False)
+    sub.append((Kt, ct, dt, "tile", HETERO_K))
+    for A, c, d, what, kk in sub:
+        numbers[f"ms_{what}"] = cuda_ms(lambda: batched_chol.batched_chol_solve_band_pass(A, c, d),
+                                        20)
+        numbers[f"bound_ms_{what}"], numbers[f"bound_by_{what}"] = bound(
+            *rows_work(A.shape[0], kk, 4))
+        print(f"time batched_chol_solve_band f32 (B={A.shape[0]}, k={kk}, one launch of the "
+              f"{'training step' if what == 'block' else 'sweep'}): kernel "
+              f"{numbers[f'ms_{what}']:.4f} ms, bound {numbers[f'bound_ms_{what}']:.4f} ms "
+              f"({numbers[f'bound_by_{what}']})")
+    del Kw, kni, kd, got, ref, sub, Kt, ct, dt
+
+    # (b) training: the value and θ-gradient of the RQ + white model at N = 10^6
+    nn = tgp.NearestNeighbors(VEC_K, block_size=VEC_BLOCK)
+    n_blocks = -(-N_VEC // VEC_BLOCK)
+    step = lambda points=False: lml_value_and_grad(  # noqa: E731
+        convert.build_vecchia_rq_fx, RQ_THETA, x, y, nn, points)
+    torch.cuda.reset_peak_memory_stats()
+    (v, g, gx), got = counted(lambda: step(True), launches)
+    check(got == only(batched_chol_solve_band=n_blocks),
+          f"RQ approx_lml value and gradient N={N_VEC}: row 6 launched once a block "
+          f"({n_blocks}), the band kernel and its pullback never ({got})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = cuda_ms(step, 3)
+    reset_counts()
+    with tgp.config_context(use_kernels=False):
+        (v0, g0, gx0), plain_ms = timed(lambda: step(True))
+    check(sum(read_counts().values()) == 0, "the plain path launched no kernel")
+    # the lengthscale entry is Σᵢ xᵢ·∂L/∂xᵢ: each route's residue r of its point
+    # cotangents times that sum's cancellation C (from the route's own cotangents)
+    for route, (v_r, g_r, gx_r) in (("kernels", (v, g, gx)), ("plain", (v0, g0, gx0))):
+        gxd = gx_r.double()
+        res = gxd.sum().item() / gxd.abs().sum().item()
+        xg = x.double() * gxd
+        C = xg.abs().sum().item() / abs(xg.sum().item())
+        print(f"RQ {route}: gradient {g_r.tolist()}, value {v_r.item():.9g}; residue r "
+              f"{res:.3e}, C {C:.4g}, r·C {abs(res) * C:.3e} of the lengthscale entry")
+    scale0 = g0.double().abs().max().item()
+    e0 = abs(v.item() - v0.item()) / abs(v0.item())
+    eg0 = max(abs(g[i].item() - g0[i].item()) for i in (0, 2, 3)) / scale0
+    eg0_ell = abs(g[1].item() - g0[1].item()) / scale0
+    check(bool(torch.isfinite(g).all()) and math.isfinite(v.item()) and e0 <= VEC_RTOL
+          and eg0 <= VEC_RTOL and eg0_ell <= TRAIN_PLAIN_RTOL32,
+          f"RQ approx_lml N={N_VEC} k={VEC_K} f32, kernels vs plain path: value rel err {e0:.3e} "
+          f"<= {VEC_RTOL:g}; gradient σ², α, τ² {eg0:.3e} <= {VEC_RTOL:g}, lengthscale (the "
+          f"cancelling entry) {eg0_ell:.3e} <= {TRAIN_PLAIN_RTOL32:g}")
+    print(f"time RQ value and gradient (N={N_VEC}, k={VEC_K}, {n_blocks} blocks of {VEC_BLOCK}): "
+          f"kernels {ms:.3f} ms (CUDA events, median of 3; peak memory {peak:.2f} GiB), plain "
+          f"{plain_ms:.3f} ms (once)")
+    # f64: full conditioning against the dense exact GP, the kernel path
+    # against the plain path at N = 65536
+    x33 = torch.linspace(0.0, 32.0, 33, dtype=f64, device=dev)
+    y33 = torch.sin(x33 / 3.0)
+    v33, g33 = lml_value_and_grad(convert.build_vecchia_rq_fx, RQ_THETA, x33, y33,
+                                  tgp.NearestNeighbors(32))
+    th = torch.tensor(RQ_THETA, dtype=f64, device=dev).requires_grad_()
+    ve = tgp.logpdf(convert.build_vecchia_rq_fx(th, x33), y33)
+    (ge,) = torch.autograd.grad(ve, th)
+    e, eg = abs(v33.item() - ve.item()) / abs(ve.item()), rel_err(g33, ge)
+    check(e <= 1e-10 and eg <= 1e-10,
+          f"f64 RQ N=33 k=32 (full conditioning) vs autograd of the dense exact logpdf: value "
+          f"rel err {e:.3e}, θ-gradient {eg:.3e} <= 1e-10 ({g33.tolist()})")
+    x64 = torch.linspace(0.0, float(N_ROWS64), N_ROWS64, dtype=f64, device=dev)
+    y64 = torch.sin(x64 / 3.0)
+    reset_counts()
+    v1, g1 = lml_value_and_grad(convert.build_vecchia_rq_fx, RQ_THETA, x64, y64, nn)
+    got = read_counts()
+    with tgp.config_context(use_kernels=False):
+        v2, g2 = lml_value_and_grad(convert.build_vecchia_rq_fx, RQ_THETA, x64, y64, nn)
+    e, eg = abs(v1.item() - v2.item()) / abs(v2.item()), rel_err(g1, g2)
+    check(e <= 1e-12 and eg <= 1e-10 and got == only(batched_chol_solve_band=N_ROWS64 // VEC_BLOCK),
+          f"f64 RQ N={N_ROWS64} k={VEC_K}, kernels ({got['batched_chol_solve_band']} launches) vs "
+          f"plain path: value rel err {e:.3e} <= 1e-12, θ-gradient {eg:.3e} <= 1e-10")
+
+    # (c) serving: predict_knn with per-point noise at k = 64 over 10^6 test points
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    X = SWEEP_SIDE * torch.rand((N_SWEEP, 2), generator=gen, device=dev)
+    Xs = SWEEP_SIDE * torch.rand((N_SWEEP, 2), generator=gen, device=dev)
+    ys = torch.randn((N_SWEEP,), generator=gen, device=dev)
+    noise = 0.1 * (1.0 + torch.rand((N_SWEEP,), generator=gen, device=dev))
+    th_h = torch.tensor(HETERO_THETA, device=dev, dtype=f32)
+    fxh = convert.build_knn_hetero_fx(th_h, X, noise)
+    knn_kw = dict(train_block=SWEEP_TRAIN_BLOCK, test_block=SWEEP_TEST_BLOCK)
+    n_tiles = -(-N_SWEEP // SWEEP_TEST_BLOCK)
+    with torch.no_grad():
+        sweep = lambda: tgp.predict_knn(fxh, ys, Xs, k=HETERO_K, **knn_kw)  # noqa: E731
+        (mu, var), got = counted(sweep, launches)
+        check(got == only(batched_chol_solve_band=n_tiles),
+              f"predict_knn k={HETERO_K}, per-point noise: row 6 launched once a tile of "
+              f"{SWEEP_TEST_BLOCK} ({n_tiles}), the band kernel never ({got})")
+        check(mu.shape == var.shape == (N_SWEEP,) and bool(torch.isfinite(mu).all())
+              and bool(torch.isfinite(var).all()) and bool((var > 0).all()),
+              f"predict_knn k={HETERO_K}: mean and variance finite, variance positive")
+        reset_counts()
+        with tgp.config_context(use_kernels=False):
+            (mu0, var0), sweep_plain_ms = timed(sweep)
+        check(sum(read_counts().values()) == 0, "the plain path launched no kernel")
+        emu, evar = rel_err(mu, mu0), rel_err(var, var0)
+        check(emu <= VEC_RTOL and evar <= VEC_RTOL,
+              f"predict_knn k={HETERO_K}, per-point noise, kernels vs plain path: rel err mu "
+              f"{emu:.3e}, var {evar:.3e} <= {VEC_RTOL:g}")
+        sweep_ms = cuda_ms(sweep, 3)
+        idx = knn.knn_search(X, Xs, HETERO_K, **knn_kw)[0]
+        search_ms = cuda_ms(lambda: knn.knn_search(X, Xs, HETERO_K, **knn_kw), 3)
+        krige_ms = cuda_ms(lambda: vecchia._krige(fxh, ys, Xs, idx, SWEEP_TEST_BLOCK, None), 3)
+        del idx
+    print(f"time predict_knn sweep (N=N*={N_SWEEP}, k={HETERO_K}, per-point noise): kernels "
+          f"{sweep_ms:.3f} ms, plain {sweep_plain_ms:.3f} ms (once); timed apart: the k-NN "
+          f"search {search_ms:.3f} ms, the rest {krige_ms:.3f} ms (window Grams, row 6 "
+          f"{n_tiles} times, the kriging sums)")
+    g64g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    side = SWEEP_SIDE * math.sqrt(N_VEC64 / N_SWEEP)
+    Xp = side * torch.rand((N_VEC64, 2), generator=g64g, device=dev, dtype=f64)
+    Xq = side * torch.rand((N_VEC64, 2), generator=g64g, device=dev, dtype=f64)
+    yp = torch.randn((N_VEC64,), generator=g64g, device=dev, dtype=f64)
+    nz = 0.1 * (1.0 + torch.rand((N_VEC64,), generator=g64g, device=dev, dtype=f64))
+    fxp = convert.build_knn_hetero_fx(th_h.double(), Xp, nz)
+    reset_counts()
+    mu, var = tgp.predict_knn(fxp, yp, Xq, k=HETERO_K)
+    got = read_counts()
+    with tgp.config_context(use_kernels=False):
+        mu0, var0 = tgp.predict_knn(fxp, yp, Xq, k=HETERO_K)
+    emu, evar = rel_err(mu, mu0), rel_err(var, var0)
+    check(max(emu, evar) <= 1e-12 and got == only(batched_chol_solve_band=N_VEC64 // 4096),
+          f"f64 predict_knn N=N*={N_VEC64} k={HETERO_K}, per-point noise, kernels "
+          f"({got['batched_chol_solve_band']} launches) vs plain path: rel err mu {emu:.3e}, "
+          f"var {evar:.3e} <= 1e-12")
+    print(f"row 6 launches in the path runs: {launches}")
+    return launches, numbers
+
+
+@contextlib.contextmanager
+def counting_cross_grams():
+    """Counts the non-symmetric Grams of stationary kernels built inside."""
+    real = tk.StationaryKernel.gram
+    n = [0]
+
+    def gram_counted(self, X, Z=None):
+        n[0] += Z is not None
+        return real(self, X, Z)
+
+    tk.StationaryKernel.gram = gram_counted
+    try:
+        yield n
+    finally:
+        tk.StationaryKernel.gram = real
+
+
+def parity_stationary_gram(dev) -> dict:
+    """Phase 11 (a): row 11 against its plain version, four maps, f64 and
+    f32, pairs at r = 0; then both timed at the minibatch step's Kuf."""
+    rng = np.random.default_rng(SEED + 17)
+    maps = {cls.__name__: cls().kernel_map() for cls in (
+        tk.SqExponentialKernel, tk.Matern12Kernel, tk.Matern32Kernel, tk.Matern52Kernel)}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, GRAM_RTOL32)):
+        for N, Mg, Dg in GRAM_PARITY:
+            X = torch.tensor(rng.standard_normal((N, Dg)), dtype=dtype, device=dev)
+            Z = torch.tensor(rng.standard_normal((Mg, Dg)), dtype=dtype, device=dev)
+            Z[:17] = X[:17]
+            worst = 0.0
+            for kmap in maps.values():
+                got = gram.stationary_gram_pass(X, Z, kmap)
+                worst = max(worst, rel_err(got, gram.stationary_gram_plain(X, Z, kmap)))
+            check(worst <= tol, f"stationary_gram {str(dtype)[6:]} N={N} M={Mg} D={Dg}, 4 maps, "
+                  f"17 pairs at r = 0: rel err {worst:.3e} <= {tol:g}")
+    X = torch.randn((M, D), device=dev)
+    Z = torch.randn((BATCH, D), device=dev)
+    se = maps["SqExponentialKernel"]
+    got, ref = gram.stationary_gram_pass(X, Z, se), gram.stationary_gram_plain(X, Z, se)
+    numbers = {"max_abs_err": max_abs(got, ref),
+               "ms": cuda_ms(lambda: gram.stationary_gram_pass(X, Z, se), 20),
+               "plain_ms": cuda_ms(lambda: gram.stationary_gram_plain(X, Z, se), 20)}
+    # a pair costs D differences and D FMAs and the map's scaling, one exp
+    numbers["bound_ms"], numbers["bound_by"] = bound(M * BATCH * (3 * D + 1),
+                                                     4 * (M * D + BATCH * D + M * BATCH), M * BATCH)
+    print(f"time stationary_gram f32 N={M} M={BATCH} D={D} se (the step's Kuf): kernel "
+          f"{numbers['ms']:.3f} ms, plain {numbers['plain_ms']:.3f} ms, bound "
+          f"{numbers['bound_ms']:.3f} ms ({numbers['bound_by']})")
+    return numbers
+
+
+def phase_fused_gram(dev) -> tuple[dict, dict]:
+    """Phase 11: row 11 under the minibatch step with ``gram_mode="fused"``.
+    Returns (the path runs' launches, the kernels line's numbers)."""
+    numbers = parity_stationary_gram(dev)
+    rng = np.random.default_rng(SEED + 2)
+    params = {"k": np.array(RAW_K), "z": rng.standard_normal((M, D)), "m": np.zeros(M),
+              "A": np.eye(M)}  # phase 5's
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn((N_DATA, D), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + NOISE * torch.randn((N_DATA,), generator=gen, device=dev)
+
+    def batches(n):
+        for _ in range(n):
+            idx = torch.randint(0, N_DATA, (BATCH,), generator=gen, device=dev)
+            yield x[idx], y[idx]
+
+    xb, yb = next(batches(1))
+    with counting_cross_grams() as n_cross:
+        value_and_grad(minibatch_loss, leaf_params(params, dev, torch.float32), xb, yb)
+    n_cross = n_cross[0]
+    print(f"cross-Grams a minibatch step builds: {n_cross}")
+    launches = {k: 0 for k in COUNTERS}
+    for what, ps in (("bench q", params), ("non-trivial q", slice_params())):
+        with tgp.config_context(gram_mode="fused"):
+            (v, g), got = counted(lambda: value_and_grad(
+                minibatch_loss, leaf_params(ps, dev, torch.float32), xb, yb), launches)
+        check(n_cross >= 1 and got == only(gram_chol_inv=1, stationary_gram=n_cross),
+              f"minibatch step 1 ({what}), gram_mode fused: row 11 launched once a cross-Gram "
+              f"({n_cross}), kernel A once ({got})")
+        with tgp.config_context(use_kernels=False):
+            vp, gp = value_and_grad(minibatch_loss, leaf_params(ps, dev, torch.float32), xb, yb)
+        check_grads(f"minibatch step 1 ({what}), gram_mode fused vs the plain path f32", v, g,
+                    vp, gp, GRAD_RTOL)
+    p = {k: t.detach() for k, t in leaf_params(params, dev, torch.float32).items()}
+    with tgp.config_context(gram_mode="fused"):
+        (p, losses), got = counted(lambda: tgp.adam_fit(minibatch_loss, p, batches(STEPS),
+                                                        learning_rate=LR), launches)
+    check(got == only(gram_chol_inv=STEPS, stationary_gram=STEPS * n_cross)
+          and bool(torch.isfinite(torch.stack(losses)).all()),
+          f"{STEPS} Adam steps under gram_mode fused: row 11 {n_cross} a step, kernel A once a "
+          f"step, losses finite ({got})")
+    for label, mode in (("gram_mode fused", "fused"), ("default gram_mode", "auto")):
+        with tgp.config_context(gram_mode=mode):
+            q = {k: t.detach() for k, t in leaf_params(params, dev, torch.float32).items()}
+            reps = 10
+            ms = cuda_ms(lambda: tgp.adam_fit(minibatch_loss, q, batches(reps), LR), 3) / reps
+        print(f"time minibatch step ({label}): {ms:.3f} ms a step (Adam, B={BATCH}, M={M})")
+    return launches, numbers
+
+
 def _plain(fn, *args):
     with tgp.config_context(use_kernels=False):
         return fn(*args)
@@ -1504,6 +1873,8 @@ def main() -> None:
     }
     by_path["vecchia"], numbers["vecchia_band"] = phase_vecchia(dev)
     by_path["vecchia_train"], numbers["vecchia_band_bwd"] = phase_vecchia_train(dev)
+    by_path["vecchia_rows"], numbers["batched_chol_solve_band"] = phase_band_rows(dev)
+    by_path["fused_gram"], numbers["stationary_gram"] = phase_fused_gram(dev)
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),
@@ -1519,6 +1890,10 @@ def main() -> None:
                          "approximategps_tpu/ops/batched_chol.py:747"),
         "vecchia_band_bwd": ("approximategps_tpu_torch/csrc/vecchia_band_bwd.cu",
                              "approximategps_tpu/ops/batched_chol.py:1029"),
+        "batched_chol_solve_band": ("approximategps_tpu_torch/csrc/band_rows.cu",
+                                    "approximategps_tpu/ops/batched_chol.py:324"),
+        "stationary_gram": ("approximategps_tpu_torch/csrc/stationary_gram.cu",
+                            "approximategps_tpu/ops/gram.py:94"),
     }
     # the one band kernel takes the place of rows 7, 8 and 10 of the table
     also = {"vecchia_band": {"rows": [7, 8, 10], "replaces_also": [
@@ -1544,7 +1919,7 @@ def main() -> None:
     for k, (src, rep) in meta.items():
         per_path = {path: counts[k] for path, counts in by_path.items()}
         extra = dict(zip(("bound_ms", "bound_by"), bounds[k])) if k in bounds else {}
-        # no single PyTorch call computes any of the seven functions
+        # no single PyTorch call computes any of the nine functions
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         **also.get(k, {}), "launches": sum(per_path.values()),
                         "launches_by_path": per_path, "library_ms": None, **extra,

@@ -503,3 +503,164 @@ def test_torch_cuda_vecchia_training_step_launches_both_kernels(ordering, cuda):
     assert batched_chol.vecchia_band.launches == c0 + 1
     assert abs((v - v0).item()) <= 1e-12 * abs(v0.item())
     assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-10
+
+
+# -- row 6: band rows from prebuilt Grams --------------------------------------
+
+
+def _prebuilt_grams(N, D, k, dev, dtype, seed):
+    """Masked (Kw, kni, kdiag) under Matérn-3/2, and the mask, of previous-k
+    windows of points about a lengthscale apart (sorted in 1-D, as the
+    bench's): the first k rows have masked slots,
+    every third window repeats a neighbour in the next slot (a deflated
+    pivot), and in f64 every tenth point repeats the one before it (its F at
+    the floor, where f32 roundoff would decide the answer)."""
+    from approximategps_tpu_torch.ops import batched_chol
+
+    rng = np.random.default_rng(seed)
+    X = (np.cumsum(rng.uniform(0.5, 1.5, (N, 1)), axis=0) if D == 1
+         else rng.uniform(0.0, 1.2 * N ** (1.0 / D), (N, D)))
+    if dtype == torch.float64:
+        X[1::10] = X[0::10][: X[1::10].shape[0]]
+    idx = np.arange(N)[:, None] - k + np.arange(k)[None, :]
+    if k >= 2:
+        rep = (np.arange(N) % 3 == 0) & (idx[:, 0] >= 0)
+        idx[rep, 1] = idx[rep, 0]
+    xw = np.concatenate([X[np.clip(idx, 0, N - 1)], X[:, None, :]], axis=1).swapaxes(1, 2)
+    valid = _t((idx >= 0).astype(np.float64), dev, dtype)
+    return (*batched_chol.window_gram_inputs(_t(np.ascontiguousarray(xw), dev, dtype), valid,
+                                             tk.Matern32Kernel().kernel_map()), valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_torch_cuda_band_rows_match_plain(dtype, cuda):
+    """Row 6 against the plain masked math on the same Grams, k from 1 to
+    the limit of 64, B ragged against the 8-window blocks, a strided Kw (a
+    transposed view: the kernel reads Kw's lower triangle through its
+    strides); relative to the largest entry: f64 1e-12, f32 1e-4 (each pivot
+    rounds in another order, amplified by the windows' conditioning);
+    masked slots exactly 0."""
+    from approximategps_tpu_torch.ops import batched_chol
+
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for D, k, N in ((1, 1, 99), (1, 7, 1001), (2, 32, 777), (8, 64, 301)):
+        Kw, kni, kdiag, valid = _prebuilt_grams(N, D, k, cuda, dtype, seed=k)
+        ref = batched_chol.masked_chol_solve_band_math(Kw, kni, kdiag)
+        for A in (Kw, Kw.transpose(1, 2).contiguous().transpose(1, 2)):
+            before = batched_chol.batched_chol_solve_band.launches
+            got = batched_chol.batched_chol_solve_band(A, kni, kdiag)
+            assert batched_chol.batched_chol_solve_band.launches == before + 1
+            assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol, (D, k)
+            assert bool((got[:, :k][valid == 0] == 0).all())
+
+
+def test_torch_cuda_band_rows_raise_on_what_they_do_not_take(cuda):
+    from approximategps_tpu_torch.ops import batched_chol
+
+    Kw = torch.eye(4, device=cuda).expand(10, 4, 4)
+    c, d = torch.zeros((10, 4), device=cuda), torch.ones(10, device=cuda)
+    for args in [
+        (Kw.double(), c, d),
+        (Kw, c.cpu(), d),
+        (torch.eye(65, device=cuda).expand(10, 65, 65), torch.zeros((10, 65), device=cuda), d),
+        (Kw, torch.zeros((10, 3), device=cuda), d),
+        (Kw, c, torch.ones(9, device=cuda)),
+        (Kw.bfloat16(), c.bfloat16(), d.bfloat16()),
+    ]:
+        with pytest.raises(ValueError):
+            batched_chol.batched_chol_solve_band_pass(*args)
+
+
+def test_torch_cuda_rq_training_step_reaches_row_6(cuda):
+    """An RQ + white ``approx_lml`` value and θ-gradient on a CUDA tensor (f64,
+    N = 3000, blocks of 1024): row 6 launches once a block, the fused band
+    kernel never, and the value and gradient agree with the plain masked
+    math (1e-12 and 1e-10 relative)."""
+    from approximategps_tpu_torch import convert
+    from approximategps_tpu_torch.ops import batched_chol
+
+    x = _t(np.sort(np.random.default_rng(14).uniform(0.0, 2400.0, 3000)), cuda)
+    y = torch.sin(x / 3.0)
+    nn = tgp.NearestNeighbors(16, block_size=1024)
+
+    def value_and_grad():
+        theta = _t([0.55, 0.55, 0.5, 0.02], cuda).requires_grad_()
+        v = tgp.approx_lml(nn, convert.build_vecchia_rq_fx(theta, x), y)
+        return v.detach(), torch.autograd.grad(v, theta)[0]
+
+    c0, c1 = batched_chol.batched_chol_solve_band.launches, batched_chol.vecchia_band.launches
+    v, g = value_and_grad()
+    assert batched_chol.batched_chol_solve_band.launches == c0 + 3
+    assert batched_chol.vecchia_band.launches == c1
+    with tgp.config_context(use_kernels=False):
+        v0, g0 = value_and_grad()
+    assert batched_chol.batched_chol_solve_band.launches == c0 + 3
+    assert abs((v - v0).item()) <= 1e-12 * abs(v0.item())
+    assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-10
+
+
+# -- row 11: the fused stationary Gram ------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_stationary_gram_matches_plain(cls, dtype, cuda):
+    """Row 11 against its plain version: N and M ragged against the 64 × 64
+    tiles, D = 1, 3 and 11 (two coordinate chunks, the last ragged), pairs at
+    r = 0, a strided X (a transposed view), a batch under ``vmap``;
+    relative to the largest entry: f64 1e-12, f32 1e-5 (r² summed in
+    another order, by FMAs)."""
+    from approximategps_tpu_torch.ops import gram
+
+    kmap = cls().kernel_map()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    rng = np.random.default_rng(15)
+    for N, M, D in ((1000, 777, 1), (129, 4099, 3), (65, 63, 11)):
+        X = _t(rng.standard_normal((N, D)), cuda, dtype)
+        Z = _t(rng.standard_normal((M, D)), cuda, dtype)
+        Z[:10] = X[:10]
+        ref = gram.stationary_gram_plain(X, Z, kmap)
+        for A in (X, X.T.contiguous().T):
+            before = gram.stationary_gram.launches
+            got = gram.stationary_gram(A, Z, kmap)
+            assert gram.stationary_gram.launches == before + 1
+            assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol, (N, M, D)
+    Xb = _t(rng.standard_normal((300, 5, 2)), cuda, dtype)
+    xi = _t(rng.standard_normal((300, 2)), cuda, dtype)
+    before = gram.stationary_gram.launches
+    got = torch.func.vmap(lambda w, x: gram.stationary_gram(w, x[None], kmap)[:, 0])(Xb, xi)
+    assert gram.stationary_gram.launches == before + 1
+    ref = gram.stationary_gram_plain(Xb, xi[:, None, :], kmap)[..., 0]
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+def test_torch_cuda_minibatch_step_under_fused_gram_reaches_row_11(cuda):
+    """The minibatch ``elbo`` gradient (f64, M = 256, B = 1024) under
+    ``gram_mode="fused"`` launches row 11 once for Kuf and agrees with the
+    default mode (1e-10 relative)."""
+    from approximategps_tpu_torch.ops import gram
+
+    rng = np.random.default_rng(16)
+    z, xb = _t(rng.standard_normal((256, 4)), cuda), _t(rng.standard_normal((1024, 4)), cuda)
+    yb = torch.sin(xb[:, 0])
+
+    def value_and_grad():
+        theta = _t([0.4, -0.2], cuda).requires_grad_()
+        zz = z.clone().requires_grad_()
+        kern = tgp.utils.bijectors.softplus(theta[0]) * tgp.with_lengthscale(
+            tgp.SqExponentialKernel(), tgp.utils.bijectors.softplus(theta[1]))
+        f = tgp.GP(kern)
+        q = tgp.MultivariateNormal(torch.zeros(256, dtype=torch.float64, device=cuda),
+                                   0.5 * torch.eye(256, dtype=torch.float64, device=cuda))
+        sva = tgp.SparseVariationalApproximation(f(zz, 1e-6), q)
+        v = -tgp.elbo(sva, f(xb, 0.1), yb, num_data=10000)
+        return v.detach(), torch.cat([g.reshape(-1) for g in torch.autograd.grad(v, (theta, zz))])
+
+    before = gram.stationary_gram.launches
+    with tgp.config_context(gram_mode="fused"):
+        v, g = value_and_grad()
+    assert gram.stationary_gram.launches == before + 1
+    v0, g0 = value_and_grad()
+    assert gram.stationary_gram.launches == before + 1
+    assert abs((v - v0).item()) <= 1e-10 * abs(v0.item())
+    assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-10

@@ -33,6 +33,10 @@ def test_torch_port_imports_no_jax():
         "t.resolve_ordering, t.maximin_ordering, t.nearest_predecessor_neighbors\n"
         "t.scaled_ball_predecessors, t.convert.build_vecchia_nugget_fx, t.ops.vecchia_band_bwd\n"
         "t.ops.vecchia_band_bwd_pass, t.native.native_available\n"
+        "t.RationalQuadraticKernel, t.PeriodicKernel, t.LinearKernel, t.PolynomialKernel\n"
+        "t.ProductKernel, t.ops.batched_chol_solve_band, t.ops.batched_chol_solve_band_pass\n"
+        "t.ops.stationary_gram, t.ops.stationary_gram_pass, t.ops.stationary_gram_plain\n"
+        "t.ops.stationary_gram_bwd, t.convert.build_vecchia_rq_fx, t.convert.build_knn_hetero_fx\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'approximategps_tpu' not in sys.modules\n"
     )

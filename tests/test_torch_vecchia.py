@@ -243,9 +243,11 @@ class _Warped(tk.Kernel):
 
 
 def test_torch_vecchia_declines_run_the_plain_path(spy):
-    """With the kernel route asked for, each place the kernel declines runs
-    the plain path: a kernel that does not unwrap, noise that is not a
-    scalar, D > 8, k > 64; and each still agrees with the plain route."""
+    """With the kernel route asked for, each place the band kernel declines
+    runs the windowed tier (row 6's Function, on a CPU tensor the plain
+    masked math; ``test_torch_band_rows.py`` counts its calls): a kernel that
+    does not unwrap, noise that is not a scalar, D > 8, and above k = 64 the
+    plain masked math; each agrees with the plain route."""
     rng = np.random.default_rng(12)
     x1 = np.cumsum(rng.uniform(0.5, 1.5, 50))
     warped = _Warped()
