@@ -24,10 +24,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "gram_matvec.cu",
-            "gram_matvec_f64.cu", "vecchia_band.cu", "vecchia_band_f64.cu", "vecchia_band_bwd.cu",
+            "gram_matvec_f64.cu", "gram_matvec_mma.cu", "gram_matvec_self_bwd.cu", "vecchia_band.cu", "vecchia_band_f64.cu", "vecchia_band_bwd.cu",
             "vecchia_band_bwd_f64.cu", "band_rows.cu", "band_rows_f64.cu", "stationary_gram.cu",
             "stationary_gram_f64.cu")
-_HEADERS = ("kernel_maps.cuh", "vecchia_window.cuh")
+_HEADERS = ("kernel_maps.cuh", "fast_maps.cuh", "tf32_mma.cuh", "vecchia_window.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,6 +58,9 @@ _SIGNATURES = {
     # xq, zk, v, out, N, M, D, R, kmap, deriv, stream
     "agp_gram_matvec_f32": ((_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
     "agp_gram_matvec_f64": ((_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
+    "agp_gram_matvec_mma_f32": ((_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
+    # x, v, obar, vbar, xbar (its chunks' shares), N, D, R, kmap, stream
+    "agp_gram_matvec_self_bwd_f32": ((_p, _p, _p, _p, _p, _i, _i, _i, _i, _p), _i),
     # xw, its strides (n, d, j), valid, its strides (n, t), nugget, nugget_self, out,
     # N, D, k, kmap, stream
     "agp_vecchia_band_f32": ((_p, _ll, _ll, _ll, _p, _ll, _ll, _p, _i, _p, _i, _i, _i, _i, _p), _i),

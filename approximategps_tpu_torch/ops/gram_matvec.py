@@ -6,18 +6,28 @@
 
 :func:`gram_matvec` is a ``torch.autograd.Function`` on both devices; only
 its inner pass, :func:`gram_matvec_pass`, switches between the hand-written
-kernel of ``csrc/gram_matvec.cu`` (a CUDA tensor) and
-:func:`gram_matvec_plain` (a CPU tensor), so the CPU tests run the pullback's
-algebra and not autograd through a Gram.  The pullback is the same pass run
-again: V̄ = K(Zk, Xq)·Ō, and each coordinate cotangent is one pass with the
-derivative map g′ and (1 + D)·R right-hand sides [V, V∘z_d] (rank-R
-structure of W = (Ō Vᵀ)∘g′(r²); see :func:`_coord_cotangent`).
+kernels (a CUDA tensor) and :func:`gram_matvec_plain` (a CPU tensor), so the
+CPU tests run the pullback's algebra and not autograd through a Gram.  The
+pullback is the same pass run again: V̄ = K(Zk, Xq)·Ō, and each coordinate
+cotangent is one pass with the derivative map g′ and (1 + D)·R right-hand
+sides [V, V∘z_d] (rank-R structure of W = (Ō Vᵀ)∘g′(r²); see
+:func:`_coord_cotangent`).
 
-What bounds the kernel on the H100 is operations (an exp and R + 2D FMAs an
-entry), not bytes; the note in the ``.cu`` file gives the design.  The
-pass counts its launches in ``gram_matvec.launches``, one a call of the
-kernel's entry point (more than 32 columns run as chunks inside that call),
-and the pullbacks count their passes in ``pullback_passes``.
+The pass has two kernels, chosen by :func:`pass_part` from R alone: the
+narrow one on the SIMT units (``csrc/gram_matvec.cu``; f32 below
+``MMA_FROM_R`` columns, and f64 always) and the wide one with the product on
+the tensor cores in 3xTF32 (``csrc/gram_matvec_mma.cu``; f32 from
+``MMA_FROM_R`` on).  :func:`gram_matvec_self` is the self-Gram K(X, X)·V as
+its own Function: its pullback is one pass (``csrc/gram_matvec_self_bwd.cu``
+in f32; :func:`gram_matvec_self_bwd_plain` on the CPU) that returns V̄ = K·Ō
+and X̄ = X̄q + Z̄k together, with r² and the map computed once a pair.
+
+What bounds the kernels on the H100 is operations (an exp an entry, and R
+FMAs on the SIMT units or 3·R on the tensor cores), not bytes; the notes in
+the ``.cu`` files give the designs.  Every pass and every one-pass pullback
+counts one launch in ``gram_matvec.launches`` (more than 32 columns run as
+chunks inside that launch), and the pullbacks count their passes in
+``pullback_passes``.
 
 :func:`fused_stationary_matvec` is the dispatch ``kernel_matvec`` uses: D ≤ 8,
 R ≤ ``config.matvec_fused_max_rhs``, a kernel that unwraps to a scaled
@@ -41,6 +51,10 @@ __all__ = [
     "gram_matvec_pass",
     "gram_matvec_plain",
     "gram_matvec_bwd",
+    "gram_matvec_self",
+    "gram_matvec_self_bwd",
+    "gram_matvec_self_bwd_plain",
+    "pass_part",
     "fused_stationary_matvec",
     "pullback_passes",
 ]
@@ -48,6 +62,10 @@ __all__ = [
 _MAX_D = 8
 _MAX_R = 128  # columns one pass takes
 _PLAIN_ELEMS = 1 << 25  # (rows, M, D) differences one plain chunk forms
+_SELF_BWD_CHUNK = 32  # columns a chunk of the one-pass pullback kernel
+# the f32 crossover: narrower passes take the SIMT kernel, this wide and
+# wider the tensor-core one (measured on the H100 by chip_smoke.py phase 3)
+MMA_FROM_R = 8
 
 # passes the pullbacks asked for (whatever the device), beside the kernel's
 # own launch count: a run's launches are its forward applications plus these
@@ -71,12 +89,20 @@ def gram_matvec_plain(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap:
     return out[:, 0] if vec else out
 
 
+def pass_part(R: int, dtype: torch.dtype = torch.float32) -> str:
+    """The kernel a pass of R columns takes on the card: "mma" (the wide
+    pass, tensor cores) for f32 from ``MMA_FROM_R`` columns on, else
+    "simt" (the narrow pass; f64 always)."""
+    return "mma" if dtype == torch.float32 and R >= MMA_FROM_R else "simt"
+
+
 def gram_matvec_pass(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: KernelMap,
-                     deriv: bool = False) -> torch.Tensor:
+                     deriv: bool = False, part: str | None = None) -> torch.Tensor:
     """One pass out = h(r²(Xq, Zk))·V, h = g (or g′ with ``deriv``); Xq
     (N, D ≤ 8), Zk (M, D), V (M,) or (M, R ≤ 128).  A CPU tensor takes
-    :func:`gram_matvec_plain`; a CUDA tensor launches the kernel or raises.
-    Not differentiable itself: :func:`gram_matvec` is."""
+    :func:`gram_matvec_plain`; a CUDA tensor launches the kernel that
+    :func:`pass_part` names (or ``part``: "simt", or "mma" in f32) or
+    raises.  Not differentiable itself: :func:`gram_matvec` is."""
     if Xq.device.type == "cpu":
         return gram_matvec_plain(Xq, Zk, V, kmap, deriv)
     vec = V.ndim == 1
@@ -96,10 +122,15 @@ def gram_matvec_pass(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: 
         )
     N, D = Xq.shape
     M, R = V2.shape
+    part = part or pass_part(R, dtype)
+    if part not in ("simt", "mma") or (part == "mma" and dtype != torch.float32):
+        raise ValueError(f"gram_matvec: no {part!r} pass in {dtype}")
     out = torch.empty((N, R), dtype=dtype, device=Xq.device)
     if N > 0 and M > 0:
         lib = _build.load_library()
-        fn = lib.agp_gram_matvec_f32 if dtype == torch.float32 else lib.agp_gram_matvec_f64
+        fn = {("simt", torch.float32): lib.agp_gram_matvec_f32,
+              ("simt", torch.float64): lib.agp_gram_matvec_f64,
+              ("mma", torch.float32): lib.agp_gram_matvec_mma_f32}[part, dtype]
         Xq, Zk, V2 = Xq.contiguous(), Zk.contiguous(), V2.contiguous()
         stream = torch.cuda.current_stream(Xq.device).cuda_stream
         with torch.cuda.device(Xq.device):
@@ -187,6 +218,101 @@ def gram_matvec(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor,
 gram_matvec.launches = 0
 
 
+def gram_matvec_self_bwd_plain(X: torch.Tensor, V2: torch.Tensor, O2: torch.Tensor,
+                               kmap: KernelMap):
+    """(X̄, V̄) of out = K(X, X)·V for the cotangent O, in row chunks:
+
+        V̄ = K·Ō,   X̄_i = 2 (s_i x_i − U_i),   s_i = Σ_j W_ij,   U_i = Σ_j W_ij x_j,
+
+    W = g′(r²) ∘ C, C_ij = [Ō_i | V_i]·[V_j | Ō_j], which is X̄q + Z̄k of the
+    general pullback (x_i's query and key roles)."""
+    N, D = X.shape
+    rows = max(1, _PLAIN_ELEMS // max(1, N * D))
+    xbar, vbar = [], []
+    for i0 in range(0, N, rows):
+        xi = X[i0:i0 + rows]
+        diff = xi[:, None, :] - X[None, :, :]
+        r2 = torch.sum(diff * diff, dim=-1)
+        vbar.append(kmap.k_of_r2(r2) @ O2)
+        W = kmap.dk_of_r2(r2) * (O2[i0:i0 + rows] @ V2.T + V2[i0:i0 + rows] @ O2.T)
+        xbar.append(2.0 * (W.sum(dim=1, keepdim=True) * xi - W @ X))
+    return torch.cat(xbar), torch.cat(vbar)
+
+
+def gram_matvec_self_bwd(X: torch.Tensor, V: torch.Tensor, obar: torch.Tensor,
+                         kmap: KernelMap):
+    """(X̄, V̄) of out = K(X, X)·V for the cotangent ``obar``, one pass: a
+    CPU tensor takes :func:`gram_matvec_self_bwd_plain`, a CUDA f32 tensor
+    the one-pass kernel (one launch), a CUDA f64 tensor the general
+    pullback's passes (the f64 kernels are the SIMT reference), X̄ = X̄q + Z̄k."""
+    vec = V.ndim == 1
+    V2 = V[:, None] if vec else V
+    O2 = obar[:, None] if vec else obar
+    if X.is_cuda and X.dtype == torch.float64:
+        Xq_bar, Zk_bar, V_bar = gram_matvec_bwd(X, X, V2, O2, kmap)
+        X_bar = Xq_bar + Zk_bar
+    else:
+        if X.device.type == "cpu":
+            X_bar, V_bar = gram_matvec_self_bwd_plain(X, V2, O2, kmap)
+        else:
+            X_bar, V_bar = _self_bwd_kernel(X, V2, O2, kmap)
+        pullback_passes["calls"] += 1
+        pullback_passes["passes"] += 1
+    return X_bar, (V_bar[:, 0] if vec else V_bar)
+
+
+def _self_bwd_kernel(X, V2, O2, kmap: KernelMap):
+    ts = (X, V2, O2)
+    if (
+        not all(t.is_cuda and t.device == X.device and t.dtype == torch.float32 for t in ts)
+        or X.ndim != 2 or not 1 <= X.shape[1] <= _MAX_D
+        or V2.shape != O2.shape or V2.shape[0] != X.shape[0] or not 1 <= V2.shape[1] <= _MAX_R
+    ):
+        raise ValueError(
+            f"gram_matvec_self_bwd: needs X (N, D <= {_MAX_D}), V and obar (N, R <= {_MAX_R}) "
+            "on one CUDA device in f32; got "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in ts]}")
+    N, D = X.shape
+    R = V2.shape[1]
+    chunks = -(-R // _SELF_BWD_CHUNK)
+    V_bar = torch.empty_like(V2)
+    X_bar = torch.empty((chunks, N, D), dtype=X.dtype, device=X.device)
+    if N > 0:
+        X, V2, O2 = X.contiguous(), V2.contiguous(), O2.contiguous()
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        with torch.cuda.device(X.device):
+            err = _build.load_library().agp_gram_matvec_self_bwd_f32(
+                X.data_ptr(), V2.data_ptr(), O2.data_ptr(), V_bar.data_ptr(), X_bar.data_ptr(),
+                N, D, R, int(kmap.id), stream)
+        _build.check(err, "gram_matvec_self_bwd")
+        gram_matvec.launches += 1
+    # each chunk of 32 columns wrote its share of X̄: added in a fixed order
+    return (X_bar[0] if chunks == 1 else X_bar.sum(dim=0)), V_bar
+
+
+class _GramMatvecSelf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, X, V, kmap):
+        ctx.kmap = kmap
+        ctx.save_for_backward(X, V)
+        return gram_matvec_pass(X, X, V, kmap)
+
+    @staticmethod
+    def backward(ctx, obar):
+        X, V = ctx.saved_tensors
+        X_bar, V_bar = gram_matvec_self_bwd(X, V, obar.to(X.dtype).contiguous(), ctx.kmap)
+        return (X_bar if ctx.needs_input_grad[0] else None,
+                V_bar if ctx.needs_input_grad[1] else None, None)
+
+
+def gram_matvec_self(X: torch.Tensor, V: torch.Tensor, kmap: KernelMap) -> torch.Tensor:
+    """K(X, X)·V without K: X (N, D ≤ 8), V (N,) or (N, R ≤ 128) → (N,) or
+    (N, R), the forward one pass of :func:`gram_matvec_pass`.  Reverse-mode
+    differentiable in X and V through :func:`gram_matvec_self_bwd` (one
+    pass for both); no forward-mode rule."""
+    return _GramMatvecSelf.apply(X, V, kmap)
+
+
 def _has_tangent(*ts) -> bool:
     return any(isinstance(t, torch.Tensor) and fwAD.unpack_dual(t).tangent is not None
                for t in ts)
@@ -227,7 +353,7 @@ def fused_stationary_matvec(kernel, X: torch.Tensor):
             return None
         if v.ndim == 2 and v.shape[1] > max_rhs:
             return None
-        out = gram_matvec(Xs, Xs, v, kmap)
+        out = gram_matvec_self(Xs, v, kmap)
         return out if variance is None else _param(variance, out) * out
 
     return fused

@@ -17,9 +17,15 @@ Phases (a failing phase raises, and the script exits non-zero):
    each error printed beside its limit; then each kernel's time beside the
    plain version's (CUDA events, median).  The kernels: the gram-fused
    (L, L⁻¹) build (A), the epilogue forward (B), its backward (3), the
-   (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5): its forward
-   at R = 1 and R = 16 and its pullback at N = M = 10^5, D = 2 in f32, and
-   every map, g and g′, in f64 at N = 8192.
+   (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5): every
+   map, g and g′, in f64 at N = 8192, and the self-Gram's one-pass pullback
+   in f32 there (R = 1, 16, 48) against the f64 plain pullback; at
+   N = M = 10^5, D = 2 in f32 both pass kernels (narrow SIMT, wide tensor
+   cores) at R = 1, 2, 4, 8, 16 and 32, each checked, run twice (equal
+   bitwise) and timed, which places the crossover; the pass that
+   ``pass_part`` picks at R = 1, 16 and 32 beside the plain version, its
+   SIMT bound and its bound; the general pullback (three passes) and the
+   self-Gram's one-pass pullback at R = 16.
 4. The slice: a NonCentered SVGP posterior at the bench configuration
    (M = 2048 inducing points, D = 8, SE kernel with raw hyperparameters
    [0.5, 0.5], jitter 1e-6; parameters from numpy with a fixed seed) built
@@ -280,8 +286,11 @@ GRAM_PARITY = ((M, BATCH, D), (1000, 777, 1), (129, 4099, 11))
 GRAM_RTOL32 = 1e-5
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
-# paper) × 132 SMs × 1.98 GHz boost
-PEAK_F32, PEAK_BYTES, PEAK_SFU = 67e12, 3.35e12, 16 * 132 * 1.98e9
+# paper) × 132 SMs × 1.98 GHz boost; TF32 on the tensor cores (dense)
+PEAK_F32, PEAK_BYTES, PEAK_SFU, PEAK_TF32 = 67e12, 3.35e12, 16 * 132 * 1.98e9, 495e12
+# row 5's f32 passes: the widths both kernels are timed at to place the
+# crossover, and the widths the kernels line reports
+GMV_CROSSOVER_R, GMV_TIMED_R = (1, 2, 4, 8, 16, 32), (1, 16, 32)
 
 
 def check(ok: bool, what: str) -> None:
@@ -532,11 +541,32 @@ def matvec_work(N: int, M: int, D: int, R: int, elt: int = 4):
     return N * M * (3 * D + 1 + 2 * R), elt * (N * D + M * D + M * R + N * R), N * M
 
 
-def bound(flops: float, nbytes: float, exps: float = 0.0):
+def matvec_bound(N: int, M: int, D: int, R: int, part: str, elt: int = 4):
+    """(ms, what bounds it) of one pass by the count of the kernel that runs
+    it: an entry's exp, its 3D + 1 SIMT flops of r², and its R products,
+    as 2R SIMT flops on the narrow pass ("simt") or 3·R FMAs of 3xTF32 on
+    the tensor cores on the wide one ("mma"); the bytes as in matvec_work."""
+    flops, nbytes, exps = matvec_work(N, M, D, R, elt)
+    if part == "mma":
+        return bound(flops - 2 * R * N * M, nbytes, exps, tc_flops=2 * 3 * R * N * M)
+    return bound(flops, nbytes, exps)
+
+
+def self_bwd_work(N: int, D: int, R: int, elt: int = 4):
+    """(SIMT flops, bytes, exps, tensor-core flops) of the self-Gram's
+    one-pass pullback: a pair's exp (g and g′ from it), its 3D + 1 flops of
+    r², the product g′·c and D FMAs of X̄ on the SIMT units, and R (V̄) + 2R
+    (c's depth) FMAs of 3xTF32 on the tensor cores; X, V and Ō read once,
+    V̄ and X̄ written once."""
+    pairs = N * N
+    return (pairs * (5 * D + 2), elt * (2 * N * D + 3 * N * R), pairs, pairs * 2 * 3 * 3 * R)
+
+
+def bound(flops: float, nbytes: float, exps: float = 0.0, tc_flops: float = 0.0):
     """(ms, what bounds it): the least time the card could take, the larger
-    of the operations over the peak rate of their unit and the bytes over
-    the memory rate."""
-    ops_ms = 1e3 * max(flops / PEAK_F32, exps / PEAK_SFU)
+    of the operations over the peak rate of their unit (SIMT f32, special
+    functions, TF32 tensor cores) and the bytes over the memory rate."""
+    ops_ms = 1e3 * max(flops / PEAK_F32, exps / PEAK_SFU, tc_flops / PEAK_TF32)
     bytes_ms = 1e3 * nbytes / PEAK_BYTES
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -569,25 +599,61 @@ def parity_gram_matvec(dev, maps: dict) -> dict:
         check(max(errs) <= 1e-10, f"gram_matvec pullback f64 self-Gram N={N_GP64} R=16 {name}: "
               "rel err " + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)) + " <= 1e-10")
 
+    # the self-Gram's one-pass pullback in f32 on every map, against the f64
+    # plain pullback (X̄ = X̄q + Z̄k), R = 1, 16 and 48 (two column chunks)
+    X32 = X64.float()
+    for name, kmap in maps.items():
+        errs = []
+        for R in (1, 16, 48):
+            V32, W32 = (t(rng.standard_normal((N_GP64, R)), torch.float32) for _ in range(2))
+            before = gram_matvec.gram_matvec.launches
+            got = gram_matvec.gram_matvec_self_bwd(X32, V32, W32, kmap)
+            one = gram_matvec.gram_matvec.launches == before + 1
+            ref = plain_pullback(X32.double(), X32.double(), V32.double(), W32.double(), kmap,
+                                 rows=N_GP64)
+            errs.append((R, rel_err(got[0], ref[0] + ref[1]), rel_err(got[1], ref[2]), one))
+        check(all(max(ex, ev) <= 1e-4 and one for _, ex, ev, one in errs),
+              f"gram_matvec self-Gram pullback f32 N={N_GP64} {name}, one launch, against f64: "
+              + ", ".join(f"R={R} X {ex:.3e} V {ev:.3e}" for R, ex, ev, _ in errs) + " <= 1e-4")
+
     se = maps["se"]
     X = t(rng.uniform(0.0, 10.0, (N_GP, D_GP)), torch.float32)
     out = {}
-    for R in (1, 16):
+    # both f32 pass kernels at the path's shape: checked, run twice (bitwise),
+    # timed, to place the crossover that pass_part holds
+    times = {}
+    for R in GMV_CROSSOVER_R:
         V = t(rng.standard_normal((N_GP, R) if R > 1 else N_GP), torch.float32)
-        got = gram_matvec.gram_matvec_pass(X, X, V, se)
         ref = gram_matvec.gram_matvec_plain(X, X, V, se)
-        e = rel_err(got, ref)
-        check(e <= 1e-5, f"gram_matvec f32 N=M={N_GP} D={D_GP} R={R} se: rel err {e:.3e} <= 1e-5")
-        ms = cuda_ms(lambda: gram_matvec.gram_matvec_pass(X, X, V, se), 5)
-        plain_ms = cuda_ms(lambda: gram_matvec.gram_matvec_plain(X, X, V, se), 2)
-        b_ms, b_by = bound(*matvec_work(N_GP, N_GP, D_GP, R))
-        print(f"time gram_matvec f32 N=M={N_GP} D={D_GP} R={R}: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-        out[f"r{R}"] = {"max_abs_err": max_abs(got, ref), "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by}
+        results = {}
+        for part in ("simt", "mma"):
+            run = lambda: gram_matvec.gram_matvec_pass(X, X, V, se, part=part)  # noqa: E731
+            got = results[part] = run()
+            e = rel_err(got, ref)
+            check(e <= 1e-5 and torch.equal(got, run()),
+                  f"gram_matvec {part} f32 N=M={N_GP} D={D_GP} R={R} se: rel err {e:.3e} <= 1e-5, "
+                  "two runs equal bitwise")
+            times[part, R] = cuda_ms(run, 5)
+        print(f"time gram_matvec f32 N=M={N_GP} D={D_GP} R={R}: simt {times['simt', R]:.3f} ms, "
+              f"mma {times['mma', R]:.3f} ms (pass_part: {gram_matvec.pass_part(R)})")
+        if R in GMV_TIMED_R:
+            part = gram_matvec.pass_part(R)
+            plain_ms = cuda_ms(lambda: gram_matvec.gram_matvec_plain(X, X, V, se), 2)
+            b_ms, b_by = matvec_bound(N_GP, N_GP, D_GP, R, part)
+            s_ms = bound(*matvec_work(N_GP, N_GP, D_GP, R))[0]
+            print(f"time gram_matvec f32 N=M={N_GP} D={D_GP} R={R}: {part} pass "
+                  f"{times[part, R]:.3f} ms, plain {plain_ms:.3f} ms, SIMT bound {s_ms:.3f} ms, "
+                  f"bound {b_ms:.3f} ms ({b_by})")
+            out[f"r{R}"] = {"max_abs_err": max_abs(results[part], ref),
+                            "part": part, "ms": times[part, R], "plain_ms": plain_ms,
+                            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_simt": s_ms}
+    faster = [R for R in GMV_CROSSOVER_R if times["mma", R] < times["simt", R]]
+    print(f"crossover: the mma pass is faster at R = {faster}; "
+          f"pass_part takes it from R = {gram_matvec.MMA_FROM_R}")
     V, W = (t(rng.standard_normal((N_GP, 16)), torch.float32) for _ in range(2))
-    got = gram_matvec.gram_matvec_bwd(X, X, V, W, se)
     ref = plain_pullback(X, X, V, W, se, rows=2048)
+    # the general Function's pullback: the transposed pass and two coordinate passes
+    got = gram_matvec.gram_matvec_bwd(X, X, V, W, se)
     errs = [rel_err(g, r) for g, r in zip(got, ref)]
     check(max(errs) <= 1e-4, f"gram_matvec pullback f32 N=M={N_GP} D={D_GP} R=16 se: rel err "
           + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)) + " <= 1e-4")
@@ -601,10 +667,32 @@ def parity_gram_matvec(dev, maps: dict) -> dict:
           f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     out["bwd"] = {"max_abs_err": max(max_abs(g, r) for g, r in zip(got, ref)), "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    # the self-Gram's pullback in one pass: X̄ = X̄q + Z̄k and V̄
+    run = lambda: gram_matvec.gram_matvec_self_bwd(X, V, W, se)  # noqa: E731
+    before = gram_matvec.gram_matvec.launches
+    got = run()
+    one = gram_matvec.gram_matvec.launches == before + 1
+    refs = (ref[0] + ref[1], ref[2])
+    errs = [rel_err(g, r) for g, r in zip(got, refs)]
+    again = run()
+    check(max(errs) <= 1e-4 and one and all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"gram_matvec self-Gram pullback f32 N=M={N_GP} D={D_GP} R=16 se, one launch: rel err "
+          f"X {errs[0]:.3e}, V {errs[1]:.3e} <= 1e-4, two runs equal bitwise")
+    ms = cuda_ms(run, 3)
+    plain_ms = cuda_ms(lambda: gram_matvec.gram_matvec_self_bwd_plain(X, V, W, se), 1)
+    flops, nbytes, exps, tc = self_bwd_work(N_GP, D_GP, 16)
+    b_ms, b_by = bound(flops, nbytes, exps, tc_flops=tc)
+    s_ms = bound(flops + tc / 3, nbytes, exps)[0]
+    print(f"time gram_matvec self-Gram pullback f32 N=M={N_GP} D={D_GP} R=16: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, SIMT bound {s_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    out["bwd_self"] = {"max_abs_err": max(max_abs(g, r) for g, r in zip(got, refs)), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "bound_ms_simt": s_ms}
     # the kernels line reports R = 16, the shape of the probe blocks (every
-    # Lanczos step and the probe solves), beside R = 1 and the pullback
+    # Lanczos step and the probe solves), beside R = 1, R = 32 (the serve's
+    # cross solve) and both pullbacks
     numbers = dict(out["r16"])
-    for part in ("r1", "bwd"):
+    for part in ("r1", "r32", "bwd", "bwd_self"):
         numbers.update({f"{k}_{part}": v for k, v in out[part].items() if k != "max_abs_err"})
     return numbers
 
@@ -1898,7 +1986,12 @@ def main() -> None:
     # the one band kernel takes the place of rows 7, 8 and 10 of the table
     also = {"vecchia_band": {"rows": [7, 8, 10], "replaces_also": [
         "approximategps_tpu/ops/batched_chol.py:485",
-        "approximategps_tpu/ops/batched_chol.py:1134"]}}
+        "approximategps_tpu/ops/batched_chol.py:1134"]},
+            # row 5 is three kernels: the narrow pass, the wide pass and the
+            # self-Gram's one-pass pullback, all counted on one counter
+            "gram_matvec": {"sources_also": [
+                "approximategps_tpu_torch/csrc/gram_matvec_mma.cu",
+                "approximategps_tpu_torch/csrc/gram_matvec_self_bwd.cu"]}}
     # bounds of kernels A, B, 3 and 4 at the shapes phase 3 timed them (f32,
     # M = 2048, B = 16384): a Cholesky and a triangular inverse are M³/3
     # FMAs each; var = diag(K0ᵀ Se K0) over Se's upper triangle M²B/2 FMAs;

@@ -207,12 +207,21 @@ def test_torch_cuda_chol_with_inv_gradient(cuda):
 # -- kernel 5: the fused Gram matvec -----------------------------------------
 
 
-@pytest.mark.parametrize("R", [1, 16, 48, 128])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+# each pass kernel, whichever pass_part picks (None), and each forced: the
+# narrow SIMT pass in both types, the wide tensor-core pass in f32
+PARTS = [(None, torch.float64), (None, torch.float32), ("simt", torch.float64),
+         ("simt", torch.float32), ("mma", torch.float32)]
+PART_IDS = ["dtype0", "dtype1", "simt-f64", "simt-f32", "mma-f32"]
+
+
+@pytest.mark.parametrize("R", [1, 2, 8, 16, 17, 32, 48, 128])
+@pytest.mark.parametrize("part,dtype", PARTS, ids=PART_IDS)
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
-def test_torch_cuda_gram_matvec_matches_plain(cls, dtype, R, cuda):
-    """Both maps g and g′, N and M ragged against the 128-row blocks and
-    key tiles; relative to the largest entry: f64 1e-12, f32 1e-5 (sums over
+def test_torch_cuda_gram_matvec_matches_plain(cls, part, dtype, R, cuda):
+    """Both maps g and g′, N = 3001 and M = 2500 ragged against the 64-,
+    128- and 256-row blocks and the 32-, 64- and 128-key tiles, D = 3
+    padded to 4; one launch a call at every width (R = 48 and 128
+    included); relative to the largest entry: f64 1e-12, f32 1e-5 (sums over
     2500 keys in another order)."""
     from approximategps_tpu_torch.ops import gram_matvec
 
@@ -224,11 +233,11 @@ def test_torch_cuda_gram_matvec_matches_plain(cls, dtype, R, cuda):
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     for deriv in (False, True):
         before = gram_matvec.gram_matvec.launches
-        out = gram_matvec.gram_matvec_pass(Xq, Zk, V, kmap, deriv)
+        out = gram_matvec.gram_matvec_pass(Xq, Zk, V, kmap, deriv, part=part)
         assert gram_matvec.gram_matvec.launches == before + 1
         ref = gram_matvec.gram_matvec_plain(Xq, Zk, V, kmap, deriv)
         assert out.shape == ref.shape
-        assert ((out - ref).abs().max() / ref.abs().max()).item() <= tol
+        assert ((out - ref).abs().max() / ref.abs().max()).item() <= tol, deriv
 
 
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
@@ -252,6 +261,59 @@ def test_torch_cuda_gram_matvec_self_gram_pullback(cls, cuda):
         assert ((g - r).abs().max() / r.abs().max()).item() <= 1e-10, name
 
 
+@pytest.mark.parametrize("R", [1, 16, 32, 48])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_gram_matvec_self_pullback(cls, dtype, R, cuda):
+    """``gram_matvec_self`` on 1500 points with repeats (r² = 0 off the
+    diagonal): X̄ and V̄ against autograd through the plain pass in f64 on
+    the same inputs, f64 1e-10 and f32 1e-4 relative to each cotangent's
+    largest entry.  In f32 the pullback is one launch at every width (two
+    chunks inside it at R = 48); in f64 it is the general pullback's
+    passes."""
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    rng = np.random.default_rng(90 + R)
+    X = rng.uniform(0.0, 3.0, (1500, 2))
+    X[1000:1100] = X[:100]
+    V = rng.standard_normal((1500, R) if R > 1 else 1500)
+    W = rng.standard_normal(V.shape)
+    kmap = cls().kernel_map()
+    Xt, Vt = _t(X, cuda, dtype).requires_grad_(), _t(V, cuda, dtype).requires_grad_()
+    before, passes = gram_matvec.gram_matvec.launches, gram_matvec.pullback_passes["passes"]
+    out = gram_matvec.gram_matvec_self(Xt, Vt, kmap)
+    assert gram_matvec.gram_matvec.launches == before + 1
+    got = torch.autograd.grad(out, (Xt, Vt), _t(W, cuda, dtype))
+    added = gram_matvec.gram_matvec.launches - before - 1
+    assert added == gram_matvec.pullback_passes["passes"] - passes
+    assert added == 1 if dtype == torch.float32 else added > 1
+    ts = [Xt.detach().double().requires_grad_() for _ in range(2)]
+    ts.append(Vt.detach().double().requires_grad_())
+    ref = torch.autograd.grad(gram_matvec.gram_matvec_plain(*ts, kmap), ts, _t(W, cuda))
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for name, g, r in (("X", got[0], ref[0] + ref[1]), ("V", got[1], ref[2])):
+        assert g.dtype == dtype
+        assert ((g.double() - r).abs().max() / r.abs().max()).item() <= tol, name
+
+
+@pytest.mark.parametrize("what,R", [("simt", 1), ("simt", 16), ("mma", 16), ("mma", 48),
+                                    ("self_bwd", 1), ("self_bwd", 16), ("self_bwd", 48)])
+def test_torch_cuda_gram_matvec_repeats_bitwise(what, R, cuda):
+    """Each block writes its rows once in a fixed order: two runs of each
+    kernel agree bit for bit (f32, N = M = 4099, D = 2, Matérn-5/2)."""
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    rng = np.random.default_rng(7)
+    X = _t(rng.uniform(0.0, 10.0, (4099, 2)), cuda, torch.float32)
+    V, W = (_t(rng.standard_normal((4099, R)), cuda, torch.float32) for _ in range(2))
+    kmap = tk.Matern52Kernel().kernel_map()
+    if what == "self_bwd":
+        run = lambda: torch.cat(gram_matvec.gram_matvec_self_bwd(X, V, W, kmap), 1)  # noqa: E731
+    else:
+        run = lambda: gram_matvec.gram_matvec_pass(X, X, V, kmap, part=what)  # noqa: E731
+    assert torch.equal(run(), run())
+
+
 def test_torch_cuda_gram_matvec_raises_on_what_it_does_not_take(cuda):
     from approximategps_tpu_torch.ops import gram_matvec
 
@@ -267,6 +329,13 @@ def test_torch_cuda_gram_matvec_raises_on_what_it_does_not_take(cuda):
     ]:
         with pytest.raises(ValueError):
             gram_matvec.gram_matvec_pass(*args, kmap)
+    with pytest.raises(ValueError):  # the wide pass is f32 only
+        gram_matvec.gram_matvec_pass(x.double(), x.double(), torch.zeros(10, device=cuda).double(),
+                                     kmap, part="mma")
+    v = torch.zeros((10, 3), device=cuda)
+    for args in [(x, v, v[:, :2]), (x, v.double(), v.double()), (x[:9], v, v)]:
+        with pytest.raises(ValueError):
+            gram_matvec.gram_matvec_self_bwd(*args, kmap)
 
 
 def test_torch_cuda_logpdf_slq_runs_through_the_kernel(cuda):

@@ -13,6 +13,10 @@ what is held here is the Function's algebra: the forward and the pullback
   R ∈ {1, 7, 32} and D ∈ {1, 2, 8} against the same custom VJP with the
   Pallas pass swapped for a dense one in the test (interpret mode unrolls R
   lane reductions a pass and takes tens of seconds to compile at D = 8).
+- ``test_torch_gram_matvec_self_*``: the self-Gram Function, whose pullback
+  is one pass (V̄ = K·Ō and X̄ from c_ij = [Ō_i | V_i]·[V_j | Ō_j]), against
+  the JAX VJP of ``pallas_gram_matvec(X, X, V)``: its X̄q + Z̄k and V̄, on
+  point sets with repeated points (r² = 0 off the diagonal).
 
 Tolerances: forward 1e-12 and cotangents 1e-10, relative to each array's
 largest entry (f64 sums over at most 32 terms in other orders)."""
@@ -221,3 +225,90 @@ def test_torch_fused_dispatch_declines_forward_mode_ad():
         mv = tit.kernel_matvec(kern, x, 0.1)
         # the matvec is linear in v: its tangent is the matvec of dv
         torch.testing.assert_close(tangent, mv(dv), rtol=1e-12, atol=1e-12)
+
+
+def _self_inputs(N, D, R, seed):
+    """X (N, D) whose last quarter repeats its first points, V and a
+    cotangent W of shape (N,) for R = 1 else (N, R)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0.0, 3.0, (N, D))
+    X[-(N // 4):] = X[:N // 4]
+    shape = (N,) if R == 1 else (N, R)
+    return X, rng.standard_normal(shape), rng.standard_normal(shape)
+
+
+def _check_self(X, V, W, name):
+    jcls, tcls = MAPS[name]
+    jout, (jxq, jzk, jv) = _jax_vjp(X, X, V, W, jcls.k_of_r2)
+    ts = [torch.tensor(a, requires_grad=True) for a in (X, V)]
+    before = dict(tgm.pullback_passes)
+    out = tgm.gram_matvec_self(*ts, tcls().kernel_map())
+    gx, gv = torch.autograd.grad(out, ts, torch.tensor(W))
+    assert tgm.pullback_passes["calls"] == before["calls"] + 1
+    assert tgm.pullback_passes["passes"] == before["passes"] + 1
+    assert out.shape == jout.shape and gv.shape == V.shape
+    assert _rel(out, jout) <= 1e-12
+    assert _rel(gx, np.asarray(jxq) + np.asarray(jzk)) <= 1e-10
+    assert _rel(gv, jv) <= 1e-10
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("R", [1, 16, 32])
+@pytest.mark.parametrize("name", list(MAPS))
+def test_torch_gram_matvec_self_matches_jax_vjp(name, R, D, monkeypatch):
+    """The one-pass pullback on the CPU (its plain version) against the JAX
+    custom VJP with a dense inner pass, as the grid test runs it; the value
+    to 1e-12, X̄ = X̄q + Z̄k and V̄ to 1e-10."""
+    monkeypatch.setattr(jgm, "_forward_multi", _dense_forward_multi)
+    _check_self(*_self_inputs(24, D, R, seed=200 + 10 * D + R), name)
+
+
+@pytest.mark.parametrize("name", list(MAPS))
+def test_torch_gram_matvec_self_matches_pallas_interpret(name):
+    """The same against the Pallas kernel itself in interpret mode, R = 16,
+    D = 2 (the exact-GP path's probe width)."""
+    _check_self(*_self_inputs(20, 2, 16, seed=300 + list(MAPS).index(name)), name)
+
+
+def test_torch_gram_matvec_pass_part_picks_by_width(monkeypatch):
+    """f32 passes take the SIMT kernel below ``MMA_FROM_R`` columns and the
+    tensor-core kernel from it; f64 always the SIMT one."""
+    for R in range(1, 129):
+        want = "simt" if R < tgm.MMA_FROM_R else "mma"
+        assert tgm.pass_part(R) == tgm.pass_part(R, torch.float32) == want
+        assert tgm.pass_part(R, torch.float64) == "simt"
+    monkeypatch.setattr(tgm, "MMA_FROM_R", 3)
+    assert [tgm.pass_part(R) for R in (1, 2, 3, 4)] == ["simt", "simt", "mma", "mma"]
+
+
+def test_torch_fused_dispatch_reaches_the_self_gram_function(monkeypatch):
+    """``kernel_matvec``'s fused route computes K(X, X)·v through
+    ``gram_matvec_self``, so its pullback is one pass; the value and the
+    lengthscale and variance gradients equal the general Function's."""
+    calls = []
+    real = tgm.gram_matvec_self
+
+    def spy(X, V, kmap):
+        calls.append(tuple(V.shape))
+        return real(X, V, kmap)
+
+    rng = np.random.default_rng(21)
+    x = torch.tensor(rng.uniform(0.0, 3.0, (33, 2)))
+    v = torch.tensor(rng.standard_normal((33, 4)))
+
+    def value_and_grad():
+        th = torch.tensor([-0.3, 0.5], dtype=torch.float64, requires_grad=True)
+        with tconfig_context(matvec_mode="fused"):
+            val = torch.sum(torch.tanh(tit.kernel_matvec(_kern_t(th), x, 0.2)(v)))
+        return val.detach(), torch.autograd.grad(val, th)[0]
+
+    monkeypatch.setattr(tgm, "gram_matvec_self", spy)
+    before = dict(tgm.pullback_passes)
+    val, grad = value_and_grad()
+    assert calls == [(33, 4)]
+    assert tgm.pullback_passes["passes"] == before["passes"] + 1
+    monkeypatch.setattr(tgm, "gram_matvec_self",
+                        lambda X, V, kmap: tgm.gram_matvec(X, X, V, kmap))
+    val0, grad0 = value_and_grad()
+    assert abs(val.item() - val0.item()) <= 1e-12 * abs(val0.item())
+    assert _rel(grad, grad0.numpy()) <= 1e-10
