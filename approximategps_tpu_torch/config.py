@@ -58,9 +58,10 @@ class _Config:
     # the plain route for the minibatch ELBO; "plain" takes the Gram and
     # diag_quad_sym in PyTorch everywhere.
     data_term_mode: str = os.environ.get("AGP_DATA_TERM_MODE", "auto")
-    # Largest test-point tile one CUDA block of the epilogue owns (16, 8 or
-    # 4); the wrapper halves it until the (block_b, M) K tile fits shared
-    # memory, and the sweep raises on CUDA where none fits.
+    # Largest test-point tile one CUDA block of the epilogue's SIMT forward
+    # (f64, and f32 with D > 8) owns (16, 8 or 4); the wrapper halves it
+    # until the (block_b, M) K tile fits shared memory, and the sweep raises
+    # on CUDA where none fits.  The f32 tensor-core forward has no such tile.
     epilogue_block_b: int = int(os.environ.get("AGP_EPILOGUE_BLOCK_B", "16"))
     # Largest M for which the posterior build forms the S-correction matrix
     # S = Lk⁻ᵀ(BBᵀ−I)Lk⁻¹ (the cache the fused epilogue consumes).

@@ -28,7 +28,7 @@ from ..core.kernels import as_points, dk_from_k_for, pairwise_sq_dist, unwrap_st
 from ..core.likelihoods import GaussianLikelihood
 from ..core.quadrature import DefaultExpectationMethod, expected_loglikelihood
 from ..ops.panel_chol import gram_chol_inv, gram_chol_inv_supported
-from ..ops.svgp_epilogue import epilogue_block_b, svgp_data_epilogue
+from ..ops.svgp_epilogue import epilogue_part, svgp_data_epilogue
 from .api import approx_lml, posterior
 
 __all__ = [
@@ -443,12 +443,13 @@ def _epilogue_ready(prior, z, S_corr, prefer=False):
             )
         return None
     zp = as_points(z)
-    if epilogue_block_b(zp.shape[0], zp.shape[1], S_corr.dtype) is None:
+    if epilogue_part(zp.shape[0], zp.shape[1], S_corr.dtype) is None:
         if on_device:
             raise NotImplementedError(
-                f"the fused SVGP epilogue has no tiling over M yet (ROADMAP.md §2, "
-                f"row 2): its (block_b, M) K0 tile does not fit shared memory at "
-                f"M={zp.shape[0]}, D={zp.shape[1]}, {S_corr.dtype}, block_b <= "
+                f"the fused SVGP epilogue's SIMT kernel (f64, and f32 with D > 8; the "
+                f"tensor-core kernel takes f32 with D <= 8 at any M) has no tiling over M "
+                f"(ROADMAP.md §2, row 2): its (block_b, M) K0 tile does not fit shared "
+                f"memory at M={zp.shape[0]}, D={zp.shape[1]}, {S_corr.dtype}, block_b <= "
                 f"{config.epilogue_block_b}; set data_term_mode='plain'"
             )
         return None

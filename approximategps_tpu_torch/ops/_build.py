@@ -23,11 +23,13 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library", "check"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "gram_matvec.cu",
+_SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "svgp_epilogue_mma.cu",
+            "svgp_epilogue_bwd_mma.cu", "gram_matvec.cu",
             "gram_matvec_f64.cu", "gram_matvec_mma.cu", "gram_matvec_self_bwd.cu", "vecchia_band.cu", "vecchia_band_f64.cu", "vecchia_band_bwd.cu",
             "vecchia_band_bwd_f64.cu", "band_rows.cu", "band_rows_f64.cu", "stationary_gram.cu",
             "stationary_gram_f64.cu")
-_HEADERS = ("kernel_maps.cuh", "fast_maps.cuh", "tf32_mma.cuh", "vecchia_window.cuh")
+_HEADERS = ("kernel_maps.cuh", "fast_maps.cuh", "tf32_mma.cuh", "svgp_epilogue_mma.cuh",
+            "vecchia_window.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,7 +54,13 @@ _SIGNATURES = {
     # xs, zs, se, ae, dmu, dvar, xbar, zbar, sebar, aebar, scratch, B, M, D, kmap, stream
     "agp_svgp_epilogue_bwd_f32": ((_p,) * 11 + (_i, _i, _i, _i, _p), _i),
     "agp_svgp_epilogue_bwd_f64": ((_p,) * 11 + (_i, _i, _i, _i, _p), _i),
+    # xs, zs, se, ae, mu, var, scratch, B, M, D, kmap, stream
+    "agp_svgp_epilogue_mma_f32": ((_p,) * 7 + (_i, _i, _i, _i, _p), _i),
+    # M, D -> scratch elements
+    "agp_svgp_epilogue_mma_scratch_f32": ((_i, _i), ctypes.c_longlong),
+    "agp_svgp_epilogue_bwd_mma_f32": ((_p,) * 11 + (_i, _i, _i, _i, _p), _i),
     # B, M, D -> scratch elements
+    "agp_svgp_epilogue_bwd_mma_scratch_f32": ((_i, _i, _i), ctypes.c_longlong),
     "agp_svgp_epilogue_bwd_scratch_f32": ((_i, _i, _i), ctypes.c_longlong),
     "agp_svgp_epilogue_bwd_scratch_f64": ((_i, _i, _i), ctypes.c_longlong),
     # xq, zk, v, out, N, M, D, R, kmap, deriv, stream

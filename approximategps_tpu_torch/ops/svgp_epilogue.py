@@ -8,9 +8,14 @@ For a stationary map g and the S-correction cache of ``models/svgp.py``:
     var_corr = diag(K0ᵀ Se K0)        (B,),   K0 = g(r²(Zs, Xs))  (M, B)
 
 :func:`svgp_data_epilogue` is a ``torch.autograd.Function``.  On CUDA
-tensors its forward is the hand-written kernel of ``csrc/svgp_epilogue.cu``
-and its backward that of ``csrc/svgp_epilogue_bwd.cu``; both keep K0 and
-Se·K0 out of device memory.  On CPU tensors the forward is
+tensors its forward and backward are hand-written kernels that keep K0 and
+Se·K0 out of device memory, chosen by :func:`epilogue_part` from dtype, M
+and D: in f32 with D <= 8 the tensor-core kernels (3xTF32 ``wgmma``;
+``csrc/svgp_epilogue_mma.cu``, ``csrc/svgp_epilogue_bwd_mma.cu``), any M;
+otherwise (f64 always) the SIMT kernels (``csrc/svgp_epilogue.cu``, whose
+forward needs its (block_b, M) K0 tile in shared memory, and
+``csrc/svgp_epilogue_bwd.cu``).  An explicit ``part`` forces either where
+it takes the call.  On CPU tensors the forward is
 :func:`svgp_data_epilogue_plain` and the backward
 :func:`svgp_data_epilogue_bwd_plain`, which form them.  All take the inputs
 jointly centred (exact for a stationary kernel; it recovers the accuracy the
@@ -33,11 +38,13 @@ __all__ = [
     "svgp_data_epilogue_bwd",
     "svgp_data_epilogue_bwd_plain",
     "epilogue_block_b",
+    "epilogue_part",
 ]
 
 _THREADS = 512  # csrc/svgp_epilogue.cu NT
 _SMEM_LIMIT = 200 * 1024  # of the 227 KB a block may use on Hopper
 _MAX_D = 64
+_MMA_MAX_D = 8  # the tensor-core kernels' coordinates live in registers
 
 
 def _smem_bytes(block_b: int, M: int, D: int, itemsize: int) -> int:
@@ -48,9 +55,9 @@ def _smem_bytes(block_b: int, M: int, D: int, itemsize: int) -> int:
 
 
 def epilogue_block_b(M: int, D: int, dtype: torch.dtype) -> int | None:
-    """Test points per CUDA block: the largest of 16, 8, 4 (at most
-    ``config.epilogue_block_b``) whose K0 tile fits shared memory, or None
-    when none does."""
+    """Test points per CUDA block of the SIMT forward (f64, and f32 with
+    D > 8): the largest of 16, 8, 4 (at most ``config.epilogue_block_b``)
+    whose K0 tile fits shared memory, or None when none does."""
     if dtype not in (torch.float32, torch.float64) or not 1 <= D <= _MAX_D:
         return None
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -58,6 +65,22 @@ def epilogue_block_b(M: int, D: int, dtype: torch.dtype) -> int | None:
         if bb <= config.epilogue_block_b and _smem_bytes(bb, M, D, itemsize) <= _SMEM_LIMIT:
             return bb
     return None
+
+
+def _mma_takes(D: int, dtype: torch.dtype) -> bool:
+    return dtype == torch.float32 and 1 <= D <= _MMA_MAX_D
+
+
+def epilogue_part(M: int, D: int, dtype: torch.dtype) -> str | None:
+    """The forward kernel that serves (M, D, dtype) on the card: "mma" (the
+    tensor cores, no shared-memory tile of M, so any M) in f32 with
+    1 <= D <= 8; else "simt" where :func:`epilogue_block_b` finds its K0
+    tile a place in shared memory; else None (the wrapper raises).  The
+    backward takes "mma" where this does, and "simt" for every other f32 or
+    f64 call with D <= 64."""
+    if _mma_takes(D, dtype):
+        return "mma"
+    return "simt" if epilogue_block_b(M, D, dtype) is not None else None
 
 
 def _centre(Xs: torch.Tensor, Zs: torch.Tensor):
@@ -94,28 +117,47 @@ def _check(what, tensors, B, M, D):
         )
 
 
-def _forward(Xs, Zs, Se, ae, kmap: KernelMap):
+def _part(what, part, default, D, dtype):
+    part = part or default
+    if part not in ("simt", "mma") or (part == "mma" and not _mma_takes(D, dtype)):
+        raise ValueError(f"{what}: no {part!r} kernel takes {dtype}, D={D} "
+                         f"(the tensor-core kernels: f32, D <= {_MMA_MAX_D})")
+    return part
+
+
+def _forward(Xs, Zs, Se, ae, kmap: KernelMap, part: str | None = None):
     if Xs.device.type == "cpu":
         return svgp_data_epilogue_plain(Xs, Zs, Se, ae, kmap)
     B, D = Xs.shape
     M = Zs.shape[0]
     dtype = Xs.dtype
     _check("svgp_data_epilogue", (Xs, Zs, Se, ae), B, M, D)
+    part = _part("svgp_data_epilogue", part, epilogue_part(M, D, dtype) or "simt", D, dtype)
     block_b = epilogue_block_b(M, D, dtype)
-    if block_b is None:
+    if part == "simt" and block_b is None:
         raise ValueError(
-            f"svgp_data_epilogue: no tile fits shared memory at M={M}, D={D}, {dtype}"
+            f"svgp_data_epilogue: no tile of the SIMT kernel fits shared memory at M={M}, "
+            f"D={D}, {dtype}"
         )
     lib = _build.load_library()
-    fn = lib.agp_svgp_epilogue_f32 if dtype == torch.float32 else lib.agp_svgp_epilogue_f64
     Xc, Zc = _centre(Xs, Zs)
     Xc, Zc, Se, ae = Xc.contiguous(), Zc.contiguous(), Se.contiguous(), ae.contiguous()
     mu = torch.empty((B,), dtype=dtype, device=Xs.device)
     var = torch.empty((B,), dtype=dtype, device=Xs.device)
+    ptrs = (Xc.data_ptr(), Zc.data_ptr(), Se.data_ptr(), ae.data_ptr(), mu.data_ptr(),
+            var.data_ptr())
     stream = torch.cuda.current_stream(Xs.device).cuda_stream
     with torch.cuda.device(Xs.device):
-        err = fn(Xc.data_ptr(), Zc.data_ptr(), Se.data_ptr(), ae.data_ptr(),
-                 mu.data_ptr(), var.data_ptr(), B, M, D, block_b, int(kmap.id), stream)
+        if part == "mma":
+            # Se split into TF32 halves in the kernels' layout, once a call
+            scratch = torch.empty((lib.agp_svgp_epilogue_mma_scratch_f32(M, D),), dtype=dtype,
+                                  device=Xs.device)
+            err = lib.agp_svgp_epilogue_mma_f32(*ptrs, scratch.data_ptr(), B, M, D,
+                                                int(kmap.id), stream)
+        else:
+            fn = (lib.agp_svgp_epilogue_f32 if dtype == torch.float32
+                  else lib.agp_svgp_epilogue_f64)
+            err = fn(*ptrs, B, M, D, block_b, int(kmap.id), stream)
     _build.check(err, "svgp_data_epilogue")
     svgp_data_epilogue.launches += 1
     return mu, var
@@ -145,12 +187,16 @@ def svgp_data_epilogue_bwd_plain(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap):
     return Xs_bar, Zs_bar, Se_bar, ae_bar
 
 
-def svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap):
+def svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap,
+                           part: str | None = None):
     """(X̄s, Z̄s, S̄e, āe): the pullback of :func:`svgp_data_epilogue` for
     the cotangents ``dmu`` and ``dvar`` (B,).  A CPU tensor takes
-    :func:`svgp_data_epilogue_bwd_plain`; a CUDA tensor launches the kernel
-    of ``csrc/svgp_epilogue_bwd.cu`` or raises.  Takes every M, B and
-    1 <= D <= 64 in f32 or f64, a superset of what the forward takes."""
+    :func:`svgp_data_epilogue_bwd_plain`; a CUDA tensor launches the
+    tensor-core kernels of ``csrc/svgp_epilogue_bwd_mma.cu`` (f32,
+    D <= 8) or the SIMT kernels of ``csrc/svgp_epilogue_bwd.cu`` (or
+    ``part``: "simt", or "mma" where it takes the call), or raises.  Takes
+    every M, B and 1 <= D <= 64 in f32 or f64, a superset of what the
+    forward takes."""
     if Xs.device.type == "cpu":
         return svgp_data_epilogue_bwd_plain(Xs, Zs, Se, ae, dmu, dvar, kmap)
     B, D = Xs.shape
@@ -160,9 +206,16 @@ def svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap):
     if dtype not in (torch.float32, torch.float64) or not 1 <= D <= _MAX_D:
         raise ValueError(f"svgp_data_epilogue_bwd: needs f32/f64 and 1 <= D <= {_MAX_D}, "
                          f"got {dtype}, D={D}")
+    part = _part("svgp_data_epilogue_bwd", part, "mma" if _mma_takes(D, dtype) else "simt", D,
+                 dtype)
     lib = _build.load_library()
     f32 = dtype == torch.float32
-    fn = lib.agp_svgp_epilogue_bwd_f32 if f32 else lib.agp_svgp_epilogue_bwd_f64
+    if part == "mma":
+        fn, n_fn = lib.agp_svgp_epilogue_bwd_mma_f32, lib.agp_svgp_epilogue_bwd_mma_scratch_f32
+    elif f32:
+        fn, n_fn = lib.agp_svgp_epilogue_bwd_f32, lib.agp_svgp_epilogue_bwd_scratch_f32
+    else:
+        fn, n_fn = lib.agp_svgp_epilogue_bwd_f64, lib.agp_svgp_epilogue_bwd_scratch_f64
     Xc, Zc = _centre(Xs, Zs)
     ins = [t.contiguous() for t in (Xc, Zc, Se, ae, dmu, dvar)]
     like = dict(dtype=dtype, device=Xs.device)
@@ -171,8 +224,7 @@ def svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap):
     stream = torch.cuda.current_stream(Xs.device).cuda_stream
     with torch.cuda.device(Xs.device):
         # the scratch layout depends on the card's SM count and occupancy
-        n_scratch = (lib.agp_svgp_epilogue_bwd_scratch_f32 if f32
-                     else lib.agp_svgp_epilogue_bwd_scratch_f64)(B, M, D)
+        n_scratch = n_fn(B, M, D)
         scratch = torch.empty((n_scratch,), **like)
         err = fn(*(t.data_ptr() for t in ins + outs), scratch.data_ptr(), B, M, D,
                  int(kmap.id), stream)
@@ -186,35 +238,38 @@ svgp_data_epilogue_bwd.launches = 0
 
 class _Epilogue(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, Xs, Zs, Se, ae, kmap):
-        ctx.kmap = kmap
+    def forward(ctx, Xs, Zs, Se, ae, kmap, part):
+        ctx.kmap, ctx.part = kmap, part
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(Xs, Zs, Se, ae)
-        return _forward(Xs, Zs, Se, ae, kmap)
+        return _forward(Xs, Zs, Se, ae, kmap, part)
 
     @staticmethod
     def backward(ctx, dmu, dvar):
         if dmu is None and dvar is None:
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         Xs, Zs, Se, ae = ctx.saved_tensors
         like = dmu if dmu is not None else dvar
         dmu = torch.zeros_like(like) if dmu is None else dmu
         dvar = torch.zeros_like(like) if dvar is None else dvar
         grads = svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu.to(Xs.dtype), dvar.to(Xs.dtype),
-                                       ctx.kmap)
-        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+                                       ctx.kmap, ctx.part)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None,
+                None)
 
 
 def svgp_data_epilogue(Xs: torch.Tensor, Zs: torch.Tensor, Se: torch.Tensor,
-                       ae: torch.Tensor, kmap: KernelMap):
+                       ae: torch.Tensor, kmap: KernelMap, part: str | None = None):
     """(mu_corr, var_corr) = (K0ᵀ ae, diag(K0ᵀ Se K0)), K0 = g(r²(Zs, Xs)),
     differentiable in all four tensors.
 
     Xs: (B, D) scaled test inputs; Zs: (M, D) scaled inducing inputs; Se:
-    (M, M), exactly symmetric (the kernel reads its upper triangle, the
+    (M, M), exactly symmetric (the forward kernels read one triangle, the
     plain version all of it); ae: (M,).  A CPU tensor takes the plain
-    versions; a CUDA tensor launches the kernels or raises."""
-    return _Epilogue.apply(Xs, Zs, Se, ae, kmap)
+    versions; a CUDA tensor launches the kernels that :func:`epilogue_part`
+    names (or ``part``, forward and backward: "simt", or "mma" in f32 with
+    D <= 8) or raises."""
+    return _Epilogue.apply(Xs, Zs, Se, ae, kmap, part)
 
 
 svgp_data_epilogue.launches = 0

@@ -16,8 +16,14 @@ Phases (a failing phase raises, and the script exits non-zero):
    version on the card, in f64 and in f32 at the shapes its path gives it,
    each error printed beside its limit; then each kernel's time beside the
    plain version's (CUDA events, median).  The kernels: the gram-fused
-   (L, L⁻¹) build (A), the epilogue forward (B), its backward (3), the
-   (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5): every
+   (L, L⁻¹) build (A), the epilogue forward (B, row 2), its backward (3),
+   the (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5).  Rows
+   2 and 3 in f32 on both kernels (the tensor-core one the path takes and
+   the SIMT one), every map, at the path's block (2048, 16384, 8) and at
+   (2050, 16385, 8) and (150, 1001, 3), against the plain version in f64
+   and (D = 8) f32, each run twice (equal bitwise); then both kernels and
+   the plain version timed at the path's block beside the tensor-core and
+   the SIMT bound.  Row 5: every
    map, g and g′, in f64 at N = 8192, and the self-Gram's one-pass pullback
    in f32 there (R = 1, 16, 48) against the f64 plain pullback; at
    N = M = 10^5, D = 2 in f32 both pass kernels (narrow SIMT, wide tensor
@@ -407,10 +413,10 @@ def phase_parity(dev) -> dict:
     print(f"time gram_chol_inv f32 M={M}: kernel {out['gram_chol_inv']['ms']:.3f} ms, "
           f"plain {out['gram_chol_inv']['plain_ms']:.3f} ms")
 
-    def epilogue_inputs(m, b, dtype):
+    def epilogue_inputs(m, b, dtype, d=D):
         R = rng.standard_normal((m, m)) / math.sqrt(m)
         t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
-        return (t(rng.standard_normal((b, D))), t(rng.standard_normal((m, D))),
+        return (t(rng.standard_normal((b, d))), t(rng.standard_normal((m, d))),
                 t(R @ R.T + 0.1 * np.eye(m)), t(rng.standard_normal(m)))
 
     # kernel B, f64: 1e-9 absolute; M and B ragged against every tile
@@ -434,13 +440,11 @@ def phase_parity(dev) -> dict:
               f"var {evar:.3e} <= 1e-4")
         if name == "se":
             out["svgp_data_epilogue"] = {"max_abs_err": max(max_abs(mu, mu0), max_abs(var, var0))}
-    out["svgp_data_epilogue"]["ms"] = cuda_ms(
-        lambda: svgp_epilogue.svgp_data_epilogue(*args32, se), 10)
-    out["svgp_data_epilogue"]["plain_ms"] = cuda_ms(
-        lambda: svgp_epilogue.svgp_data_epilogue_plain(*args32, se), 10)
-    print(f"time svgp_data_epilogue f32 M={M} B={BLOCK}: "
-          f"kernel {out['svgp_data_epilogue']['ms']:.3f} ms, "
-          f"plain {out['svgp_data_epilogue']['plain_ms']:.3f} ms")
+    parity_epilogue_parts(maps, epilogue_inputs, "fwd")
+    se = maps["se"]
+    out["svgp_data_epilogue"].update(time_epilogue_parts(
+        "svgp_data_epilogue", lambda part: svgp_epilogue.svgp_data_epilogue(*args32, se, part),
+        lambda: svgp_epilogue.svgp_data_epilogue_plain(*args32, se), 10))
 
     # kernel 4, (L, L⁻¹) of a given matrix: the Gram of kernel A's inputs
     # plus jitter, with a small asymmetry (the kernel factors sym(A)); f64
@@ -482,8 +486,8 @@ def phase_parity(dev) -> dict:
     # version: the relative error max|d| / max|plain| of each cotangent.
     # f64 1e-9; f32 1e-3 (sums over 2048 rows and 16384 points in other
     # orders, with signed cotangents that cancel)
-    def bwd_inputs(m, b, dtype):
-        Xs, Zs, Se, ae = epilogue_inputs(m, b, dtype)
+    def bwd_inputs(m, b, dtype, d=D):
+        Xs, Zs, Se, ae = epilogue_inputs(m, b, dtype, d)
         t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
         return Xs, Zs, Se, ae, t(rng.standard_normal(b)), t(rng.standard_normal(b))
 
@@ -507,15 +511,81 @@ def phase_parity(dev) -> dict:
               + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)) + " <= 1e-3")
         if name == "se":
             out["svgp_data_epilogue_bwd"] = {"max_abs_err": worst}
-    out["svgp_data_epilogue_bwd"]["ms"] = cuda_ms(
-        lambda: svgp_epilogue.svgp_data_epilogue_bwd(*bargs32, se), 5)
-    out["svgp_data_epilogue_bwd"]["plain_ms"] = cuda_ms(
-        lambda: svgp_epilogue.svgp_data_epilogue_bwd_plain(*bargs32, se), 5)
-    print(f"time svgp_data_epilogue_bwd f32 M={M} B={BLOCK}: "
-          f"kernel {out['svgp_data_epilogue_bwd']['ms']:.3f} ms, "
-          f"plain {out['svgp_data_epilogue_bwd']['plain_ms']:.3f} ms")
+    parity_epilogue_parts(maps, bwd_inputs, "bwd")
+    out["svgp_data_epilogue_bwd"].update(time_epilogue_parts(
+        "svgp_data_epilogue_bwd",
+        lambda part: svgp_epilogue.svgp_data_epilogue_bwd(*bargs32, se, part),
+        lambda: svgp_epilogue.svgp_data_epilogue_bwd_plain(*bargs32, se), 5))
     out["gram_matvec"] = parity_gram_matvec(dev, maps)
     return out
+
+
+# rows 2 and 3 in f32: (M, B, D) of the parity checks of both kernels of
+# each, the path's block first, then M and B ragged against the 128-wide
+# tiles and 128-point blocks of the tensor-core kernels (and D below 8)
+EPI_PARITY = ((M, BLOCK, D), (M + 2, BLOCK + 1, D), (150, 1001, 3))
+
+
+def parity_epilogue_parts(maps: dict, inputs, which: str) -> None:
+    """Rows 2 (``which`` "fwd") and 3 ("bwd") in f32: the tensor-core kernel
+    ("mma", the path's) and the SIMT kernel ("simt") on every map at each
+    shape of ``EPI_PARITY``, against the plain version in f64 on the same
+    inputs and (at D = 8) in f32: relative to the largest entry, 1e-4
+    forward and 1e-3 pullback, today's limits; each run twice, equal
+    bitwise.  ``inputs(m, b, dtype, d)`` makes the arguments."""
+    limit = 1e-4 if which == "fwd" else 1e-3
+    fn = svgp_epilogue.svgp_data_epilogue if which == "fwd" else svgp_epilogue.svgp_data_epilogue_bwd
+    plain = (svgp_epilogue.svgp_data_epilogue_plain if which == "fwd"
+             else svgp_epilogue.svgp_data_epilogue_bwd_plain)
+    what = "svgp_data_epilogue" + ("" if which == "fwd" else "_bwd")
+    for m, b, d in EPI_PARITY:
+        args = inputs(m, b, torch.float32, d)
+        a64 = [a.double() for a in args]
+        for name, kmap in maps.items():
+            ref64 = plain(*a64, kmap)
+            ref32 = plain(*args, kmap) if d == D else None
+            for part in ("mma", "simt"):
+                got = fn(*args, kmap, part)
+                again = fn(*args, kmap, part)
+                torch.cuda.synchronize()
+                e64 = max(rel_err(g, r) for g, r in zip(got, ref64))
+                e32 = max(rel_err(g, r) for g, r in zip(got, ref32)) if ref32 else 0.0
+                same = all(torch.equal(g, a) for g, a in zip(got, again))
+                check(e64 <= limit and e32 <= limit and same,
+                      f"{what} {part} f32 M={m} B={b} D={d} {name}: rel err vs plain f64 "
+                      f"{e64:.3e}" + (f", vs plain f32 {e32:.3e}" if ref32 else "")
+                      + f" <= {limit:g}, two runs equal bitwise")
+
+
+def epilogue_bounds(which: str, m: int = M, b: int = BLOCK, d: int = D):
+    """((ms, what bounds it) by the tensor-core count, (ms, ...) by the SIMT
+    count) of row 2 ("fwd") or row 3 ("bwd") in f32 at (m, b, d): the
+    forward's quadratic form over Se's triangle is m²b/2 FMAs, the
+    pullback's Se·K0 m²b and S̄e m²b/2; as 3xTF32 (three TF32 products an
+    FMA) on the tensor cores, or as f32 FMAs on the SIMT units.  Beside
+    them: K0's 3d + 1 flops and one exp an entry, mu (or āe) m·b FMAs, and
+    each input read once and each output written once."""
+    fmas = m * m * b / 2 if which == "fwd" else 1.5 * m * m * b
+    simt = 2 * m * b + b * m * (3 * d + 1)
+    nbytes = (4 * (b * d + m * d + m * m + m + 2 * b) if which == "fwd"
+              else 4 * (2 * (b * d + m * d + m * m + m) + 2 * b))
+    return (bound(simt, nbytes, b * m, tc_flops=2 * 3 * fmas),
+            bound(simt + 2 * fmas, nbytes, b * m))
+
+
+def time_epilogue_parts(what: str, run, run_plain, reps: int) -> dict:
+    """Row 2's or row 3's kernels at the path's shape (f32, M = 2048,
+    B = 16384, D = 8): the tensor-core kernel, the SIMT kernel and the plain
+    version in one run (CUDA-event medians), beside both bounds."""
+    which = "fwd" if what == "svgp_data_epilogue" else "bwd"
+    ms = {part: cuda_ms(lambda: run(part), reps) for part in ("mma", "simt")}
+    plain_ms = cuda_ms(run_plain, reps)
+    (b_ms, b_by), (s_ms, s_by) = epilogue_bounds(which)
+    print(f"time {what} f32 M={M} B={BLOCK} D={D}: mma {ms['mma']:.3f} ms, simt "
+          f"{ms['simt']:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+          f"SIMT bound {s_ms:.3f} ms ({s_by})")
+    return {"ms": ms["mma"], "ms_simt": ms["simt"], "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_ms_simt": s_ms}
 
 
 def plain_pullback(Xq, Zk, V, W, kmap, rows: int):
@@ -1966,9 +2036,9 @@ def main() -> None:
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),
-        "svgp_data_epilogue": ("approximategps_tpu_torch/csrc/svgp_epilogue.cu",
+        "svgp_data_epilogue": ("approximategps_tpu_torch/csrc/svgp_epilogue_mma.cu",
                                "approximategps_tpu/ops/svgp_epilogue.py:201"),
-        "svgp_data_epilogue_bwd": ("approximategps_tpu_torch/csrc/svgp_epilogue_bwd.cu",
+        "svgp_data_epilogue_bwd": ("approximategps_tpu_torch/csrc/svgp_epilogue_bwd_mma.cu",
                                    "approximategps_tpu/ops/svgp_epilogue.py:271"),
         "chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
                      "approximategps_tpu/ops/panel_chol.py:338"),
@@ -1989,24 +2059,25 @@ def main() -> None:
         "approximategps_tpu/ops/batched_chol.py:1134"]},
             # row 5 is three kernels: the narrow pass, the wide pass and the
             # self-Gram's one-pass pullback, all counted on one counter
+            # rows 2 and 3: the f32 tensor-core kernel (the path's) and the
+            # SIMT kernel (f64, and f32 at D > 8), each on one counter
+            "svgp_data_epilogue": {"sources_also": [
+                "approximategps_tpu_torch/csrc/svgp_epilogue.cu",
+                "approximategps_tpu_torch/csrc/svgp_epilogue_mma.cuh"]},
+            "svgp_data_epilogue_bwd": {"sources_also": [
+                "approximategps_tpu_torch/csrc/svgp_epilogue_bwd.cu",
+                "approximategps_tpu_torch/csrc/svgp_epilogue_mma.cuh"]},
             "gram_matvec": {"sources_also": [
                 "approximategps_tpu_torch/csrc/gram_matvec_mma.cu",
                 "approximategps_tpu_torch/csrc/gram_matvec_self_bwd.cu"]}}
-    # bounds of kernels A, B, 3 and 4 at the shapes phase 3 timed them (f32,
-    # M = 2048, B = 16384): a Cholesky and a triangular inverse are M³/3
-    # FMAs each; var = diag(K0ᵀ Se K0) over Se's upper triangle M²B/2 FMAs;
-    # the pullback Se·K0 (M²B) and the symmetric S̄e (M²B/2); an FMA is two
-    # flops, a kernel entry 3D + 1 flops and one exp
+    # bounds of kernels A and 4 at the shapes phase 3 timed them (f32,
+    # M = 2048): a Cholesky and a triangular inverse are M³/3 FMAs each; an
+    # FMA is two flops, a kernel entry 3D + 1 flops and one exp.  Rows 2 and
+    # 3 bring theirs from phase 3 (epilogue_bounds)
     chol = 2 * 2 * M ** 3 / 3
-    gram_b = (BLOCK * M * (3 * D + 1), BLOCK * M)
     bounds = {
         "gram_chol_inv": bound(chol + M * M / 2 * (3 * D + 1), 4 * (M * D + 2 * M * M), M * M / 2),
         "chol_inv": bound(chol, 4 * 3 * M * M),
-        "svgp_data_epilogue": bound(2 * (M * M * BLOCK / 2 + M * BLOCK) + gram_b[0],
-                                    4 * (BLOCK * D + M * D + M * M + M + 2 * BLOCK), gram_b[1]),
-        "svgp_data_epilogue_bwd": bound(2 * 1.5 * M * M * BLOCK + gram_b[0],
-                                        4 * (2 * (BLOCK * D + M * D + M * M + M) + 2 * BLOCK),
-                                        gram_b[1]),
     }
     kernels = []
     for k, (src, rep) in meta.items():

@@ -105,13 +105,17 @@ def test_torch_cuda_slice_runs_through_both_kernels(cuda):
 
 
 def test_torch_cuda_sweep_raises_where_the_epilogue_tile_does_not_fit(cuda):
-    """No tiling over M yet: the sweep raises instead of serving the
-    blocks through the plain route."""
-    post = _posterior(cuda, torch.float32)
-    xs = torch.zeros((100, 3), device=cuda)
+    """The SIMT forward (f64 here) has no tiling over M: where its tile does
+    not fit, the sweep raises instead of serving the blocks through the
+    plain route.  The f32 tensor-core forward has no such tile and serves."""
+    xs = torch.zeros((100, 3), dtype=torch.float64, device=cuda)
     with tgp.config_context(epilogue_block_b=2):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            post.predict_blocks(xs)
+            _posterior(cuda, torch.float64).predict_blocks(xs)
+        before = svgp_epilogue.svgp_data_epilogue.launches
+        mu, var = _posterior(cuda, torch.float32).predict_blocks(xs.float())
+        assert svgp_epilogue.svgp_data_epilogue.launches == before + 1
+        assert torch.isfinite(mu).all() and torch.isfinite(var).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -172,6 +176,103 @@ def test_torch_cuda_epilogue_autograd_launches_both_kernels(cuda):
         torch.ones(B, dtype=torch.float64, device=cuda), kmap)
     for t, r in zip(ts, ref):
         torch.testing.assert_close(t.grad, r, atol=1e-9, rtol=1e-9)
+
+
+# -- rows 2 and 3 in f32: the tensor-core kernels beside the SIMT ones ------
+
+
+def _epilogue_args(M, B, D, dev, seed):
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((M, M)) / np.sqrt(M)
+    return [_t(a, dev, torch.float32) for a in (
+        rng.standard_normal((B, D)) + 3.0, rng.standard_normal((M, D)) + 3.0,
+        R @ R.T + 0.1 * np.eye(M), rng.standard_normal(M), rng.standard_normal(B),
+        rng.standard_normal(B))]
+
+
+def _rel(a, b):
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("part", ["mma", "simt"])
+@pytest.mark.parametrize("shape", [(150, 1001, 3), (2050, 4097, 8), (64, 130, 1)],
+                         ids=["150x1001", "2050x4097", "64x130"])
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_svgp_epilogue_f32_parts_match_plain(cls, shape, part, cuda):
+    """Both f32 forwards and pullbacks, M and B ragged against the 128-wide
+    tiles and 128-point blocks, against the plain versions in f64 on the same
+    inputs where the kernel takes r² by exact differences (the tensor-core
+    kernels) and in f32 where it shares the plain version's |x|² identity
+    (the SIMT kernels): relative to the largest entry, 1e-4 forward and 1e-3
+    pullback (sums over M and B in other orders, signed cotangents that
+    cancel); one launch a call; two runs equal bitwise; S̄e exactly
+    symmetric.  At D = 1 some points lie very close to an inducing point,
+    where the identity loses the digits of r² and Matérn-1/2's g′ ∝ 1/r
+    carries that into X̄s of both identity routes; the tensor-core kernels,
+    which take exact differences, stay within the limit of f64 there."""
+    M, B, D = shape
+    args = _epilogue_args(M, B, D, cuda, seed=10)
+    a64 = [a.double() for a in args] if part == "mma" else args
+    kmap = cls().kernel_map()
+    before = svgp_epilogue.svgp_data_epilogue.launches
+    mu, var = svgp_epilogue.svgp_data_epilogue(*args[:4], kmap, part)
+    assert svgp_epilogue.svgp_data_epilogue.launches == before + 1
+    mu0, var0 = svgp_epilogue.svgp_data_epilogue_plain(*a64[:4], kmap)
+    assert _rel(mu, mu0) <= 1e-4 and _rel(var, var0) <= 1e-4
+    again = svgp_epilogue.svgp_data_epilogue(*args[:4], kmap, part)
+    assert torch.equal(mu, again[0]) and torch.equal(var, again[1])
+    before = svgp_epilogue.svgp_data_epilogue_bwd.launches
+    got = svgp_epilogue.svgp_data_epilogue_bwd(*args, kmap, part)
+    assert svgp_epilogue.svgp_data_epilogue_bwd.launches == before + 1
+    ref = svgp_epilogue.svgp_data_epilogue_bwd_plain(*a64, kmap)
+    for name, g, r in zip(("Xs", "Zs", "Se", "ae"), got, ref):
+        assert _rel(g, r) <= 1e-3, name
+    again = svgp_epilogue.svgp_data_epilogue_bwd(*args, kmap, part)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[2], got[2].T)
+
+
+def test_torch_cuda_epilogue_autograd_f32_launches_the_mma_kernels(cuda):
+    """f32 autograd through the Function: one launch of each tensor-core
+    kernel (the default part at D <= 8), gradients as the closed form's."""
+    rng = np.random.default_rng(11)
+    M, B = 200, 700
+    S0 = rng.standard_normal((M, M)) / np.sqrt(M)
+    ts = [_t(a, cuda, torch.float32).requires_grad_() for a in (
+        rng.standard_normal((B, 5)), rng.standard_normal((M, 5)), 0.5 * (S0 + S0.T),
+        rng.standard_normal(M))]
+    assert svgp_epilogue.epilogue_part(M, 5, torch.float32) == "mma"
+    kmap = tk.Matern32Kernel().kernel_map()
+    c0 = svgp_epilogue.svgp_data_epilogue.launches
+    c1 = svgp_epilogue.svgp_data_epilogue_bwd.launches
+    mu, var = svgp_epilogue.svgp_data_epilogue(*ts, kmap)
+    (mu.sum() + var.sum()).backward()
+    assert svgp_epilogue.svgp_data_epilogue.launches == c0 + 1
+    assert svgp_epilogue.svgp_data_epilogue_bwd.launches == c1 + 1
+    ones = torch.ones(B, dtype=torch.float32, device=cuda)
+    ref = svgp_epilogue.svgp_data_epilogue_bwd_plain(*(t.detach() for t in ts), ones, ones, kmap)
+    for t, r in zip(ts, ref):
+        assert _rel(t.grad, r) <= 1e-3
+
+
+def test_torch_cuda_epilogue_parts_raise_on_what_they_do_not_take(cuda):
+    """The tensor-core kernels take f32 with D <= 8 only; the SIMT forward
+    needs its tile in shared memory; a part that does not exist raises."""
+    kmap = tk.SqExponentialKernel().kernel_map()
+    f64 = [a.double() for a in _epilogue_args(64, 100, 3, cuda, seed=12)]
+    d9 = _epilogue_args(64, 100, 9, cuda, seed=12)
+    for args in (f64, d9):
+        with pytest.raises(ValueError, match="mma"):
+            svgp_epilogue.svgp_data_epilogue(*args[:4], kmap, "mma")
+        with pytest.raises(ValueError, match="mma"):
+            svgp_epilogue.svgp_data_epilogue_bwd(*args, kmap, "mma")
+    f32 = _epilogue_args(64, 100, 3, cuda, seed=12)
+    with pytest.raises(ValueError, match="wmma"):
+        svgp_epilogue.svgp_data_epilogue(*f32[:4], kmap, "wmma")
+    with tgp.config_context(epilogue_block_b=2):
+        with pytest.raises(ValueError, match="no tile"):
+            svgp_epilogue.svgp_data_epilogue(*f32[:4], kmap, "simt")
+        svgp_epilogue.svgp_data_epilogue(*f32[:4], kmap)  # the mma default serves
 
 
 def test_torch_cuda_centered_posterior_runs_through_chol_inv(cuda):

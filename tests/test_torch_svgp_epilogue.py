@@ -77,8 +77,10 @@ def test_torch_svgp_epilogue_cpu_takes_plain_version(monkeypatch):
 
 
 def test_torch_epilogue_block_b_fits_shared_memory():
-    """The tile the kernel takes: 16 points where the (16, M) K0 tile fits
-    the shared-memory budget, fewer where it does not, none past that."""
+    """The tile the SIMT forward takes (f64, and f32 with D > 8): 16 points
+    where the (16, M) K0 tile fits the shared-memory budget, fewer where it
+    does not, none past that.  The f32 tensor-core forward (D <= 8) keeps
+    no tile of M, so it takes every M these do and those past them."""
     assert svgp_epilogue.epilogue_block_b(2048, 8, torch.float32) == 16
     assert svgp_epilogue.epilogue_block_b(2048, 8, torch.float64) == 8
     assert svgp_epilogue.epilogue_block_b(6000, 8, torch.float32) == 8
@@ -89,3 +91,7 @@ def test_torch_epilogue_block_b_fits_shared_memory():
             bb = svgp_epilogue.epilogue_block_b(M, 8, dtype)
             size = torch.empty((), dtype=dtype).element_size()
             assert svgp_epilogue._smem_bytes(bb, M, 8, size) <= 227 * 1024
+    for M in (64, 2048, 6000, 1 << 16):
+        assert svgp_epilogue.epilogue_part(M, 8, torch.float32) == "mma"
+        part64 = svgp_epilogue.epilogue_part(M, 8, torch.float64)
+        assert part64 == ("simt" if svgp_epilogue.epilogue_block_b(M, 8, torch.float64) else None)

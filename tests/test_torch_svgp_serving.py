@@ -155,10 +155,19 @@ def test_torch_epilogue_gate_raises_on_the_kernel_device():
     assert tsvgp._epilogue_ready(other_prior, z, cpu_S, prefer=True) is None
     with pytest.raises(NotImplementedError, match="stationary kernel"):
         tsvgp._epilogue_ready(other_prior, z, cuda_S, prefer=True)
+    # the SIMT forward (f64, and f32 with D > 8) needs its (block_b, M) K0
+    # tile in shared memory; the f32 tensor-core forward (D <= 8) has none
+    cpu_S64 = torch.zeros((1, 1), dtype=torch.float64)
+    cuda_S64 = SimpleNamespace(is_cuda=True, dtype=torch.float64, device=torch.device("cuda"))
+    z9 = torch.zeros((2048, 9), dtype=torch.float32)
     with tgp.config_context(epilogue_block_b=2):
-        assert tsvgp._epilogue_ready(se_prior, z, cpu_S, prefer=True) is None
-        with pytest.raises(NotImplementedError, match="no tiling over M"):
-            tsvgp._epilogue_ready(se_prior, z, cuda_S, prefer=True)
+        assert tsvgp._epilogue_ready(se_prior, z, cuda_S, prefer=True)[0] == kmap
+        assert tsvgp._epilogue_ready(se_prior, z, cpu_S, prefer=True)[0] == kmap
+        for zz, S in ((z, cpu_S64), (z9, cpu_S)):
+            assert tsvgp._epilogue_ready(se_prior, zz, S, prefer=True) is None
+        for zz, S in ((z, cuda_S64), (z9, cuda_S)):
+            with pytest.raises(NotImplementedError, match="no tiling over M"):
+                tsvgp._epilogue_ready(se_prior, zz, S, prefer=True)
     with tgp.config_context(data_term_mode="plain"):
         assert tsvgp._epilogue_ready(other_prior, z, cuda_S, prefer=True) is None
     with tgp.config_context(use_kernels=False):
