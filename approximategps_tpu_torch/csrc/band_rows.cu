@@ -1,5 +1,5 @@
-// Vecchia band rows from prebuilt masked Grams, one window to a team of four
-// threads.
+// Vecchia band rows from prebuilt masked Grams, one window to the lanes of a
+// warp, the window's triangle in their registers.
 //
 // Replaces approximategps_tpu/ops/batched_chol.py::batched_chol_solve_band
 // (_band_forward, _kernel): for window n, given Kw (k x k, symmetric, its
@@ -13,36 +13,147 @@
 // This is the masked math of ops/batched_chol.py (_masked_chol_factor,
 // _masked_spd_solve, _band_from_solve), entry for entry: the factor is the
 // k x k one with floors against Kw's own diagonal and F a dot product after
-// the solves, not the last pivot of the bordered (k+1) factor of
-// vecchia_band.cu, which rounds differently.  Any B (the ragged last block
-// is masked), 1 <= k <= 64, f32 or f64 computed in the input type; Kw, kni
-// and kdiag through strides, only Kw's lower triangle read; out (B, k+1)
-// row-major.
+// the solves.  Any B (the ragged last block is masked), 1 <= k <= 64, f32 or
+// f64 computed in the input type; Kw, kni and kdiag through strides, only
+// Kw's lower triangle used; out (B, k+1) row-major.
 //
 // What bounds it on the H100: bytes.  At k = 32 a window reads the triangle
 // (528 values), kni and kdiag (2.2 KB in f32) and writes 132 bytes, against
-// about 7e3 FMAs (the factor's k^3/6, two substitutions of k^2/2): about
-// 3 FMAs a byte, where the card's f32 units need 20 before they bind.
+// about 7e3 FMAs: about 3 FMAs a byte, where the card's f32 units need 20
+// before they bind.  What held the earlier team-of-four kernel at 12x its
+// bound was latency: eight windows a one-warp block, each window's triangle
+// in shared memory (11 warps an SM at k = 32 in f32, 3 at k = 64), a chain of
+// four-lane shuffle sums and two __syncwarp a group of four columns, and
+// loads that touched eight windows 4 KB apart in one instruction.
 //
-// Design: that of vecchia_band.cu (vecchia_window.cuh's team of TEAM = 4
-// lanes a window, 8 windows a warp, one warp a block, a window's values in
-// dynamic shared memory in the [entry][window] layout), so that the
-// triangle's column dots split over the team.  The triangle is read from
-// global memory once, in place of the Gram that vecchia_band.cu computes,
-// and factored up-looking in place: row i's Kw entries are solved against
-// rows j < i four columns at a time.  Per window: the triangle, the column
-// scales, kni and b (k(k+1)/2 + 3k values: 18 KB at k = 64 in f64, 145 KB a
-// block, inside the 227 KB a block may have).
+// Design.  The window is padded to a template width KW (8, 16, 32 or 64;
+// rows k..KW-1 are identity rows with zero coupling, which change no entry
+// of rows < k) and owned by LPW = KW / 2 lanes: lane r holds rows r and
+// r + LPW, in registers whose index the unrolled loops fix at compile time
+// (row r's entries below LPW only), and a warp takes 64 / KW windows.  Two
+// rows a lane, one short and one long, cut the work a window costs the warp:
+// a column's updates run over the short row's columns and the long one's,
+// 3/4 of what one row a lane over all KW lanes would issue, and the column's
+// pivot, shuffles and barrier serve two windows at KW = 32.
+//   - Load: a contiguous window (the layout of vecchia._window_rows) is read
+//     as 16-byte vectors across its lanes (one warp instruction covers 512
+//     consecutive bytes; vectors wholly above the diagonal are skipped) into
+//     a staging tile in shared memory, from which each lane takes its rows;
+//     any other stride reads the lower triangle entry by entry.
+//   - Factor, right-looking: for column j the pivot's lane floors it and
+//     broadcasts 1/pivot (0 where deflated) with one shuffle; each lane scales
+//     its own entries of column j, publishes them in a double-buffered column
+//     of shared memory (one __syncwarp a column), and updates its rows'
+//     trailing entries from that column read back as 16-byte broadcasts.
+//     The forward substitution rides along: w_j is published in the column's
+//     slot j, and each lane adds L_ij w_j to its rows' running sums.
+//   - Back substitution: the lanes write L once to the staging tile and read
+//     it back by columns, so lane i holds column i of L; b_t goes out by one
+//     shuffle a step and each lane adds L_ti b_t to its own sum.
+//   - F: a shuffle sum of kni_i b_i over the window's lanes.
+// The masked math's decisions are the same (the pivot against 8 eps |Kw_jj|,
+// deflation, dead coordinates 0 in both substitutions, F's floor); the sums
+// are taken in another order (right-looking updates in place of the plain
+// version's column dots).  The factor's column is scaled by the pivot's
+// reciprocal, and both substitutions divide by the pivot as the plain
+// version does (a quotient from the reciprocal and one correction): with a
+// product by the reciprocal there, chip_smoke.py phase 10's f32 windows at
+// k = 32 (ill-conditioned, many pivots deflated) came out 5.2e-5 of the
+// largest entry from the f32 plain version, with the quotients 8e-9; with
+// a correctly rounded sqrt and division (branches and calls) in their place,
+// 10^6 windows took 4.5 ms against about 3.4 (PERF.md section 6).  The work
+// is instructions more than bytes: a lane's share of a window at k = 32 is
+// some 500 FMAs over the columns of its row (the triangle's upper part
+// included, for indices fixed at compile time), two shuffles, a sqrt and
+// its reciprocal a column, and one quotient a column in each substitution.
+//
+// Occupancy (ptxas -v in the build log): at KW = 32 in f32 a lane holds 48
+// entries of rows and then 48 of columns, and __launch_bounds__ asks for six
+// four-warp blocks an SM (at most 85 registers): 24 warps an SM, 48 windows,
+// bound by registers and shared memory alike (4.4 KB a window: the staging
+// tile and two columns; 215 KB for 48).  At KW = 64 (96 registers of rows in
+// f32, 192 in f64) shared memory bounds it: 17 KB a window in f32 (13
+// windows an SM), 34 KB in f64 (6).
 
 #include <cuda_runtime.h>
 
-#include "vecchia_window.cuh"
+#include <cstdint>
 
 namespace {
 
-using namespace agp::vecchia;
+constexpr unsigned kFull = 0xffffffffu;
 
-inline long long per_window(int k) { return (long long)k * (k + 1) / 2 + 3LL * k; }
+template <typename T>
+struct Eps;
+template <>
+struct Eps<float> {
+  static constexpr float value = 1.1920928955078125e-07f;
+};
+template <>
+struct Eps<double> {
+  static constexpr double value = 2.220446049250313e-16;
+};
+
+template <typename T, int KW>
+struct Shape {
+  static constexpr int LPW = KW / 2;             // lanes a window: two rows a lane
+  static constexpr int G = 32 / LPW;             // windows a warp
+  static constexpr int RPL = KW / LPW;           // rows a lane
+  static constexpr int WARPS = KW <= 32 ? 4 : 2;  // warps a block
+  static constexpr int LD = KW + 1;              // staging row pitch (odd: no bank conflicts)
+  static constexpr int SW = KW * (KW + 3);       // shared values a window: staging + 2 columns
+  static constexpr int V = 16 / sizeof(T);       // values a 16-byte vector
+  static constexpr int MIN_BLOCKS = sizeof(T) == 4 && KW <= 32 ? 6 : 1;
+};
+
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load16(const double* p, double (&v)[2]) {
+  const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = x.x;
+  v[1] = x.y;
+}
+__device__ __forceinline__ void lds16(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void lds16(const double* p, double (&v)[2]) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+}
+
+// sqrt(x) and about 1 / sqrt(x): in f32 from the hardware's reciprocal square
+// root, one Newton step and one correction of the root (a few FMAs in place
+// of the branches and calls of a correctly rounded sqrt and division); in
+// f64 correctly rounded
+__device__ __forceinline__ void sqrt_and_inv(float x, float& sq, float& inv) {
+  float r = rsqrtf(x);
+  r = r * fmaf(-0.5f * x * r, r, 1.5f);
+  sq = x * r;
+  sq = fmaf(fmaf(-sq, sq, x), 0.5f * r, sq);
+  inv = r;
+}
+__device__ __forceinline__ void sqrt_and_inv(double x, double& sq, double& inv) {
+  sq = sqrt(x);
+  inv = 1.0 / sq;
+}
+
+// num / d from inv, about 1 / d, and one correction of the quotient: the
+// quotient a division gives, bar the last bit at times
+template <typename T>
+__device__ __forceinline__ T quotient(T num, T d, T inv) {
+  const T q = num * inv;
+  return fma(fma(-q, d, num), inv, q);
+}
 
 template <typename T>
 struct RowsArgs {
@@ -53,111 +164,188 @@ struct RowsArgs {
   const T* kdiag;
   long long sdn;
   T* out;
-  int B, k;
+  int B, k, vec;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(32) band_rows_kernel(const RowsArgs<T> a) {
+template <typename T, int KW>
+__global__ void __launch_bounds__(32 * Shape<T, KW>::WARPS, Shape<T, KW>::MIN_BLOCKS)
+    band_rows_kernel(const RowsArgs<T> a) {
+  using S = Shape<T, KW>;
+  constexpr int LPW = S::LPW, RPL = S::RPL, LD = S::LD, V = S::V;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k = a.k;
-  const int lane = threadIdx.x % TEAM;
-  const int w = threadIdx.x / TEAM;
-  const long long n0 = (long long)blockIdx.x * W + w;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / LPW, r = lane % LPW;
+  const long long n0 = ((long long)blockIdx.x * S::WARPS + warp) * S::G + grp;
   const bool active = n0 < a.B;
   const long long n = active ? n0 : a.B - 1;
+  const int k = a.k;
+  T* const st = reinterpret_cast<T*>(smem_raw) + (long long)(warp * S::G + grp) * S::SW;
+  T* const cb = st + KW * LD;  // two columns of KW
 
-  // entry e of this team's window is at [e * W]
-  T* const Lt = reinterpret_cast<T*>(smem_raw) + w;  // rows of L, row i from i(i+1)/2
-  T* const cs = Lt + (long long)k * (k + 1) / 2 * W;  // 1 / pivot, 0 where deflated
-  T* const c = cs + k * W;                              // kni
-  T* const v = c + k * W;                               // w, then b in place
-
+  // stage the window's lower triangle
   const T* const kwn = a.kw + n * a.skn;
-  for (int i = 0; i < k; ++i)
-    for (int j = lane; j <= i; j += TEAM) Lt[(i * (i + 1) / 2 + j) * W] = kwn[i * a.ski + j * a.skj];
-  for (int t = lane; t < k; t += TEAM) c[t * W] = a.kni[n * a.scn + t * a.sct];
-  const T kd = a.kdiag[n * a.sdn];
+  if (a.vec) {
+    // vector q starts at entry (i, j) = divmod(q V, k); the lane's next one
+    // is LPW V entries on: no division in the loop
+    const int nv = k * k / V, step_i = LPW * V / k, step_j = LPW * V - step_i * k;
+    int i = r * V / k, j = r * V - i * k;
+    for (int q = r; q < nv; q += LPW) {
+      if (j + V <= k ? j <= i : true) {  // not wholly above the diagonal
+        T v[V];
+        load16(kwn + q * V, v);
+        int ii = i, jj = j;
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          st[ii * LD + jj] = v[u];
+          if (++jj == k) jj = 0, ++ii;
+        }
+      }
+      i += step_i;
+      j += step_j;
+      if (j >= k) j -= k, ++i;
+    }
+  } else {
+    for (int i = 0; i < k; ++i)
+      for (int j = r; j <= i; j += LPW) st[i * LD + j] = kwn[i * a.ski + j * a.skj];
+  }
   __syncwarp();
 
-  // the masked-column Cholesky, up-looking: row i of L = L_{<i}^-1 Kw[i][:i]
-  const T eps8 = T(8) * Eps<T>::value;
-  for (int i = 0; i < k; ++i) {
-    T* const row = Lt + i * (i + 1) / 2 * W;
-    int j = 0;
-    for (; j + 4 <= i; j += 4) {
-      const T* const r0 = Lt + j * (j + 1) / 2 * W;
-      const T* const r1 = r0 + (j + 1) * W;
-      const T* const r2 = r1 + (j + 2) * W;
-      const T* const r3 = r2 + (j + 3) * W;
-      T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
-      for (int t = lane; t < j; t += TEAM) {
-        const T x = row[t * W];
-        s0 = fma(x, r0[t * W], s0);
-        s1 = fma(x, r1[t * W], s1);
-        s2 = fma(x, r2[t * W], s2);
-        s3 = fma(x, r3[t * W], s3);
-      }
-      T a0 = row[j * W] - team_sum(s0);
-      T a1 = row[(j + 1) * W] - team_sum(s1);
-      T a2 = row[(j + 2) * W] - team_sum(s2);
-      T a3 = row[(j + 3) * W] - team_sum(s3);
-      const T l0 = a0 * cs[j * W];
-      a1 = fma(-l0, r1[j * W], a1);
-      const T l1 = a1 * cs[(j + 1) * W];
-      a2 = fma(-l1, r2[(j + 1) * W], fma(-l0, r2[j * W], a2));
-      const T l2 = a2 * cs[(j + 2) * W];
-      a3 = fma(-l2, r3[(j + 2) * W], fma(-l1, r3[(j + 1) * W], fma(-l0, r3[j * W], a3)));
-      const T l3 = a3 * cs[(j + 3) * W];
-      __syncwarp();  // every lane has read the entries it overwrites
-      row[(j + lane) * W] = lane == 0 ? l0 : lane == 1 ? l1 : lane == 2 ? l2 : l3;
-      __syncwarp();
-    }
-    for (; j < i; ++j) {
-      const T x = row[j * W] - team_dot(row, Lt + j * (j + 1) / 2 * W, j, lane);
-      __syncwarp();
-      if (lane == 0) row[j * W] = x * cs[j * W];
-      __syncwarp();
-    }
-    // the pivot, floored relative to Kw's own diagonal entry
-    const T aii = row[i * W];
-    const T d_raw = aii - team_dot(row, row, i, lane);
-    const T fl = eps8 * fabs(aii);
-    const T sq = sqrt(d_raw >= fl ? d_raw : fl);
-    __syncwarp();
-    if (lane == 0) {
-      row[i * W] = sq;
-      cs[i * W] = d_raw >= fl ? T(1) / sq : T(0);
-    }
-    __syncwarp();
+  // this lane's rows i = r + LPW q: entries c <= i (c < LPW (q + 1)); rows
+  // k..KW-1 are identity rows
+  T rows[RPL][KW], dg[RPL], cc[RPL], acc[RPL], w[RPL], piv[RPL], linv[RPL];
+  bool live[RPL];
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) {
+    const int i = r + LPW * q;
+#pragma unroll
+    for (int c = 0; c < LPW * (q + 1); ++c)
+      rows[q][c] = i < k ? (c <= i ? st[i * LD + c] : T(0)) : (c == i ? T(1) : T(0));
+    dg[q] = i < k ? st[i * LD + i] : T(1);
+    cc[q] = i < k ? a.kni[n * a.scn + i * a.sct] : T(0);
+    acc[q] = T(0);
+    w[q] = piv[q] = linv[q] = T(0);
+    live[q] = false;
   }
 
-  // w = L^-1 kni, then b = L^-T w in place; dead coordinates are 0
-  for (int i = 0; i < k; ++i) {
-    const T* const row = Lt + i * (i + 1) / 2 * W;
-    const T s = team_dot(row, v, i, lane);
-    if (lane == 0) v[i * W] = cs[i * W] != T(0) ? (c[i * W] - s) / row[i * W] : T(0);
+  // the masked-column Cholesky, right-looking, with w = L^-1 kni alongside
+  const T eps8 = T(8) * Eps<T>::value;
+#pragma unroll
+  for (int j = 0; j < KW; ++j) {
+    const int qj = j / LPW, rj = j % LPW;
+    T* const col = cb + (j & 1) * KW;
+    // the pivot (meaningful on lane rj), floored against Kw's own diagonal
+    const T d_raw = rows[qj][j];
+    const T fl = eps8 * fabs(dg[qj]);
+    const bool lv = d_raw >= fl;
+    T sq, inv;
+    sqrt_and_inv(lv ? d_raw : fl, sq, inv);
+    const T scale = __shfl_sync(kFull, lv ? inv : T(0), rj, LPW);
+    const T wj_own = lv ? quotient(cc[qj] - acc[qj], sq, inv) : T(0);
+    T l[RPL];
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      const int i = r + LPW * q;
+      l[q] = T(0);
+      if (j < LPW * (q + 1)) {
+        if (i > j) {
+          l[q] = rows[q][j] * scale;
+          rows[q][j] = l[q];
+          col[i] = l[q];
+        } else if (i == j) {
+          rows[q][j] = sq;
+          piv[q] = sq;
+          linv[q] = inv;
+          live[q] = lv;
+          w[q] = wj_own;
+          col[j] = wj_own;
+        }
+      }
+    }
     __syncwarp();
+    const T wj = col[j];
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) acc[q] = fma(l[q], wj, acc[q]);
+    // the trailing rows: rows[q][c] -= L_ij L_cj for c > j
+#pragma unroll
+    for (int c0 = (j + 1) / V * V; c0 < KW; c0 += V) {
+      T v[V];
+      lds16(col + c0, v);
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const int c = c0 + u;
+        if (c > j) {
+#pragma unroll
+          for (int q = 0; q < RPL; ++q)
+            if (c < LPW * (q + 1)) rows[q][c] = fma(-l[q], v[u], rows[q][c]);
+        }
+      }
+    }
   }
-  for (int i = k - 1; i >= 0; --i) {
-    // column i of L below the diagonal: L[t][i] at t(t+1)/2 + i
-    T s = T(0);
-    for (int t = i + 1 + lane; t < k; t += TEAM) s = fma(Lt[(t * (t + 1) / 2 + i) * W], v[t * W], s);
-    s = team_sum(s);
-    const T wi = v[i * W];
-    __syncwarp();
-    if (lane == 0)
-      v[i * W] = cs[i * W] != T(0) ? (wi - s) / Lt[(i * (i + 1) / 2 + i) * W] : T(0);
-    __syncwarp();
+
+  // L to the staging tile, read back by columns: lc[q][t] = L[t][i] for t > i
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) {
+    const int i = r + LPW * q;
+#pragma unroll
+    for (int c = 0; c < LPW * (q + 1); ++c)
+      if (c <= i) st[i * LD + c] = rows[q][c];
+  }
+  __syncwarp();
+  T lc[RPL][KW];
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) {
+    const int i = r + LPW * q;
+#pragma unroll
+    for (int t = LPW * q; t < KW; ++t) lc[q][t] = t > i ? st[t * LD + i] : T(0);
+  }
+
+  // b = L^-T w; dead coordinates are 0
+  T b[RPL], bacc[RPL];
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) b[q] = bacc[q] = T(0);
+#pragma unroll
+  for (int t = KW - 1; t >= 0; --t) {
+    const int qt = t / LPW, rt = t % LPW;
+    const T bt_own = live[qt] ? quotient(w[qt] - bacc[qt], piv[qt], linv[qt]) : T(0);
+    const T bt = __shfl_sync(kFull, bt_own, rt, LPW);
+    if (r == rt) b[qt] = bt;
+#pragma unroll
+    for (int q = 0; q < RPL; ++q)
+      if (t >= LPW * q) bacc[q] = fma(lc[q][t], bt, bacc[q]);
   }
 
   // F = kdiag - kni.b, floored; the band row
-  const T F_raw = kd - team_dot(c, v, k, lane);
+  T s = T(0);
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) s = fma(cc[q], b[q], s);
+#pragma unroll
+  for (int off = LPW / 2; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off, LPW);
+  s = __shfl_sync(kFull, s, 0, LPW);
+  const T kd = a.kdiag[n * a.sdn];
+  const T F_raw = kd - s;
   const T fF = eps8 * fabs(kd);
   const T u0 = T(1) / sqrt(F_raw > fF ? F_raw : fF);
   if (!active) return;
   T* const o = a.out + n * (k + 1);
-  for (int t = lane; t < k; t += TEAM) o[t] = -v[t * W] * u0;
-  if (lane == 0) o[k] = u0;
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) {
+    const int i = r + LPW * q;
+    if (i < k) o[i] = -b[q] * u0;
+  }
+  if (r == 0) o[k] = u0;
+}
+
+template <typename T, int KW>
+cudaError_t launch(const RowsArgs<T>& a, cudaStream_t stream) {
+  using S = Shape<T, KW>;
+  const size_t bytes = (size_t)S::WARPS * S::G * S::SW * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(band_rows_kernel<T, KW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const long long per_block = (long long)S::WARPS * S::G;
+  const unsigned blocks = (unsigned)((a.B + per_block - 1) / per_block);
+  band_rows_kernel<T, KW><<<blocks, 32 * S::WARPS, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -165,15 +353,18 @@ int band_rows(const void* kw, long long skn, long long ski, long long skj, const
               long long scn, long long sct, const void* kdiag, long long sdn, void* out, int B,
               int k, void* stream) {
   if (B < 1 || k < 1 || k > 64) return cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(T);
+  // a contiguous window, 16-byte aligned, whose k^2 values are whole vectors
+  const int vec = skj == 1 && ski == k && skn == (long long)k * k && (k * k) % V == 0 &&
+                  reinterpret_cast<std::uintptr_t>(kw) % 16 == 0;
   const RowsArgs<T> a{static_cast<const T*>(kw), skn, ski, skj, static_cast<const T*>(kni),
-                      scn, sct, static_cast<const T*>(kdiag), sdn, static_cast<T*>(out), B, k};
-  const size_t bytes = (size_t)(per_window(k) * W * (long long)sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(band_rows_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((B + W - 1) / W);
-  band_rows_kernel<T><<<blocks, 32, bytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+                      scn, sct, static_cast<const T*>(kdiag), sdn, static_cast<T*>(out), B, k,
+                      vec};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 8) return launch<T, 8>(a, s);
+  if (k <= 16) return launch<T, 16>(a, s);
+  if (k <= 32) return launch<T, 32>(a, s);
+  return launch<T, 64>(a, s);
 }
 
 }  // namespace
@@ -187,7 +378,7 @@ int band_rows(const void* kw, long long skn, long long ski, long long skj, const
 
 extern "C" {
 
-// Kw (n, i, j) at kw[n*skn + i*ski + j*skj] (its lower triangle read), kni
+// Kw (n, i, j) at kw[n*skn + i*ski + j*skj] (its lower triangle used), kni
 // (n, t) at kni[n*scn + t*sct], kdiag (n) at kdiag[n*sdn], out (B, k+1)
 // row-major.  Returns a cudaError_t.
 int AGP_BAND_ROWS_ENTRY(const void* kw, long long skn, long long ski, long long skj,

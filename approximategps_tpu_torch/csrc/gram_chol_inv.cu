@@ -20,7 +20,7 @@
 //
 // What bounds it on the H100: the factorization is a chain of M/P dependent
 // panel steps (P = 64), so its time is the sum of each step's critical path,
-// not its ~M^3 / 1.5 FMAs.  The TPU kernel relies on its grid running in
+// not its ~M^3 / 3 FMAs.  The TPU kernel relies on its grid running in
 // order; CUDA blocks run in no order, so the host loop below launches, per
 // panel k (columns c0 = kP .. c0 + P):
 //   (a) panel_partial + panel_finish: the panel of K (the Gram generated from

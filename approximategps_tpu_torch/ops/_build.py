@@ -23,7 +23,7 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library", "check"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("gram_chol_inv.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "svgp_epilogue_mma.cu",
+_SOURCES = ("gram_chol_inv.cu", "gram_chol_inv_mma.cu", "svgp_epilogue.cu", "svgp_epilogue_bwd.cu", "svgp_epilogue_mma.cu",
             "svgp_epilogue_bwd_mma.cu", "gram_matvec.cu",
             "gram_matvec_f64.cu", "gram_matvec_mma.cu", "gram_matvec_self_bwd.cu", "vecchia_band.cu", "vecchia_band_f64.cu", "vecchia_band_bwd.cu",
             "vecchia_band_bwd_f64.cu", "band_rows.cu", "band_rows_f64.cu", "stationary_gram.cu",
@@ -48,6 +48,9 @@ _SIGNATURES = {
     "agp_chol_inv_f64": ((_p, _p, _p, _p, _i, _i, _p), _i),
     # Mp -> scratch elements (both factorizations)
     "agp_gram_chol_inv_scratch": ((_i,), ctypes.c_longlong),
+    # the f32 gram-fused factorization with one launch a panel step: as agp_gram_chol_inv_f32
+    "agp_gram_chol_inv_mma_f32": ((_p, _p, _p, _p, _p, _i, _i, _i, _i, _p), _i),
+    "agp_gram_chol_inv_mma_scratch": ((_i,), ctypes.c_longlong),
     # xs, zs, se, ae, mu, var, B, M, D, block_b, kmap, stream
     "agp_svgp_epilogue_f32": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p), _i),
     "agp_svgp_epilogue_f64": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p), _i),

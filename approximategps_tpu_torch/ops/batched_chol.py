@@ -34,7 +34,8 @@ on its own.
 kni, kdiag), as the windowed tier builds them for kernels that do not unwrap
 to a map of the band kernel, or for noise that is not a scalar.  Its
 autograd Function's forward, :func:`batched_chol_solve_band_pass`, launches
-the hand-written kernel ``csrc/band_rows.cu`` for a CUDA tensor (or raises)
+the hand-written kernel ``csrc/band_rows.cu`` (a window to the lanes of a
+warp, its triangle in their registers) for a CUDA tensor (or raises)
 and runs :func:`masked_chol_solve_band_math`, the plain masked-column math
 (the JAX package's XLA ``batched_chol_solve_band_unrolled``), for a CPU
 tensor; its backward is the closed-form :func:`band_bwd` on both devices,

@@ -5,10 +5,15 @@
 ``gram_chol_inv(Zs, sig2, jitter, kmap)`` returns L = chol(σ²·g(r²(Zs, Zs))
 + jitter·I) and J = L⁻¹; ``chol_inv(A)`` returns L = chol(sym(A)) and
 J = L⁻¹ for a given SPD matrix.  Both are (M, M) with exact zeros above the
-diagonal.  On a CUDA tensor each launches the hand-written kernel of
-``csrc/gram_chol_inv.cu`` (one host loop over 64-wide panels, which reads
-the Gram panel from Zs or A's panel; see the note there); on a CPU tensor
-each runs its plain version.  Neither is differentiable itself: the
+diagonal.  On a CUDA tensor each launches a hand-written kernel; on a CPU
+tensor each runs its plain version.  :func:`chol_inv` and f64
+:func:`gram_chol_inv` take ``csrc/gram_chol_inv.cu`` (one host loop over
+64-wide panels, six dependent launches a panel step, which reads the Gram
+panel from Zs or A's panel; part "loop"); f32 :func:`gram_chol_inv` takes
+``csrc/gram_chol_inv_mma.cu`` (one launch a panel step, the next diagonal
+block factored inside the step before it, the products as 3xTF32 ``wgmma``;
+part "mma").  :func:`gram_chol_inv_part` chooses, and ``part=`` forces
+either where it takes the call.  Neither is differentiable itself: the
 autograd Functions of ``core/linalg.py`` and ``models/svgp.py`` wrap them.
 """
 
@@ -23,6 +28,7 @@ from . import _build
 __all__ = [
     "PANEL",
     "gram_chol_inv",
+    "gram_chol_inv_part",
     "gram_chol_inv_plain",
     "gram_chol_inv_supported",
     "chol_inv",
@@ -39,6 +45,15 @@ def gram_chol_inv_supported(M: int, D: int, dtype: torch.dtype) -> bool:
     return M >= 1 and 1 <= D <= _MAX_D and dtype in (torch.float32, torch.float64)
 
 
+def gram_chol_inv_part(M: int, D: int, dtype: torch.dtype) -> str | None:
+    """The kernel that serves (M, D, dtype) on the card: "mma"
+    (``csrc/gram_chol_inv_mma.cu``) in f32, "loop" (``csrc/gram_chol_inv.cu``)
+    in f64, None where neither takes the call (the wrapper raises)."""
+    if not gram_chol_inv_supported(M, D, dtype):
+        return None
+    return "mma" if dtype == torch.float32 else "loop"
+
+
 def gram_chol_inv_plain(Zs: torch.Tensor, sig2, jitter, kmap: KernelMap):
     """The plain PyTorch version: the Gram from exact broadcast distances,
     then torch.linalg's Cholesky and triangular inverse."""
@@ -48,16 +63,16 @@ def gram_chol_inv_plain(Zs: torch.Tensor, sig2, jitter, kmap: KernelMap):
     return chol_with_inv_plain(K)
 
 
-def _padded_factors(like: torch.Tensor, M: int):
-    """Outputs and scratch for the panel loop at Mp = M rounded up to the
-    panel: (L, J, scratch, Mp)."""
+def _padded_factors(like: torch.Tensor, M: int, part: str = "loop"):
+    """Outputs and scratch for the panel loop ("loop") or the panel steps
+    ("mma") at Mp = M rounded up to the panel: (L, J, scratch, Mp)."""
     Mp = -(-M // PANEL) * PANEL
     L = torch.empty((Mp, Mp), dtype=like.dtype, device=like.device)
     J = torch.empty((Mp, Mp), dtype=like.dtype, device=like.device)
-    # partial tiles of the depth-split products
+    # partial tiles of the depth-split products (and the steps' counters)
     lib = _build.load_library()
-    scratch = torch.empty((lib.agp_gram_chol_inv_scratch(Mp),), dtype=like.dtype,
-                          device=like.device)
+    size = (lib.agp_gram_chol_inv_mma_scratch if part == "mma" else lib.agp_gram_chol_inv_scratch)
+    scratch = torch.empty((size(Mp),), dtype=like.dtype, device=like.device)
     return L, J, scratch, Mp
 
 
@@ -67,14 +82,15 @@ def _unpad(L, J, M):
     return L, J
 
 
-def gram_chol_inv(Zs: torch.Tensor, sig2, jitter, kmap: KernelMap):
+def gram_chol_inv(Zs: torch.Tensor, sig2, jitter, kmap: KernelMap, part: str | None = None):
     """(L, J) = (chol(σ²·g(r²(Zs, Zs)) + jitter·I), L⁻¹).
 
     Zs: (M, D) inputs with any lengthscale already applied; ``sig2`` and
     ``jitter`` scalars (floats or 0-dim tensors, on the host or the card:
     the kernel reads them from device memory); ``kmap`` the stationary map.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    that :func:`gram_chol_inv_part` names (or ``part``: "loop", or "mma" in
+    f32), or raises."""
     if Zs.device.type == "cpu":
         return gram_chol_inv_plain(Zs, sig2, jitter, kmap)
     if not Zs.is_cuda:
@@ -84,14 +100,19 @@ def gram_chol_inv(Zs: torch.Tensor, sig2, jitter, kmap: KernelMap):
             f"gram_chol_inv: needs (M, D) f32/f64 with 1 <= D <= {_MAX_D}, "
             f"got {tuple(Zs.shape)} {Zs.dtype}"
         )
+    part = part or gram_chol_inv_part(Zs.shape[0], Zs.shape[1], Zs.dtype)
+    if part not in ("mma", "loop") or (part == "mma" and Zs.dtype != torch.float32):
+        raise ValueError(f"gram_chol_inv: no {part!r} kernel takes {Zs.dtype} (the panel "
+                         "steps of part 'mma': f32)")
     lib = _build.load_library()
-    fn = lib.agp_gram_chol_inv_f32 if Zs.dtype == torch.float32 else lib.agp_gram_chol_inv_f64
+    fn = (lib.agp_gram_chol_inv_mma_f32 if part == "mma" else
+          lib.agp_gram_chol_inv_f32 if Zs.dtype == torch.float32 else lib.agp_gram_chol_inv_f64)
     Zs = Zs.contiguous()
     M, D = Zs.shape
     coef = torch.empty((2,), dtype=Zs.dtype, device=Zs.device)
     coef[0] = sig2
     coef[1] = jitter
-    L, J, scratch, Mp = _padded_factors(Zs, M)
+    L, J, scratch, Mp = _padded_factors(Zs, M, part)
     stream = torch.cuda.current_stream(Zs.device).cuda_stream
     with torch.cuda.device(Zs.device):
         err = fn(Zs.data_ptr(), coef.data_ptr(), L.data_ptr(), J.data_ptr(), scratch.data_ptr(),

@@ -17,7 +17,14 @@ Phases (a failing phase raises, and the script exits non-zero):
    each error printed beside its limit; then each kernel's time beside the
    plain version's (CUDA events, median).  The kernels: the gram-fused
    (L, L⁻¹) build (A), the epilogue forward (B, row 2), its backward (3),
-   the (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5).  Rows
+   the (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5).  Row 1
+   in f32 on both kernels (the panel steps with look-ahead and 3xTF32
+   products that ``gram_chol_inv_part`` picks, and the host loop that
+   ``part="loop"`` forces, which f64 takes) at M = 2048 on two maps,
+   against the plain version (‖dL‖_F/‖L‖_F ≤ 1e-4, max|LJ − I| ≤ 1e-3,
+   and both ≤ ``ROW1_TIGHT32`` = 2e-5, which one or two TF32 products in
+   place of three would miss), each twice (equal bitwise), then both and the plain version timed
+   beside the tensor-core and the SIMT bound.  Rows
    2 and 3 in f32 on both kernels (the tensor-core one the path takes and
    the SIMT one), every map, at the path's block (2048, 16384, 8) and at
    (2050, 16385, 8) and (150, 1001, 3), against the plain version in f64
@@ -109,10 +116,13 @@ Phases (a failing phase raises, and the script exits non-zero):
    k = 32 (full conditioning) against autograd of the dense exact
    ``logpdf``, and the kernel path against the plain path at N = 65536.
 
-10. Row 6, the band rows from prebuilt Grams: (a) the kernel against the
-    plain masked math on the same Grams in f64 and f32, k = 1, 7, 32 and 64,
+10. Row 6, the band rows from prebuilt Grams (a window to a warp, its
+    triangle in the lanes' registers): (a) the kernel against the plain
+    masked math on the same Grams in f64 and f32, k = 1, 7, 32, 33 and 64,
     B ragged, masked slots and deflated pivots, a strided Kw, then at 10^6
-    windows of the training path (k = 32), checked and timed; (b) the value
+    windows of the training path (k = 32), checked and timed beside its
+    bound and the plain version, and timed at one launch of each path (a
+    training block of 8192 at k = 32, a sweep tile of 4096 at k = 64); (b) the value
     and θ-gradient of ``approx_lml`` for σ²·RQ(α = 2)∘ℓ + τ²·White (raw θ
     (0.55, 0.55, softplus⁻¹(2), 0.02)) on ``bench.py::vecchia_lml_grad``'s
     data, N = 10^6, k = 32, blocks of 8192: the RQ kernel does not unwrap,
@@ -195,6 +205,12 @@ SEED = 0
 M, D = 2048, 8
 N_TEST, BLOCK = 1_000_000, 16384
 JITTER = 1e-6
+# Row 1 in f32 (phase 3): beside today's limits (‖dL‖_F/‖L‖_F ≤ 1e-4, max|LJ − I| ≤ 1e-3)
+# a tighter one on both, set from the card's readings at M = 2048 (at most 2.1e-6 and
+# 1.2e-6 on both kernels): with one or two TF32 products in place of three, the host
+# emulation in tests/test_torch_panel_chol_steps.py moves both ten times past it on these
+# inputs, so such a kernel fails it
+ROW1_TIGHT32 = 2e-5
 RAW_K = (0.5, 0.5)  # bench.py's raw (variance, lengthscale)
 N_DATA, BATCH, LR, STEPS = 1_000_000, 8192, 1e-3, 30  # bench.py::headline
 N_STREAM = 1 << 20  # bench.py::full_streaming
@@ -275,14 +291,16 @@ TRAIN_PLAIN_RTOL32 = 1e-2
 # bench.py::vecchia_predict_knn_sweep's points, raw (variance 1, ℓ = 5)
 RQ_THETA = np.array([0.55, 0.55, math.log(math.expm1(2.0)), 0.02])
 HETERO_K, HETERO_THETA = 64, np.log(np.expm1(np.array([1.0, 5.0])))
-# (a)'s (D, k, B): k at 1, 7, 32 and the kernel's limit of 64, B ragged against the
-# 8-window blocks; the timed shape: 10^6 windows at k = 32
-ROWS_PARITY = ((1, 1, 10001), (1, 7, 10001), (2, 32, 10001), (8, 64, 2049))
+# (a)'s (D, k, B): k at 1, 7, 32, 33 (the first of the two-rows-a-lane width) and the
+# kernel's limit of 64, B ragged against the kernel's blocks; the timed shape: 10^6
+# windows at k = 32
+ROWS_PARITY = ((1, 1, 10001), (1, 7, 10001), (2, 32, 10001), (2, 33, 4099), (8, 64, 2049))
 N_ROWS64 = 65536
 # f32 limit of row 6 against its plain version, relative to the largest entry: the two
-# factor the same Grams in another summation order (the kernel splits each dot over four
-# lanes and folds four columns at a time), and windows a lengthscale apart amplify that
-# rounding by their conditioning, as for the band kernel (BAND_RTOL32)
+# factor the same Grams in another summation order (the kernel updates each row
+# right-looking, column by column, where the plain version takes each entry's dot at once),
+# and windows a lengthscale apart amplify that rounding by their conditioning, as for the
+# band kernel (BAND_RTOL32)
 ROWS_RTOL32 = 1e-4
 # Row 11 (phase 11): (a)'s (N, M, D): the minibatch step's Kuf, ragged tiles at D = 1,
 # two coordinate chunks at D = 11; f32 limit relative to the largest entry: r² summed in
@@ -390,28 +408,42 @@ def phase_parity(dev) -> dict:
               f"gram_chol_inv f64 M=520 D={D} {name}: max|dL| {eL:.3e} <= 1e-10, "
               f"max|dJ| {eJ:.3e} <= 1e-7, zeros above both diagonals")
 
-    # kernel A, f32 at the slice's shape: relative Frobenius error of L and
-    # the inverse's residual |L J - I|
+    # kernel A, f32 at the slice's shape, on both kernels (the path's panel
+    # steps, "mma", and the host loop, "loop"): relative Frobenius error of L
+    # and the inverse's residual |L J - I| against the plain version in f32,
+    # each run twice (equal bitwise)
     Z32 = torch.tensor(rng.standard_normal((M, D)), dtype=torch.float32, device=dev)
     eye = torch.eye(M, dtype=torch.float64, device=dev)
+    check(panel_chol.gram_chol_inv_part(M, D, torch.float32) == "mma",
+          "gram_chol_inv f32 takes the panel steps (part mma), f64 the host loop")
     for name in ("se", "matern32"):
-        L, J = panel_chol.gram_chol_inv(Z32, sig2, JITTER, maps[name])
         L0, _ = panel_chol.gram_chol_inv_plain(Z32, sig2, JITTER, maps[name])
-        torch.cuda.synchronize()
-        fro = (torch.linalg.norm(L.double() - L0.double()) / torch.linalg.norm(L0.double())).item()
-        res = (L.double() @ J.double() - eye).abs().max().item()
-        check(fro <= 1e-4 and res <= 1e-3,
-              f"gram_chol_inv f32 M={M} D={D} {name}: ||dL||_F/||L||_F {fro:.3e} <= 1e-4, "
-              f"max|LJ - I| {res:.3e} <= 1e-3")
-        if name == "se":
-            out["gram_chol_inv"] = {"max_abs_err": max_abs(L, L0)}
+        for part in ("mma", "loop"):
+            L, J = panel_chol.gram_chol_inv(Z32, sig2, JITTER, maps[name], part)
+            L2, J2 = panel_chol.gram_chol_inv(Z32, sig2, JITTER, maps[name], part)
+            torch.cuda.synchronize()
+            fro = (torch.linalg.norm(L.double() - L0.double())
+                   / torch.linalg.norm(L0.double())).item()
+            res = (L.double() @ J.double() - eye).abs().max().item()
+            same = torch.equal(L, L2) and torch.equal(J, J2)
+            upper = bool(torch.triu(L, 1).any() or torch.triu(J, 1).any())
+            check(fro <= 1e-4 and res <= 1e-3 and max(fro, res) <= ROW1_TIGHT32 and same
+                  and not upper,
+                  f"gram_chol_inv {part} f32 M={M} D={D} {name}: ||dL||_F/||L||_F {fro:.3e} "
+                  f"<= 1e-4, max|LJ - I| {res:.3e} <= 1e-3, both <= {ROW1_TIGHT32:g}, two runs "
+                  "equal bitwise, zeros above both diagonals")
+            if name == "se" and part == "mma":
+                out["gram_chol_inv"] = {"max_abs_err": max_abs(L, L0)}
     se = maps["se"]
-    out["gram_chol_inv"]["ms"] = cuda_ms(
-        lambda: panel_chol.gram_chol_inv(Z32, sig2, JITTER, se), 10)
-    out["gram_chol_inv"]["plain_ms"] = cuda_ms(
-        lambda: panel_chol.gram_chol_inv_plain(Z32, sig2, JITTER, se), 10)
-    print(f"time gram_chol_inv f32 M={M}: kernel {out['gram_chol_inv']['ms']:.3f} ms, "
-          f"plain {out['gram_chol_inv']['plain_ms']:.3f} ms")
+    ms = {part: cuda_ms(lambda: panel_chol.gram_chol_inv(Z32, sig2, JITTER, se, part), 10)
+          for part in ("mma", "loop")}
+    plain_ms = cuda_ms(lambda: panel_chol.gram_chol_inv_plain(Z32, sig2, JITTER, se), 10)
+    (b_ms, b_by), (s_ms, s_by) = gram_chol_bounds()
+    out["gram_chol_inv"].update({"ms": ms["mma"], "ms_loop": ms["loop"], "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by, "bound_ms_simt": s_ms})
+    print(f"time gram_chol_inv f32 M={M}: mma {ms['mma']:.3f} ms, loop {ms['loop']:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), SIMT bound {s_ms:.3f} ms "
+          f"({s_by})")
 
     def epilogue_inputs(m, b, dtype, d=D):
         R = rng.standard_normal((m, m)) / math.sqrt(m)
@@ -555,6 +587,20 @@ def parity_epilogue_parts(maps: dict, inputs, which: str) -> None:
                       f"{what} {part} f32 M={m} B={b} D={d} {name}: rel err vs plain f64 "
                       f"{e64:.3e}" + (f", vs plain f32 {e32:.3e}" if ref32 else "")
                       + f" <= {limit:g}, two runs equal bitwise")
+
+
+def gram_chol_bounds(m: int = M, d: int = D):
+    """((ms, what bounds it) by the tensor-core count, (ms, ...) by the SIMT
+    count) of row 1 in f32 at (m, d): the factor and the triangular inverse
+    are m³/6 FMAs each, as 3xTF32 (three TF32 products an FMA) on the tensor
+    cores or as f32 FMAs on the SIMT units; beside them the Gram's lower
+    triangle, 3d + 1 flops and one exp an entry; Zs read once, L and J
+    written once."""
+    fmas = m ** 3 / 3
+    gram = m * m / 2 * (3 * d + 1)
+    nbytes = 4 * (m * d + 2 * m * m)
+    return (bound(gram, nbytes, m * m / 2, tc_flops=2 * 3 * fmas),
+            bound(gram + 2 * fmas, nbytes, m * m / 2))
 
 
 def epilogue_bounds(which: str, m: int = M, b: int = BLOCK, d: int = D):
@@ -2034,7 +2080,7 @@ def main() -> None:
     by_path["vecchia_rows"], numbers["batched_chol_solve_band"] = phase_band_rows(dev)
     by_path["fused_gram"], numbers["stationary_gram"] = phase_fused_gram(dev)
     meta = {
-        "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
+        "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv_mma.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),
         "svgp_data_epilogue": ("approximategps_tpu_torch/csrc/svgp_epilogue_mma.cu",
                                "approximategps_tpu/ops/svgp_epilogue.py:201"),
@@ -2067,18 +2113,19 @@ def main() -> None:
             "svgp_data_epilogue_bwd": {"sources_also": [
                 "approximategps_tpu_torch/csrc/svgp_epilogue_bwd.cu",
                 "approximategps_tpu_torch/csrc/svgp_epilogue_mma.cuh"]},
+            # row 1: the f32 panel steps (the path's) and the host loop (f64,
+            # and the route part="loop" forces), on one counter
+            "gram_chol_inv": {"sources_also": [
+                "approximategps_tpu_torch/csrc/gram_chol_inv.cu"]},
             "gram_matvec": {"sources_also": [
                 "approximategps_tpu_torch/csrc/gram_matvec_mma.cu",
                 "approximategps_tpu_torch/csrc/gram_matvec_self_bwd.cu"]}}
-    # bounds of kernels A and 4 at the shapes phase 3 timed them (f32,
-    # M = 2048): a Cholesky and a triangular inverse are M³/3 FMAs each; an
-    # FMA is two flops, a kernel entry 3D + 1 flops and one exp.  Rows 2 and
-    # 3 bring theirs from phase 3 (epilogue_bounds)
-    chol = 2 * 2 * M ** 3 / 3
-    bounds = {
-        "gram_chol_inv": bound(chol + M * M / 2 * (3 * D + 1), 4 * (M * D + 2 * M * M), M * M / 2),
-        "chol_inv": bound(chol, 4 * 3 * M * M),
-    }
+    # the bound of kernel 4 at the shape phase 3 timed it (f32, M = 2048): a
+    # Cholesky and a triangular inverse are M³/6 FMAs each, an FMA two flops.
+    # Rows 1, 2 and 3 bring theirs from phase 3 (gram_chol_bounds,
+    # epilogue_bounds)
+    chol = 2 * M ** 3 / 3
+    bounds = {"chol_inv": bound(chol, 4 * 3 * M * M)}
     kernels = []
     for k, (src, rep) in meta.items():
         per_path = {path: counts[k] for path, counts in by_path.items()}

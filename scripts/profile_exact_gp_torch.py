@@ -30,9 +30,13 @@ from approximategps_tpu_torch import convert  # noqa: E402
 from approximategps_tpu_torch.models import iterative  # noqa: E402
 
 
-def profile(label: str, fn) -> None:
+def profile(label: str, fn, top: int = 10, gaps: int = 0, sequence: str | None = None) -> None:
     """Device time of ``fn`` by kernel name, from the profiler's device-side
-    events (one stream, so they do not overlap), beside its wall time."""
+    events (one stream, so they do not overlap), beside its wall time; the
+    ``top`` names by time, and with ``gaps`` the device's idle time between
+    its first and last event and the ``gaps`` longest idle gaps, each with
+    the names of the events around it; with ``sequence`` the time of each
+    event whose name holds it, in the order they ran."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -41,16 +45,30 @@ def profile(label: str, fn) -> None:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
+    spans = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             row = by_name.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
+            spans.append((e.time_range.start, e.time_range.end, e.name))
     busy = sum(ms for ms, _ in by_name.values())
     print(f"{label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} %)")
-    for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+    for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:10.3f} ms  {calls:6d} calls  {name[:90]}")
+    if gaps and spans:
+        spans.sort()
+        holes = [(b[0] - a[1], a[2], b[2]) for a, b in zip(spans, spans[1:])]
+        first_to_last = (spans[-1][1] - spans[0][0]) / 1e3
+        idle = sum(max(h, 0.0) for h, _, _ in holes) / 1e3
+        print(f"  first to last device event {first_to_last:.3f} ms, idle between events "
+              f"{idle:.3f} ms over {len(holes)} gaps")
+        for h, before, after in sorted(holes, reverse=True)[:gaps]:
+            print(f"    gap {h / 1e3:8.3f} ms  after {before[:45]}  before {after[:45]}")
+    if sequence:
+        each = [(b - a) / 1e3 for a, b, name in sorted(spans) if sequence in name]
+        print(f"  {sequence} in order (ms): " + " ".join(f"{t:.3f}" for t in each))
 
 
 def main() -> None:

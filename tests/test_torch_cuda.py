@@ -48,6 +48,45 @@ def test_torch_cuda_gram_chol_inv_matches_plain(cls, cuda):
     assert not torch.triu(L, 1).any() and not torch.triu(J, 1).any()
 
 
+@pytest.mark.parametrize("part", ["mma", "loop"])
+@pytest.mark.parametrize("M", [200, 520])  # not multiples of the 64-wide panel
+@pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
+def test_torch_cuda_gram_chol_inv_f32_parts_match_plain(cls, M, part, cuda):
+    """Row 1 in f32 on both kernels (the panel steps with look-ahead and
+    3xTF32 products, "mma", and the host loop, "loop") against the plain
+    version in f64 on the same inputs: ||dL||_F/||L||_F <= 1e-4 and
+    max|LJ - I| <= 1e-3 (chip_smoke.py phase 3's limits), exact zeros above
+    both diagonals, one launch a call, two calls equal bitwise."""
+    Z = _t(np.random.default_rng(M).standard_normal((M, 8)), cuda, torch.float32)
+    kmap = cls().kernel_map()
+    before = panel_chol.gram_chol_inv.launches
+    L, J = panel_chol.gram_chol_inv(Z, 1.3, 1e-6, kmap, part)
+    L2, J2 = panel_chol.gram_chol_inv(Z, 1.3, 1e-6, kmap, part)
+    assert panel_chol.gram_chol_inv.launches == before + 2
+    L0, _ = panel_chol.gram_chol_inv_plain(Z.double(), 1.3, 1e-6, kmap)
+    fro = (torch.linalg.norm(L.double() - L0) / torch.linalg.norm(L0)).item()
+    res = (L.double() @ J.double() - torch.eye(M, dtype=torch.float64, device=cuda)).abs().max()
+    assert fro <= 1e-4 and res.item() <= 1e-3, (fro, res.item())
+    assert not torch.triu(L, 1).any() and not torch.triu(J, 1).any()
+    assert torch.equal(L, L2) and torch.equal(J, J2)
+
+
+def test_torch_cuda_gram_chol_inv_parts_choose_and_raise(cuda):
+    """f32 takes the panel steps, f64 the host loop; "mma" raises in f64
+    and an unknown part raises; f64 forced to "loop" equals the default."""
+    assert panel_chol.gram_chol_inv_part(2048, 8, torch.float32) == "mma"
+    assert panel_chol.gram_chol_inv_part(2048, 8, torch.float64) == "loop"
+    kmap = tk.SqExponentialKernel().kernel_map()
+    Z = _t(np.random.default_rng(1).standard_normal((70, 3)), cuda)
+    with pytest.raises(ValueError):
+        panel_chol.gram_chol_inv(Z, 1.0, 1e-6, kmap, "mma")
+    with pytest.raises(ValueError):
+        panel_chol.gram_chol_inv(Z.float(), 1.0, 1e-6, kmap, "warp")
+    for a, b in zip(panel_chol.gram_chol_inv(Z, 1.0, 1e-6, kmap),
+                    panel_chol.gram_chol_inv(Z, 1.0, 1e-6, kmap, "loop")):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
 def test_torch_cuda_svgp_epilogue_matches_plain(cls, dtype, cuda):
@@ -705,7 +744,8 @@ def _prebuilt_grams(N, D, k, dev, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_torch_cuda_band_rows_match_plain(dtype, cuda):
     """Row 6 against the plain masked math on the same Grams, k from 1 to
-    the limit of 64, B ragged against the 8-window blocks, a strided Kw (a
+    the limit of 64 (33: the first of the two-rows-a-lane width), B ragged
+    against the kernel's blocks, a strided Kw (a
     transposed view: the kernel reads Kw's lower triangle through its
     strides); relative to the largest entry: f64 1e-12, f32 1e-4 (each pivot
     rounds in another order, amplified by the windows' conditioning);
@@ -713,7 +753,7 @@ def test_torch_cuda_band_rows_match_plain(dtype, cuda):
     from approximategps_tpu_torch.ops import batched_chol
 
     tol = 1e-12 if dtype == torch.float64 else 1e-4
-    for D, k, N in ((1, 1, 99), (1, 7, 1001), (2, 32, 777), (8, 64, 301)):
+    for D, k, N in ((1, 1, 99), (1, 7, 1001), (2, 32, 777), (2, 33, 555), (8, 64, 301)):
         Kw, kni, kdiag, valid = _prebuilt_grams(N, D, k, cuda, dtype, seed=k)
         ref = batched_chol.masked_chol_solve_band_math(Kw, kni, kdiag)
         for A in (Kw, Kw.transpose(1, 2).contiguous().transpose(1, 2)):
@@ -722,6 +762,27 @@ def test_torch_cuda_band_rows_match_plain(dtype, cuda):
             assert batched_chol.batched_chol_solve_band.launches == before + 1
             assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol, (D, k)
             assert bool((got[:, :k][valid == 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 32), (torch.float64, 64), (torch.float32, 8)])
+def test_torch_cuda_band_rows_vector_and_entrywise_loads_agree(dtype, k, cuda):
+    """A contiguous, aligned Kw takes the 16-byte vector loads, the same
+    values one element off alignment the entry-by-entry loads: the rows
+    agree bitwise, and the deflated pivots in f64 stay dead (masked slots
+    exactly 0)."""
+    from approximategps_tpu_torch.ops import batched_chol
+
+    Kw, kni, kdiag, valid = _prebuilt_grams(203, 2, k, cuda, dtype, seed=40 + k)
+    store = torch.empty(Kw.numel() + 1, dtype=dtype, device=cuda)
+    off = store[1:].view(Kw.shape)
+    off.copy_(Kw)
+    assert off.data_ptr() % 16 != 0 and Kw.data_ptr() % 16 == 0
+    before = batched_chol.batched_chol_solve_band.launches
+    a = batched_chol.batched_chol_solve_band_pass(Kw, kni, kdiag)
+    b = batched_chol.batched_chol_solve_band_pass(off, kni, kdiag)
+    assert batched_chol.batched_chol_solve_band.launches == before + 2
+    assert torch.equal(a, b)
+    assert bool((a[:, :k][valid == 0] == 0).all())
 
 
 def test_torch_cuda_band_rows_raise_on_what_they_do_not_take(cuda):
