@@ -26,7 +26,9 @@
 // four-lane shuffle sums and two __syncwarp a group of four columns, and
 // loads that touched eight windows 4 KB apart in one instruction.
 //
-// Design.  The window is padded to a template width KW (8, 16, 32 or 64;
+// Design (the shape, the factor and its helpers are vecchia_window.cuh's,
+// shared with the Vecchia band kernel and its pullback).  The window is
+// padded to a template width KW (8, 16, 32 or 64;
 // rows k..KW-1 are identity rows with zero coupling, which change no entry
 // of rows < k) and owned by LPW = KW / 2 lanes: lane r holds rows r and
 // r + LPW, in registers whose index the unrolled loops fix at compile time
@@ -79,81 +81,11 @@
 
 #include <cstdint>
 
+#include "vecchia_window.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-struct Eps;
-template <>
-struct Eps<float> {
-  static constexpr float value = 1.1920928955078125e-07f;
-};
-template <>
-struct Eps<double> {
-  static constexpr double value = 2.220446049250313e-16;
-};
-
-template <typename T, int KW>
-struct Shape {
-  static constexpr int LPW = KW / 2;             // lanes a window: two rows a lane
-  static constexpr int G = 32 / LPW;             // windows a warp
-  static constexpr int RPL = KW / LPW;           // rows a lane
-  static constexpr int WARPS = KW <= 32 ? 4 : 2;  // warps a block
-  static constexpr int LD = KW + 1;              // staging row pitch (odd: no bank conflicts)
-  static constexpr int SW = KW * (KW + 3);       // shared values a window: staging + 2 columns
-  static constexpr int V = 16 / sizeof(T);       // values a 16-byte vector
-  static constexpr int MIN_BLOCKS = sizeof(T) == 4 && KW <= 32 ? 6 : 1;
-};
-
-__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-__device__ __forceinline__ void load16(const double* p, double (&v)[2]) {
-  const double2 x = __ldg(reinterpret_cast<const double2*>(p));
-  v[0] = x.x;
-  v[1] = x.y;
-}
-__device__ __forceinline__ void lds16(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-__device__ __forceinline__ void lds16(const double* p, double (&v)[2]) {
-  const double2 x = *reinterpret_cast<const double2*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-}
-
-// sqrt(x) and about 1 / sqrt(x): in f32 from the hardware's reciprocal square
-// root, one Newton step and one correction of the root (a few FMAs in place
-// of the branches and calls of a correctly rounded sqrt and division); in
-// f64 correctly rounded
-__device__ __forceinline__ void sqrt_and_inv(float x, float& sq, float& inv) {
-  float r = rsqrtf(x);
-  r = r * fmaf(-0.5f * x * r, r, 1.5f);
-  sq = x * r;
-  sq = fmaf(fmaf(-sq, sq, x), 0.5f * r, sq);
-  inv = r;
-}
-__device__ __forceinline__ void sqrt_and_inv(double x, double& sq, double& inv) {
-  sq = sqrt(x);
-  inv = 1.0 / sq;
-}
-
-// num / d from inv, about 1 / d, and one correction of the quotient: the
-// quotient a division gives, bar the last bit at times
-template <typename T>
-__device__ __forceinline__ T quotient(T num, T d, T inv) {
-  const T q = num * inv;
-  return fma(fma(-q, d, num), inv, q);
-}
+using namespace agp::window;
 
 template <typename T>
 struct RowsArgs {
@@ -212,7 +144,7 @@ __global__ void __launch_bounds__(32 * Shape<T, KW>::WARPS, Shape<T, KW>::MIN_BL
 
   // this lane's rows i = r + LPW q: entries c <= i (c < LPW (q + 1)); rows
   // k..KW-1 are identity rows
-  T rows[RPL][KW], dg[RPL], cc[RPL], acc[RPL], w[RPL], piv[RPL], linv[RPL];
+  T rows[RPL][KW], dg[RPL], cc[RPL], w[RPL], piv[RPL], linv[RPL];
   bool live[RPL];
 #pragma unroll
   for (int q = 0; q < RPL; ++q) {
@@ -222,65 +154,11 @@ __global__ void __launch_bounds__(32 * Shape<T, KW>::WARPS, Shape<T, KW>::MIN_BL
       rows[q][c] = i < k ? (c <= i ? st[i * LD + c] : T(0)) : (c == i ? T(1) : T(0));
     dg[q] = i < k ? st[i * LD + i] : T(1);
     cc[q] = i < k ? a.kni[n * a.scn + i * a.sct] : T(0);
-    acc[q] = T(0);
-    w[q] = piv[q] = linv[q] = T(0);
-    live[q] = false;
   }
 
   // the masked-column Cholesky, right-looking, with w = L^-1 kni alongside
-  const T eps8 = T(8) * Eps<T>::value;
-#pragma unroll
-  for (int j = 0; j < KW; ++j) {
-    const int qj = j / LPW, rj = j % LPW;
-    T* const col = cb + (j & 1) * KW;
-    // the pivot (meaningful on lane rj), floored against Kw's own diagonal
-    const T d_raw = rows[qj][j];
-    const T fl = eps8 * fabs(dg[qj]);
-    const bool lv = d_raw >= fl;
-    T sq, inv;
-    sqrt_and_inv(lv ? d_raw : fl, sq, inv);
-    const T scale = __shfl_sync(kFull, lv ? inv : T(0), rj, LPW);
-    const T wj_own = lv ? quotient(cc[qj] - acc[qj], sq, inv) : T(0);
-    T l[RPL];
-#pragma unroll
-    for (int q = 0; q < RPL; ++q) {
-      const int i = r + LPW * q;
-      l[q] = T(0);
-      if (j < LPW * (q + 1)) {
-        if (i > j) {
-          l[q] = rows[q][j] * scale;
-          rows[q][j] = l[q];
-          col[i] = l[q];
-        } else if (i == j) {
-          rows[q][j] = sq;
-          piv[q] = sq;
-          linv[q] = inv;
-          live[q] = lv;
-          w[q] = wj_own;
-          col[j] = wj_own;
-        }
-      }
-    }
-    __syncwarp();
-    const T wj = col[j];
-#pragma unroll
-    for (int q = 0; q < RPL; ++q) acc[q] = fma(l[q], wj, acc[q]);
-    // the trailing rows: rows[q][c] -= L_ij L_cj for c > j
-#pragma unroll
-    for (int c0 = (j + 1) / V * V; c0 < KW; c0 += V) {
-      T v[V];
-      lds16(col + c0, v);
-#pragma unroll
-      for (int u = 0; u < V; ++u) {
-        const int c = c0 + u;
-        if (c > j) {
-#pragma unroll
-          for (int q = 0; q < RPL; ++q)
-            if (c < LPW * (q + 1)) rows[q][c] = fma(-l[q], v[u], rows[q][c]);
-        }
-      }
-    }
-  }
+  T unused = T(0);
+  factor_rows<T, KW>(rows, dg, cc, cb, r, w, piv, linv, live, unused);
 
   // L to the staging tile, read back by columns: lc[q][t] = L[t][i] for t > i
 #pragma unroll
@@ -318,12 +196,10 @@ __global__ void __launch_bounds__(32 * Shape<T, KW>::WARPS, Shape<T, KW>::MIN_BL
   T s = T(0);
 #pragma unroll
   for (int q = 0; q < RPL; ++q) s = fma(cc[q], b[q], s);
-#pragma unroll
-  for (int off = LPW / 2; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off, LPW);
-  s = __shfl_sync(kFull, s, 0, LPW);
+  s = group_sum<LPW>(s);
   const T kd = a.kdiag[n * a.sdn];
   const T F_raw = kd - s;
-  const T fF = eps8 * fabs(kd);
+  const T fF = T(8) * Eps<T>::value * fabs(kd);
   const T u0 = T(1) / sqrt(F_raw > fF ? F_raw : fF);
   if (!active) return;
   T* const o = a.out + n * (k + 1);

@@ -81,10 +81,14 @@ Phases (a failing phase raises, and the script exits non-zero):
    it is slow).
 
 8. The Vecchia serving slice (``bench.py``'s Vecchia rows; k = 32): (a) the
-   band kernel against its plain version in f64 and f32, every map, both
-   layouts, with and without a nugget, N ragged, duplicated points and
-   masked slots; (b) the band build (``approx_root_prec_band``, N = 10^6 on
-   linspace(0, 10^6), bare Matérn-3/2), the ``approx_lml`` value (y =
+   band kernel (a window to the lanes of a warp, its Gram and factor in
+   their registers) against its plain version in f64 and f32, every map,
+   both layouts and a broadcast mask, with and without a nugget, k on both
+   sides of each template width's edge (8, 9, 16, 17, 32, 33, 64), N
+   ragged, duplicated points and masked slots, each f32 call twice (equal
+   bitwise), beside the earlier kernel's errors; (b) the band build
+   (``approx_root_prec_band``, N = 10^6 on linspace(0, 10^6), bare
+   Matérn-3/2), the ``approx_lml`` value (y =
    sin(x/3), softplus(0.55)·Matérn-3/2(ℓ = softplus(0.55)), noise 0),
    ``predict_knn`` over 10^6 training and test points on [0, 1000]^2
    (ℓ = 5, noise 0.1, tiles of 4096 × 65536) and the sparse build with
@@ -99,11 +103,13 @@ Phases (a failing phase raises, and the script exits non-zero):
 9. Vecchia training (``bench.py::vecchia_lml_grad`` and
    ``vecchia_nugget_lml_grad``; k = 32): (a) the pullback kernel against its
    plain version (the recompute pullback) in f64 and f32, every map, both
-   layouts, no nugget and a nugget with and without slot k, N ragged,
-   masked slots and exact duplicates among the neighbours, x̄w and the
-   nugget's cotangent (window by window and in total), f32 also against the
-   plain version in f64 on the same windows, then checked and timed at the
-   path's shape; (b) the value and θ-gradient of ``approx_lml`` at N = 10^6
+   layouts, no nugget and a nugget with and without slot k, k on both sides
+   of each width's edge, N ragged, masked slots and exact duplicates among
+   the neighbours, x̄w and the nugget's cotangent (window by window and in
+   total), f32 also against the plain version in f64 on the same windows,
+   two calls equal bitwise, beside the earlier kernel's errors, then
+   checked and timed at the path's shape; (b) the value and θ-gradient of
+   ``approx_lml`` at N = 10^6
    on linspace(0, 10^6), y = sin(x/3), softplus(0.55)·Matérn-3/2(ℓ =
    softplus(0.55)), noise 0, on three routes (kernels forward and backward;
    the kernel forward with the recompute pullback; the plain path), one
@@ -269,9 +275,29 @@ BWD_XW_RTOL32 = 1e-3
 # on some maps and windows), so f32 rounds the total at eps of Σ|p|, not of
 # |Σp|
 BWD_NUG_RTOL32 = 1e-4
-# phase 9 (a)'s (D, k, N): N ragged against the 8-window blocks, k at the
-# kernel's limits
-BWD_PARITY = ((1, 32, 10001), (2, 32, 10001), (3, 7, 4099), (8, 64, 2049))
+# phases 8 (a) and 9 (a)'s (D, k, N): k at the kernels' limits and on both sides of each
+# template width's edge (a window is padded to 8, 16, 32 or 64 rows), N ragged against
+# every width's block (32, 16, 8 and 2 windows)
+BAND_PARITY = BWD_PARITY = ((1, 32, 10001), (2, 32, 10001), (3, 7, 4099), (2, 8, 2049),
+                            (1, 9, 2049), (2, 16, 2049), (3, 17, 2049), (2, 33, 2049),
+                            (8, 64, 2049))
+# the errors of the kernels the warp-per-window design replaced (a window to a team of four
+# threads, its triangle in shared memory) in the cases phases 8 (a) and 9 (a) held them to,
+# printed beside the new errors: (dtype, D, k) -> the band's rel err, and x̄w's and the
+# nugget shares' rel err of the pullback; from this script on the tree before the redesign
+# (NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_BAND_ERR = {("float64", 1, 32): 1.340e-14, ("float64", 2, 32): 2.727e-15,
+                    ("float64", 3, 7): 3.747e-15, ("float64", 8, 64): 9.701e-15,
+                    ("float32", 1, 32): 8.497e-06, ("float32", 2, 32): 3.587e-07,
+                    ("float32", 3, 7): 3.594e-07, ("float32", 8, 64): 2.803e-06}
+EARLIER_BWD_ERR = {("float64", 1, 32): (4.793e-13, 2.401e-15),
+                   ("float64", 2, 32): (7.721e-14, 2.577e-15),
+                   ("float64", 3, 7): (5.226e-16, 4.354e-16),
+                   ("float64", 8, 64): (8.791e-16, 1.813e-15),
+                   ("float32", 1, 32): (5.785e-04, 1.630e-06),
+                   ("float32", 2, 32): (4.529e-05, 2.306e-07),
+                   ("float32", 3, 7): (4.676e-07, 4.488e-07),
+                   ("float32", 8, 64): (6.543e-07, 1.100e-06)}
 # the f32 θ-gradients at N = 10^6, relative to their largest entry.  The
 # lengthscale entry is Σᵢ xᵢ·∂L/∂xᵢ over points up to 10^6: the point
 # cotangents sum to 0 by translation invariance, but in f32 each path leaves
@@ -1166,36 +1192,50 @@ def band_work(valid: torch.Tensor, D: int, sfu_per_pair: int, in_bytes: float, e
 def parity_vecchia_band(dev) -> None:
     """Phase 8 (a): the band kernel against its plain version on the card,
     f64 and f32, every map, both layouts (row 10's has no nugget_self
-    switch), no nugget and a nugget with and without slot k, N ragged
-    against the 8-window blocks; previous-k windows of points about a
-    lengthscale apart, every tenth a copy of the one before (a deflated
-    pivot), the first k rows masked (those slots must be exactly 0)."""
+    switch) and a broadcast mask (``predict_knn``'s, on the windows past the
+    first k), no nugget and a nugget with and without slot k, k on both sides
+    of each template width's edge, N ragged against every width's block;
+    previous-k windows of points about a lengthscale apart, every tenth a
+    copy of the one before (a deflated pivot), the first k rows masked (those
+    slots must be exactly 0).  Each f32 call runs twice and gives the same
+    bits."""
     rng = np.random.default_rng(SEED + 8)
     maps = [cls().kernel_map() for cls in (tk.SqExponentialKernel, tk.Matern12Kernel,
                                            tk.Matern32Kernel, tk.Matern52Kernel)]
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, BAND_RTOL32)):
-        for D, k, N in ((1, 32, 10001), (2, 32, 10001), (3, 7, 4099), (8, 64, 2049)):
+        for D, k, N in BAND_PARITY:
             X = (np.cumsum(rng.uniform(0.5, 1.5, (N, 1)), axis=0) if D == 1
                  else rng.uniform(0.0, 4.0 * N ** (1.0 / D), (N, D)))
             X[1::10] = X[0::10][: X[1::10].shape[0]]
             xw, valid = band_windows(torch.tensor(X, dtype=dtype, device=dev), k)
             xwT, validT = xw.permute(1, 2, 0).contiguous(), valid.T.contiguous()
-            worst, zeros = 0.0, True
+            ones = valid.new_ones(()).expand(N - k, k)
+            worst, zeros, repeats = 0.0, True, True
             for kmap in maps:
                 for nugget, self_ in ((None, True), (0.1, False), (0.1, True)):
                     nug = None if nugget is None else torch.tensor([nugget], dtype=dtype,
                                                                    device=dev)
                     ref = batched_chol.vecchia_band_plain(xw, valid, kmap, nug, self_)
-                    outs = [batched_chol.vecchia_band(xw, valid, kmap, nug, self_)]
+                    runs = [(lambda: batched_chol.vecchia_band(xw, valid, kmap, nug, self_), ref,
+                             valid),
+                            (lambda: batched_chol.vecchia_band(xw[k:], ones, kmap, nug, self_),
+                             ref[k:], ones)]
                     if self_:
-                        outs.append(batched_chol.vecchia_band_t(xwT, validT, kmap, nug))
-                    for got in outs:
-                        worst = max(worst, rel_err(got, ref))
-                        zeros = zeros and bool((got[:, :k][valid == 0] == 0).all())
-            check(worst <= tol and zeros,
-                  f"vecchia_band {str(dtype)[6:]} N={N} D={D} k={k}, 4 maps, both layouts, no "
-                  f"nugget / nugget with and without slot k: rel err {worst:.3e} <= {tol:g}, "
-                  "masked slots exactly 0")
+                        runs.append((lambda: batched_chol.vecchia_band_t(xwT, validT, kmap, nug),
+                                     ref, valid))
+                    for run, want, mask in runs:
+                        got = run()
+                        if dtype == torch.float32:
+                            repeats = repeats and torch.equal(got, run())
+                        worst = max(worst, rel_err(got, want))
+                        zeros = zeros and bool((got[:, :k][mask == 0] == 0).all())
+            before = EARLIER_BAND_ERR.get((str(dtype)[6:], D, k))
+            check(worst <= tol and zeros and repeats,
+                  f"vecchia_band {str(dtype)[6:]} N={N} D={D} k={k}, 4 maps, both layouts and a "
+                  f"broadcast mask, no nugget / nugget with and without slot k: rel err "
+                  f"{worst:.3e} <= {tol:g} (the earlier kernel's "
+                  + ("not measured" if before is None else f"{before:.3e}") + "), masked slots "
+                  "exactly 0" + (", two calls equal bitwise" if dtype == torch.float32 else ""))
 
 
 def counted(fn, launches: dict):
@@ -1458,9 +1498,12 @@ def bwd_parity(xw, valid, kmap, g, nug, self_) -> dict:
     f32 windows also the kernel's and the f32 plain version's errors against
     the plain version in f64 on the same windows ("x64", "p64", "plain_x64",
     "plain_p64"); "layout": x̄w in the windows' strides, its masked slots
-    exactly 0; "max_abs": the largest absolute difference."""
+    exactly 0; "repeats": two calls give the same bits (x̄w, and the total
+    is the sum of the second call's shares); "max_abs": the largest absolute
+    difference."""
     got_x, got_t = batched_chol.vecchia_band_bwd(xw, valid, kmap, g, nug, self_)
-    _, got_p = batched_chol.vecchia_band_bwd(xw, valid, kmap, g, nug, self_, per_window=True)
+    again_x, got_p = batched_chol.vecchia_band_bwd(xw, valid, kmap, g, nug, self_,
+                                                   per_window=True)
     k, has_nug = valid.shape[1], nug is not None
 
     def plain(dtype):
@@ -1471,7 +1514,9 @@ def bwd_parity(xw, valid, kmap, g, nug, self_) -> dict:
     ref_x, ref_p = plain(xw.dtype)
     out = {"x": rel_err(got_x, ref_x), "max_abs": max_abs(got_x, ref_x),
            "layout": got_x.stride() == xw.stride() and bool(
-               (got_x[:, :, :k].transpose(1, 2)[valid == 0] == 0).all())}
+               (got_x[:, :, :k].transpose(1, 2)[valid == 0] == 0).all()),
+           "repeats": torch.equal(got_x, again_x) and (
+               not has_nug or torch.equal(got_t, torch.sum(got_p).reshape(1)))}
     if has_nug:
         total = ref_p.double().sum().item()
         out.update(p=rel_err(got_p, ref_p), total=abs(got_t.item() - total) / abs(total),
@@ -1489,7 +1534,7 @@ def bwd_within(e: dict, tol_x: float, tol_n: float) -> bool:
     """x̄w within tol_x and the shares within tol_n of both references, and
     the total within tol_n of Σ|p| (f32) or of |Σp| (f64)."""
     f32 = "x64" in e
-    ok = e["layout"] and max(e["x"], e.get("x64", 0.0)) <= tol_x
+    ok = e["layout"] and e["repeats"] and max(e["x"], e.get("x64", 0.0)) <= tol_x
     if "p" in e:
         ok = ok and max(e["p"], e.get("p64", 0.0)) <= tol_n
         ok = ok and e["total"] <= tol_n * (e["cancel"] if f32 else 1.0)
@@ -1500,7 +1545,8 @@ def parity_vecchia_band_bwd(dev) -> None:
     """Phase 9 (a): the pullback kernel against its plain version on the
     card, f64 and f32 on the same windows, every map, both layouts (row 10's
     (D, k+1, N) view and row 8's gathered (N, k+1, D) view), no nugget and a
-    nugget with and without slot k, N ragged against the 8-window blocks,
+    nugget with and without slot k, k on both sides of each template width's
+    edge, N ragged against every width's block,
     masked slots and exact duplicates among the neighbours; x̄w (in the
     layout it came in, its masked slots exactly 0) and the nugget's
     cotangent, window by window and in total (:func:`bwd_parity`)."""
@@ -1528,19 +1574,23 @@ def parity_vecchia_band_bwd(dev) -> None:
                         e = bwd_parity(xw, valid, kmap, g, nug, self_)
                         ok = ok and bwd_within(e, tol_x, tol_n)
                         for key, val in e.items():
-                            if key != "layout":
+                            if key not in ("layout", "repeats"):
                                 worst[key] = max(worst.get(key, 0.0), val)
             f32 = dtype == torch.float32
             vs64 = lambda a, b: (f" (vs f64 {worst[a]:.3e}; the f32 plain version's "  # noqa: E731
                                  f"{worst[b]:.3e})" if f32 else "")
+            before = EARLIER_BWD_ERR.get((str(dtype)[6:], D, k))
             check(ok, f"vecchia_band_bwd {str(dtype)[6:]} N={N} D={D} k={k}, 4 maps, both "
                   f"layouts, no nugget / nugget with and without slot k: x̄w rel err "
                   f"{worst['x']:.3e}{vs64('x64', 'plain_x64')} <= {tol_x:g}; nugget shares "
                   f"{worst['p']:.3e}{vs64('p64', 'plain_p64')} <= {tol_n:g}, total "
                   f"{worst['total']:.3e} of |Σp| <= {tol_n:g}"
                   + (" × Σ|p|/|Σp|" if f32 else "")
-                  + f" (Σ|p|/|Σp| up to {worst['cancel']:.1f}); x̄w in the windows' strides, "
-                  "masked slots exactly 0")
+                  + f" (Σ|p|/|Σp| up to {worst['cancel']:.1f}); the earlier kernel's x̄w and "
+                  + ("shares not measured" if before is None
+                     else f"shares {before[0]:.3e} and {before[1]:.3e}")
+                  + "; x̄w in the windows' strides, masked slots exactly 0, two calls equal "
+                  "bitwise")
 
 
 def lml_value_and_grad(build, theta0, x, y, nn, points: bool = False):
@@ -2100,9 +2150,13 @@ def main() -> None:
                             "approximategps_tpu/ops/gram.py:94"),
     }
     # the one band kernel takes the place of rows 7, 8 and 10 of the table
+    # (the warp-per-window machinery of rows 8, 9 and 6 is one shared header)
+    window = ["approximategps_tpu_torch/csrc/vecchia_window.cuh"]
     also = {"vecchia_band": {"rows": [7, 8, 10], "replaces_also": [
         "approximategps_tpu/ops/batched_chol.py:485",
-        "approximategps_tpu/ops/batched_chol.py:1134"]},
+        "approximategps_tpu/ops/batched_chol.py:1134"], "sources_also": window},
+            "vecchia_band_bwd": {"sources_also": window},
+            "batched_chol_solve_band": {"sources_also": window},
             # row 5 is three kernels: the narrow pass, the wide pass and the
             # self-Gram's one-pass pullback, all counted on one counter
             # rows 2 and 3: the f32 tensor-core kernel (the path's) and the

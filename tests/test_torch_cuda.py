@@ -527,30 +527,46 @@ def _band_windows(N, D, k, seed):
     return np.ascontiguousarray(xw), valid
 
 
-@pytest.mark.parametrize("layout", ["nd", "t"])
+# (D, k, N): k on both sides of each template width's edge (a window is padded to 8, 16,
+# 32 or 64 rows) and at the kernels' limits, N ragged against every width's block.  At
+# k = 33 the windows are at D = 3: at D = 2, N = 301 (SE, no nugget) f32 roundoff
+# decides (where a window's point repeats a neighbour, F's floor multiplies the band's
+# solve error by (8 eps)^(-1/2)), and f32 pullbacks lie up to 4.7e-4 from the f64 one;
+# at D = 3 each is near 1e-6 (scripts/f32_spread_vecchia_torch.py prints both)
+VECCHIA_CASES = ((1, 32, 1001), (2, 32, 777), (3, 7, 501), (2, 8, 301), (1, 9, 301),
+                 (2, 16, 301), (3, 17, 301), (3, 33, 301), (8, 64, 301))
+
+
+@pytest.mark.parametrize("layout", ["nd", "t", "bc"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
 def test_torch_cuda_vecchia_band_matches_plain(cls, dtype, layout, cuda):
-    """Both layouts, with and without a nugget, slot k in and out of it, N
-    odd and ragged against the 8-window blocks; relative to the largest
-    entry: f64 1e-12, f32 1e-4 (each pivot rounds in another order, amplified
-    by the window Grams' conditioning); masked slots exactly 0."""
+    """Both layouts and a broadcast mask (``bc``: ``predict_knn``'s, on the
+    windows past the first k), with and without a nugget, slot k in and out
+    of it, k on both sides of each width's edge, N ragged; relative to the
+    largest entry: f64 1e-12, f32 1e-4 (each pivot rounds in another order,
+    amplified by the window Grams' conditioning); masked slots exactly 0;
+    two calls give the same bits."""
     from approximategps_tpu_torch.ops import batched_chol
 
     kmap = cls().kernel_map()
     tol = 1e-12 if dtype == torch.float64 else 1e-4
-    for D, k, N in ((1, 32, 1001), (2, 32, 777), (3, 7, 501), (8, 64, 301)):
+    for D, k, N in VECCHIA_CASES:
         xw, valid = _band_windows(N, D, k, seed=D)
         a, v = _t(xw, cuda, dtype), _t(valid, cuda, dtype)
+        if layout == "bc":
+            a, v = a[k:], v.new_ones(()).expand(N - k, k)
         for nugget, self_ in ((None, True), (0.1, False), (0.1, True)):
             nug = None if nugget is None else torch.tensor([nugget], dtype=dtype, device=cuda)
-            before = batched_chol.vecchia_band.launches
             if layout == "t" and self_:
-                got = batched_chol.vecchia_band_t(a.permute(1, 2, 0).contiguous(),
-                                                  v.T.contiguous(), kmap, nug)
+                run = lambda: batched_chol.vecchia_band_t(  # noqa: E731
+                    a.permute(1, 2, 0).contiguous(), v.T.contiguous(), kmap, nug)
             else:
-                got = batched_chol.vecchia_band(a, v, kmap, nug, self_)
+                run = lambda: batched_chol.vecchia_band(a, v, kmap, nug, self_)  # noqa: E731
+            before = batched_chol.vecchia_band.launches
+            got = run()
             assert batched_chol.vecchia_band.launches == before + 1
+            assert torch.equal(got, run())
             ref = batched_chol.vecchia_band_plain(a, v, kmap, nug, self_)
             assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol, (D, k, nugget)
             assert bool((got[:, :k][v == 0] == 0).all())
@@ -621,34 +637,39 @@ def _bwd_windows(N, D, k, seed):
     return np.ascontiguousarray(xw), (idx >= 0).astype(np.float64)
 
 
-@pytest.mark.parametrize("layout", ["nd", "t"])
+@pytest.mark.parametrize("layout", ["nd", "t", "bc"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
 def test_torch_cuda_vecchia_band_bwd_matches_plain(cls, dtype, layout, cuda):
     """The pullback kernel against its plain version (the recompute pullback)
     on the card: x̄w and each window's share of the nugget's cotangent, both
-    layouts (x̄w comes back in the layout of the windows), no nugget and a
-    nugget with and without slot k, N ragged against the 8-window blocks;
-    relative to the largest entry (the nugget's total relative to the sum of
-    the shares' magnitudes, since with random cotangents the shares cancel):
+    layouts (x̄w comes back in the layout of the windows) and a broadcast
+    mask on the windows past the first k, no nugget and a nugget with and
+    without slot k, k on both sides of each width's edge, N ragged; relative
+    to the largest entry (the nugget's total relative to the sum of the
+    shares' magnitudes, since with random cotangents the shares cancel):
     f64 1e-10, f32 1e-4 (both solve with the window Grams twice, in other
-    orders)."""
+    orders); two calls give the same bits."""
     from approximategps_tpu_torch.ops import batched_chol
 
     kmap = cls().kernel_map()
     tol = 1e-10 if dtype == torch.float64 else 1e-4
-    for D, k, N in ((1, 32, 1001), (2, 32, 777), (3, 7, 501), (8, 64, 301)):
+    for D, k, N in VECCHIA_CASES:
         xw, valid = _bwd_windows(N, D, k, seed=D)
         a, v = _t(xw, cuda, dtype), _t(valid, cuda, dtype)
         if layout == "t":
             a = a.permute(1, 2, 0).contiguous().permute(2, 0, 1)
         g = _t(np.random.default_rng(k).standard_normal((N, k + 1)), cuda, dtype)
+        if layout == "bc":
+            a, v, g = a[k:], v.new_ones(()).expand(N - k, k), g[k:]
         for nugget, self_ in ((None, True), (0.1, False), (0.1, True)):
             nug = None if nugget is None else torch.tensor([nugget], dtype=dtype, device=cuda)
             before = batched_chol.vecchia_band_bwd.launches
             got_x, got_n = batched_chol.vecchia_band_bwd(a, v, kmap, g, nug, self_)
-            _, got_p = batched_chol.vecchia_band_bwd(a, v, kmap, g, nug, self_, per_window=True)
+            again_x, got_p = batched_chol.vecchia_band_bwd(a, v, kmap, g, nug, self_,
+                                                           per_window=True)
             assert batched_chol.vecchia_band_bwd.launches == before + 2
+            assert torch.equal(got_x, again_x)
             ref_x, ref_p = batched_chol._recompute_pullback(a, v, kmap, nug, self_, g, True,
                                                             nug is not None)
             assert got_x.stride() == a.stride()
@@ -656,6 +677,7 @@ def test_torch_cuda_vecchia_band_bwd_matches_plain(cls, dtype, layout, cuda):
             assert bool((got_x[:, :, :k].permute(0, 2, 1)[v == 0] == 0).all())
             if nug is not None:
                 assert got_n.shape == (1,) and got_n.device == a.device
+                assert torch.equal(got_n, got_p.sum().reshape(1))
                 assert ((got_p - ref_p).abs().max() / ref_p.abs().max()).item() <= tol, (D, k)
                 assert abs((got_n - ref_p.sum()).item()) <= tol * ref_p.abs().sum().item()
 
