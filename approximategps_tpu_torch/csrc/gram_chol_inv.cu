@@ -1,7 +1,8 @@
-// (L, L^-1) factorizations for the SVGP posterior build and the streaming
-// ELBO, in two forms that share one host loop.
+// (L, L^-1) factorizations in f64 for the SVGP posterior build and the
+// streaming ELBO, in two forms that share one host loop (f32 takes
+// gram_chol_inv_mma.cu's panel steps, for both forms).
 //
-// Gram-fused (kernel A): replaces approximategps_tpu/ops/panel_chol.py::
+// Gram-fused (row 1): replaces approximategps_tpu/ops/panel_chol.py::
 // pallas_gram_chol_inv (_gram_chol_inv_kernel, _gram_panel, _chol_inv_rest,
 // _fused_factor_inv):
 //
@@ -11,10 +12,10 @@
 // from a two-element device array (coef), so that the caller need not bring
 // a hyperparameter that lives on the card back to the host.
 //
-// Given matrix (kernel 4): replaces approximategps_tpu/ops/panel_chol.py::
+// Given matrix (row 4): replaces approximategps_tpu/ops/panel_chol.py::
 // pallas_chol_inv (_chol_inv_kernel): L = chol(sym(A)), J = L^-1 for an SPD
 // (M, M) matrix A.  Step (a) reads A's column panel, symmetrized on the fly
-// as 0.5 (A[r, c] + A[c, r]), where kernel A generates the Gram panel; (b)-(d)
+// as 0.5 (A[r, c] + A[c, r]), where row 1 generates the Gram panel; (b)-(d)
 // are the same kernels.  Both forms give exact zeros above the diagonals of
 // L and J.
 //
@@ -41,8 +42,9 @@
 // and one elementary row transform of X, each thread on its 4 x 4 share held
 // in registers, one barrier a step.  The products are plain SIMT FMA tiles
 // (4 x 4 outputs per thread, 16-deep shared-memory chunks, the next chunk's
-// loads in flight during the current chunk's FMAs); tensor cores (wgmma) and
-// a persistent kernel that removes the 6 launches a step are later work.
+// loads in flight during the current chunk's FMAs).  In f32 the products
+// run on the tensor cores instead, one launch a panel step
+// (gram_chol_inv_mma.cu); f64 keeps this loop.
 //
 // M need not be a multiple of P: the caller passes Mp = M rounded up, and
 // rows/columns >= M carry an identity block with no coupling, so the leading
@@ -375,17 +377,9 @@ long long agp_gram_chol_inv_scratch(int Mp) {
   return (long long)scratch_tiles(Mp / P) * TILE;
 }
 
-// z: (M, D) row-major; coef: (sig2, jitter) on the device; L, J: (Mp, Mp)
+// z: (M, D) row-major f64; coef: (sig2, jitter) on the device; L, J: (Mp, Mp)
 // row-major outputs; W: scratch of agp_gram_chol_inv_scratch(Mp) elements.
 // Returns a cudaError_t (0 on success).
-int agp_gram_chol_inv_f32(const void* z, const void* coef, void* L, void* J, void* W, int M,
-                          int Mp, int D, int kmap, void* stream) {
-  return chol_inv_loop<float, false>(static_cast<const float*>(z), nullptr,
-                                     static_cast<const float*>(coef), static_cast<float*>(L),
-                                     static_cast<float*>(J), static_cast<float*>(W), M, Mp, D,
-                                     kmap, static_cast<cudaStream_t>(stream));
-}
-
 int agp_gram_chol_inv_f64(const void* z, const void* coef, void* L, void* J, void* W, int M,
                           int Mp, int D, int kmap, void* stream) {
   return chol_inv_loop<double, false>(static_cast<const double*>(z), nullptr,
@@ -394,15 +388,8 @@ int agp_gram_chol_inv_f64(const void* z, const void* coef, void* L, void* J, voi
                                       D, kmap, static_cast<cudaStream_t>(stream));
 }
 
-// A: (M, M) row-major SPD (its symmetric part is factored); L, J: (Mp, Mp)
+// A: (M, M) row-major f64 SPD (its symmetric part is factored); L, J: (Mp, Mp)
 // row-major outputs; W: scratch of agp_gram_chol_inv_scratch(Mp) elements.
-int agp_chol_inv_f32(const void* A, void* L, void* J, void* W, int M, int Mp, void* stream) {
-  return chol_inv_loop<float, true>(nullptr, static_cast<const float*>(A), nullptr,
-                                    static_cast<float*>(L), static_cast<float*>(J),
-                                    static_cast<float*>(W), M, Mp, 0, 0,
-                                    static_cast<cudaStream_t>(stream));
-}
-
 int agp_chol_inv_f64(const void* A, void* L, void* J, void* W, int M, int Mp, void* stream) {
   return chol_inv_loop<double, true>(nullptr, static_cast<const double*>(A), nullptr,
                                      static_cast<double*>(L), static_cast<double*>(J),

@@ -1,16 +1,21 @@
-// The gram-fused (L, L^-1) in f32 with one launch a panel step, a
-// look-ahead diagonal step and the products on the tensor cores.
+// The (L, L^-1) factorizations in f32 with one launch a panel step, a
+// look-ahead diagonal step and the products on the tensor cores, for a Gram
+// generated from points (row 1) and for a given matrix (row 4).
 //
-// Replaces approximategps_tpu/ops/panel_chol.py::pallas_gram_chol_inv
-// (_gram_chol_inv_kernel, _gram_panel, _chol_inv_rest, _fused_factor_inv)
-// for f32, with gram_chol_inv.cu's host loop kept for f64 (and reachable by
-// ops/panel_chol.py's part="loop"):
+// Replaces, in f32, approximategps_tpu/ops/panel_chol.py::
+// pallas_gram_chol_inv (_gram_chol_inv_kernel, _gram_panel, _chol_inv_rest,
+// _fused_factor_inv) and ::pallas_chol_inv (_chol_inv_kernel), with
+// gram_chol_inv.cu's host loop kept for f64:
 //
 //     K = sig2 * g(r2(Zs, Zs)) + jitter * I,   L = chol(K),   J = L^-1,
+//     K = (A + A^T) / 2,                         L = chol(K),   J = L^-1,
 //
 // K never written whole to device memory, sig2 and jitter read from a
-// two-element device array, exact zeros above both diagonals, M padded to
-// the panel with identity rows, results that repeat bitwise.
+// two-element device array (the given matrix takes neither: the caller adds
+// any jitter first), exact zeros above both diagonals, M padded to the panel
+// with identity rows, results that repeat bitwise.  The two differ only in
+// where K's tiles come from (tile_source): generated from the tile's points,
+// or A's tile and the transposed one read and averaged.
 //
 // What bounds it on the H100: the chain of dependent panel steps.  Its
 // operations, M^3/6 FMAs of the factor and as many of the inverse (at
@@ -53,7 +58,8 @@
 // halves in shared memory, the next panel's B loaded while this one's
 // products run.  K's tiles are generated from the tile's 128 points staged
 // in shared memory (a thread's 32 entries share two rows and sixteen
-// columns).  The diagonal step works on 16-wide sub-blocks: one warp
+// columns), or, for a given matrix, A's tile and its transposed partner are
+// staged in shared memory by coalesced row reads and averaged there.  The diagonal step works on 16-wide sub-blocks: one warp
 // factors each 16 x 16 block (the column through shared memory, one
 // __syncwarp a column) and inverts it by columns while the other three
 // update the rows below and form X's block rows; three barriers a sub-block
@@ -282,7 +288,9 @@ __device__ __forceinline__ bool arrive_last(int* cnt, int total) {
 }
 
 struct Args {
-  const float* z;
+  const float* z;     // the points (row 1), or
+  const float* A;     // the given matrix (row 4)
+  int avec;           // A's rows read as 16-byte vectors (M % 4 == 0, A aligned)
   const float* coef;
   float* L;
   float* J;
@@ -331,6 +339,61 @@ __device__ void k_tile(const Args& a, int row0, int col0, float sig2, float jit,
                 : (row == col ? 1.f : 0.f);
   }
   __syncthreads();  // zs may be reused
+}
+
+// A's symmetrized 64 x 64 tile at (row0, col0), (A_ik + A_ki^T) / 2, in this
+// thread's D-fragment positions, with row 1's padding: identity past M,
+// exact zeros elsewhere.  A_ik goes to Ds and A_ki to Ts as read, by
+// coalesced row reads (16-byte vectors where A's rows allow them), so that
+// the transposed half costs no scattered loads; Ts is then read by columns.
+// The row pitches keep the fragment reads free of bank conflicts: 72 words
+// for Ds (read as pairs), 68 for Ts (a lane's column t and row g fall in
+// bank 8t + g).
+constexpr int LDD = P + 8, LDT = P + 4;
+
+__device__ void a_tile(const Args& a, int row0, int col0, float* smem, float (&kv)[32]) {
+  float* const Ds = smem;            // Ds[r * LDD + c] = A[row0 + r][col0 + c]
+  float* const Ts = smem + P * LDD;  // Ts[c * LDT + r] = A[col0 + c][row0 + r]
+  const int M = a.M;
+  __syncthreads();  // smem is free
+  if (a.avec) {
+    constexpr int NV = P * P / 4;  // vectors a tile
+#pragma unroll 4
+    for (int e = threadIdx.x; e < 2 * NV; e += NT) {
+      const int t = e / NV, v = e % NV, r = v / (P / 4), c = 4 * (v % (P / 4));
+      const int gr = (t ? col0 : row0) + r, gc = (t ? row0 : col0) + c;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gr < M && gc < M) x = *reinterpret_cast<const float4*>(a.A + (size_t)gr * M + gc);
+      *reinterpret_cast<float4*>((t ? Ts + r * LDT : Ds + r * LDD) + c) = x;
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < 2 * P * P; e += NT) {
+      const int t = e / (P * P), v = e % (P * P), r = v / P, c = v % P;
+      const int gr = (t ? col0 : row0) + r, gc = (t ? row0 : col0) + c;
+      (t ? Ts + r * LDT : Ds + r * LDD)[c] = gr < M && gc < M ? a.A[(size_t)gr * M + gc] : 0.f;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 32; q += 2) {
+    const int row = frag_row(q), col = frag_col(q), gr = row0 + row, gc = col0 + col;
+    const float2 d = *reinterpret_cast<const float2*>(Ds + row * LDD + col);
+    const float t0 = Ts[col * LDT + row], t1 = Ts[(col + 1) * LDT + row];
+    kv[q] = gr < M && gc < M ? 0.5f * (d.x + t0) : (gr == gc ? 1.f : 0.f);
+    kv[q + 1] = gr < M && gc + 1 < M ? 0.5f * (d.y + t1) : (gr == gc + 1 ? 1.f : 0.f);
+  }
+  __syncthreads();  // smem may be reused
+}
+
+// K's tile at (row0, col0): the Gram from the points, or A's symmetrized tile
+template <bool FROM_A>
+__device__ __forceinline__ void tile_source(const Args& a, int row0, int col0, float sig2,
+                                            float jit, float* smem, float (&kv)[32]) {
+  if (FROM_A)
+    a_tile(a, row0, col0, smem, kv);
+  else
+    k_tile(a, row0, col0, sig2, jit, smem, kv);
 }
 
 // Warps 1-3 of the block (threads 32-127) meet here without warp 0.
@@ -510,13 +573,15 @@ __device__ void diag_factor_inv(float* Cs, float* Xs, float* Ys, float* Ws, floa
 // shared memory: the staging of B (hi, lo), or the diagonal step's C, X and Y
 constexpr int DIAG_WORDS = 2 * P * LDC + (P / SB) * SB * LDY + 3 * SB;
 constexpr int SMEM_WORDS = DIAG_WORDS > 2 * 8 * STEP ? DIAG_WORDS : 2 * 8 * STEP;  // 37 KB
+static_assert(P * (LDD + LDT) <= SMEM_WORDS, "a_tile's staging fits the block's smem");
 
+template <bool FROM_A>
 __global__ void __launch_bounds__(NT) step_kernel(const Args a) {
   __shared__ __align__(128) unsigned smem[SMEM_WORDS];
   unsigned* const bhi = smem;
   unsigned* const blo = smem + 8 * STEP;
   const int ld = a.Mp, k = a.k, n = a.n;
-  const float sig2 = a.coef[0], jit = a.coef[1];
+  const float sig2 = FROM_A ? 0.f : a.coef[0], jit = FROM_A ? 0.f : a.coef[1];
   int* const cnt = a.counters + (size_t)(k + 1) * (2 * n + 1);
   float* const Wb = a.W + (size_t)blockIdx.x * TILE;  // this block's partial tile
   int bid = blockIdx.x;
@@ -536,7 +601,8 @@ __global__ void __launch_bounds__(NT) step_kernel(const Args a) {
     store_tile(Wb, P, acc, 1.f);
     if (!arrive_last(cnt + n, a.sB)) return;
     sum_parts(a.W, a.sB, t);  // each thread reads only the positions it writes
-    k_tile(a, (k + 1) * P, (k + 1) * P, sig2, jit, reinterpret_cast<float*>(smem), acc);
+    tile_source<FROM_A>(a, (k + 1) * P, (k + 1) * P, sig2, jit, reinterpret_cast<float*>(smem),
+                        acc);
 #pragma unroll
     for (int q = 0; q < 32; ++q) acc[q] -= t[q];
     store_tile(a.W, P, acc, 1.f);
@@ -554,7 +620,7 @@ __global__ void __launch_bounds__(NT) step_kernel(const Args a) {
     // split order into C
     const int i = k + 1 + bid / a.sA, s = bid % a.sA;
     if (s == 0) {
-      k_tile(a, i * P, k * P, sig2, jit, reinterpret_cast<float*>(smem), acc);
+      tile_source<FROM_A>(a, i * P, k * P, sig2, jit, reinterpret_cast<float*>(smem), acc);
     } else {
       tile_product<false>(a.L + (size_t)i * P * ld, ld, a.L + (size_t)k * P * ld, ld,
                           (s - 1) * a.len, min(k, s * a.len), acc, bhi, blo);
@@ -586,7 +652,8 @@ __global__ void __launch_bounds__(NT) step_kernel(const Args a) {
       if (!arrive_last(cnt + 2 * n, 2)) return;
       sum_parts(a.W, 1, acc);
     } else {
-      k_tile(a, (k + 1) * P, (k + 1) * P, sig2, jit, reinterpret_cast<float*>(smem), acc);
+      tile_source<FROM_A>(a, (k + 1) * P, (k + 1) * P, sig2, jit, reinterpret_cast<float*>(smem),
+                        acc);
     }
   } else {
     // (C) J's row block kr = k - 1, column tile m
@@ -628,7 +695,7 @@ __global__ void __launch_bounds__(NT) step_kernel(const Args a) {
   const int d0 = (k + 1) * P;
   float* const Cs = reinterpret_cast<float*>(smem);
   if (k == -1) {
-    k_tile(a, d0, d0, sig2, jit, reinterpret_cast<float*>(smem), acc);
+    tile_source<FROM_A>(a, d0, d0, sig2, jit, reinterpret_cast<float*>(smem), acc);
 #pragma unroll
     for (int q = 0; q < 32; ++q) t[q] = 0.f;
   }
@@ -671,11 +738,39 @@ long long scratch_words(int Mp) {
   return most * TILE + (long long)(n + 2) * (2 * n + 1);
 }
 
+// Every launch of the factorization in order (K's tiles from tile_source<FROM_A>).
+template <bool FROM_A>
+int run_steps(Args a, cudaStream_t s) {
+  const int n = a.Mp / P;
+  const long long tiles_words = scratch_words(a.Mp) - (long long)(n + 2) * (2 * n + 1);
+  a.counters = reinterpret_cast<int*>(a.W + tiles_words);
+  cudaError_t err;
+  const size_t bytes = (size_t)a.Mp * a.Mp * sizeof(float);
+  if ((err = cudaMemsetAsync(a.L, 0, bytes, s)) != cudaSuccess) return err;
+  if ((err = cudaMemsetAsync(a.J, 0, bytes, s)) != cudaSuccess) return err;
+  if ((err = cudaMemsetAsync(a.counters, 0, sizeof(int) * (size_t)(n + 2) * (2 * n + 1), s)) !=
+      cudaSuccess)
+    return err;
+  a.n = n;
+  for (int k = -1; k <= n; ++k) {
+    const Plan p = plan(k, n);
+    if (p.blocks == 0) continue;
+    a.k = k;
+    a.len = p.len;
+    a.sA = p.sA;
+    a.sB = p.sB;
+    a.nA = p.nA;
+    step_kernel<FROM_A><<<p.blocks, NT, 0, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Elements of the f32 scratch buffer at Mp (a multiple of 64).
+// Elements of the f32 scratch buffer at Mp (a multiple of 64), for either form.
 long long agp_gram_chol_inv_mma_scratch(int Mp) { return scratch_words(Mp); }
 
 // z: (M, D) row-major f32; coef: (sig2, jitter) on the device; L, J: (Mp, Mp)
@@ -685,32 +780,33 @@ int agp_gram_chol_inv_mma_f32(const void* z, const void* coef, void* L, void* J,
                               int M, int Mp, int D, int kmap, void* stream) {
   if (M < 1 || Mp < M || Mp % P != 0 || D < 1 || D > 64 || !agp::valid_kernel_map(kmap))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = Mp / P;
-  Args a{static_cast<const float*>(z), static_cast<const float*>(coef), static_cast<float*>(L),
-         static_cast<float*>(J), static_cast<float*>(scratch), nullptr, M, Mp, D, kmap,
-         0, n, 0, 0, 0, 0};
-  const long long tiles_words = scratch_words(Mp) - (long long)(n + 2) * (2 * n + 1);
-  a.counters = reinterpret_cast<int*>(a.W + tiles_words);
-  cudaError_t err;
-  const size_t bytes = (size_t)Mp * Mp * sizeof(float);
-  if ((err = cudaMemsetAsync(L, 0, bytes, s)) != cudaSuccess) return err;
-  if ((err = cudaMemsetAsync(J, 0, bytes, s)) != cudaSuccess) return err;
-  if ((err = cudaMemsetAsync(a.counters, 0, sizeof(int) * (size_t)(n + 2) * (2 * n + 1), s)) !=
-      cudaSuccess)
-    return err;
-  for (int k = -1; k <= n; ++k) {
-    const Plan p = plan(k, n);
-    if (p.blocks == 0) continue;
-    a.k = k;
-    a.len = p.len;
-    a.sA = p.sA;
-    a.sB = p.sB;
-    a.nA = p.nA;
-    step_kernel<<<p.blocks, NT, 0, s>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  Args a{};
+  a.z = static_cast<const float*>(z);
+  a.coef = static_cast<const float*>(coef);
+  a.L = static_cast<float*>(L);
+  a.J = static_cast<float*>(J);
+  a.W = static_cast<float*>(scratch);
+  a.M = M;
+  a.Mp = Mp;
+  a.D = D;
+  a.kmap = kmap;
+  return run_steps<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// A: (M, M) row-major f32 SPD (its symmetric part is factored); L, J, scratch
+// as above.  Returns a cudaError_t (0 on success).
+int agp_chol_inv_mma_f32(const void* A, void* L, void* J, void* scratch, int M, int Mp,
+                         void* stream) {
+  if (M < 1 || Mp < M || Mp % P != 0) return cudaErrorInvalidValue;
+  Args a{};
+  a.A = static_cast<const float*>(A);
+  a.avec = M % 4 == 0 && reinterpret_cast<size_t>(A) % 16 == 0;
+  a.L = static_cast<float*>(L);
+  a.J = static_cast<float*>(J);
+  a.W = static_cast<float*>(scratch);
+  a.M = M;
+  a.Mp = Mp;
+  return run_steps<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -315,10 +315,11 @@ def _gram_chol_parts(fz: FiniteGP, like: torch.Tensor):
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     """A 0-dim tensor in ``like``'s dtype (a tensor stays on its device and
-    in the graph)."""
+    in the graph; a float is filled in on ``like``'s device, with no copy
+    from the host)."""
     if isinstance(v, torch.Tensor):
         return v.to(dtype=like.dtype)
-    return torch.tensor(v, dtype=like.dtype)
+    return like.new_full((), v)
 
 
 @posterior.register(SparseVariationalApproximation)

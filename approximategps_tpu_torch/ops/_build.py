@@ -40,16 +40,15 @@ _i = ctypes.c_int
 _ll = ctypes.c_longlong
 # name: (argtypes, restype); every launching entry point returns a cudaError_t
 _SIGNATURES = {
-    # z, coef, L, J, scratch, M, Mp, D, kmap, stream
-    "agp_gram_chol_inv_f32": ((_p, _p, _p, _p, _p, _i, _i, _i, _i, _p), _i),
+    # z, coef, L, J, scratch, M, Mp, D, kmap, stream: the f64 host loop and the f32
+    # panel steps
     "agp_gram_chol_inv_f64": ((_p, _p, _p, _p, _p, _i, _i, _i, _i, _p), _i),
-    # A, L, J, scratch, M, Mp, stream
-    "agp_chol_inv_f32": ((_p, _p, _p, _p, _i, _i, _p), _i),
-    "agp_chol_inv_f64": ((_p, _p, _p, _p, _i, _i, _p), _i),
-    # Mp -> scratch elements (both factorizations)
-    "agp_gram_chol_inv_scratch": ((_i,), ctypes.c_longlong),
-    # the f32 gram-fused factorization with one launch a panel step: as agp_gram_chol_inv_f32
     "agp_gram_chol_inv_mma_f32": ((_p, _p, _p, _p, _p, _i, _i, _i, _i, _p), _i),
+    # A, L, J, scratch, M, Mp, stream: likewise
+    "agp_chol_inv_f64": ((_p, _p, _p, _p, _i, _i, _p), _i),
+    "agp_chol_inv_mma_f32": ((_p, _p, _p, _p, _i, _i, _p), _i),
+    # Mp -> scratch elements of the host loop and of the panel steps (either form)
+    "agp_gram_chol_inv_scratch": ((_i,), ctypes.c_longlong),
     "agp_gram_chol_inv_mma_scratch": ((_i,), ctypes.c_longlong),
     # xs, zs, se, ae, mu, var, B, M, D, block_b, kmap, stream
     "agp_svgp_epilogue_f32": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p), _i),

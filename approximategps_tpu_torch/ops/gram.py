@@ -25,6 +25,8 @@ non-symmetric Gram of a kernel with a CUDA map.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.kernels import KernelMap, dk_from_k_for
@@ -65,32 +67,49 @@ def _check_cuda_args(X, Z) -> None:
             f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in (X, Z)]}")
 
 
+@functools.cache
+def _entry(dtype: torch.dtype):
+    """The kernel's C entry point for ``dtype``, resolved once."""
+    lib = _build.load_library()
+    return lib.agp_stationary_gram_f32 if dtype == torch.float32 else lib.agp_stationary_gram_f64
+
+
 def stationary_gram_pass(X: torch.Tensor, Z: torch.Tensor, kmap: KernelMap) -> torch.Tensor:
     """K = g(r²(X, Z)), X (..., N, D) and Z (..., M, D) with broadcastable
     batch dimensions, any strides, → (..., N, M) contiguous.  A CPU tensor
     takes :func:`stationary_gram_plain`; a CUDA tensor launches the kernel
     of ``csrc/stationary_gram.cu`` or raises.  Not differentiable itself:
-    :func:`stationary_gram` is."""
+    :func:`stationary_gram` is.  The host's share of a call is kept small
+    (the kernel itself takes tens of microseconds at the minibatch step's
+    Kuf): the plain 2-D case passes its strides as they are, and the
+    current device is switched only where it is not X's."""
     if X.device.type == "cpu":
         return stationary_gram_plain(X, Z, kmap)
     _check_cuda_args(X, Z)
-    batch = torch.broadcast_shapes(X.shape[:-2], Z.shape[:-2])
     (N, D), M = X.shape[-2:], Z.shape[-2]
-    out = torch.empty((*batch, N, M), dtype=X.dtype, device=X.device)
+    if X.ndim == 2:
+        out = torch.empty((N, M), dtype=X.dtype, device=X.device)
+        B, Xb, Zb = 1, X, Z
+        sx, sz = (0, *X.stride()), (0, *Z.stride())
+    else:
+        batch = torch.broadcast_shapes(X.shape[:-2], Z.shape[:-2])
+        out = torch.empty((*batch, N, M), dtype=X.dtype, device=X.device)
+        B = out.numel() // max(N * M, 1)
+        # one batch dimension: expanded dimensions keep a zero stride where a
+        # reshape can, and are copied where it cannot
+        Xb = X.expand(*batch, N, D).reshape(B, N, D)
+        Zb = Z.expand(*batch, M, D).reshape(B, M, D)
+        sx, sz = Xb.stride(), Zb.stride()
     if out.numel() == 0:
         return out
-    B = out.numel() // (N * M)
-    # one batch dimension: expanded dimensions keep a zero stride where a
-    # reshape can, and are copied where it cannot
-    Xb = X.expand(*batch, N, D).reshape(B, N, D)
-    Zb = Z.expand(*batch, M, D).reshape(B, M, D)
-    lib = _build.load_library()
-    fn = lib.agp_stationary_gram_f32 if X.dtype == torch.float32 else lib.agp_stationary_gram_f64
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    sx, sz = Xb.stride(), Zb.stride()
-    with torch.cuda.device(X.device):
-        err = fn(Xb.data_ptr(), sx[0], sx[1], sx[2], Zb.data_ptr(), sz[0], sz[1], sz[2],
-                 out.data_ptr(), B, N, M, D, int(kmap.id), stream)
+    fn, dev = _entry(X.dtype), X.device
+    args = (Xb.data_ptr(), sx[0], sx[1], sx[2], Zb.data_ptr(), sz[0], sz[1], sz[2],
+            out.data_ptr(), B, N, M, D, int(kmap.id), torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     _build.check(err, "stationary_gram")
     stationary_gram.launches += 1
     return out

@@ -17,14 +17,15 @@ Phases (a failing phase raises, and the script exits non-zero):
    each error printed beside its limit; then each kernel's time beside the
    plain version's (CUDA events, median).  The kernels: the gram-fused
    (L, L⁻¹) build (A), the epilogue forward (B, row 2), its backward (3),
-   the (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5).  Row 1
-   in f32 on both kernels (the panel steps with look-ahead and 3xTF32
-   products that ``gram_chol_inv_part`` picks, and the host loop that
-   ``part="loop"`` forces, which f64 takes) at M = 2048 on two maps,
-   against the plain version (‖dL‖_F/‖L‖_F ≤ 1e-4, max|LJ − I| ≤ 1e-3,
-   and both ≤ ``ROW1_TIGHT32`` = 2e-5, which one or two TF32 products in
-   place of three would miss), each twice (equal bitwise), then both and the plain version timed
-   beside the tensor-core and the SIMT bound.  Rows
+   the (L, L⁻¹) of a given matrix (4) and the fused Gram matvec (5).  Rows
+   1 and 4 in f32 (the panel steps with look-ahead and 3xTF32 products,
+   which f32 takes by dtype; f64 takes the host loop) at M = 2048 on two
+   maps, row 4 on the Gram plus the jitter and a small asymmetry, against
+   the plain version (‖dL‖_F/‖L‖_F ≤ 1e-4, max|LJ − I| ≤ 1e-3, and both ≤
+   ``ROW1_TIGHT32`` = 2e-5, which one or two TF32 products in place of
+   three would miss), each twice (equal bitwise), then each and its plain
+   version timed beside the tensor-core and the SIMT bound and the time
+   before the redesign (``EARLIER_MS``).  Rows
    2 and 3 in f32 on both kernels (the tensor-core one the path takes and
    the SIMT one), every map, at the path's block (2048, 16384, 8) and at
    (2050, 16385, 8) and (150, 1001, 3), against the plain version in f64
@@ -142,7 +143,9 @@ Phases (a failing phase raises, and the script exits non-zero):
 11. Row 11, the fused stationary Gram: (a) the kernel against its plain
     version, four maps, f64 and f32, at the minibatch step's Kuf
     (2048 × 8192, D = 8), (1000, 777, 1) and (129, 4099, 11), pairs at
-    r = 0, then timed at the step's shape; (b) phase 5's minibatch step
+    r = 0, then timed at the step's shape, by CUDA events around the call
+    (the wrapper's host time inside) and device-only (``torch.profiler``'s
+    kernel events), beside the time before the redesign; (b) phase 5's minibatch step
     under ``gram_mode="fused"``: row 11 once a cross-Gram the step builds
     (counted on the default path), step 1's loss and gradients against the
     plain path (f32), 30 Adam steps, ms a step beside the default mode's.
@@ -217,6 +220,11 @@ JITTER = 1e-6
 # emulation in tests/test_torch_panel_chol_steps.py moves both ten times past it on these
 # inputs, so such a kernel fails it
 ROW1_TIGHT32 = 2e-5
+# the CUDA-event medians (ms) of rows 1, 4 and 11 at phase 3's and phase 11's shapes before
+# rows 4 and 11 were redesigned (row 4 on the host loop, row 11 written by 4-byte stores;
+# row 1 unchanged since), from this script, printed beside today's (NVIDIA H100 80GB HBM3,
+# 700.00 W)
+EARLIER_MS = {"gram_chol_inv": 1.606, "chol_inv": 2.611, "stationary_gram": 0.086}
 RAW_K = (0.5, 0.5)  # bench.py's raw (variance, lengthscale)
 N_DATA, BATCH, LR, STEPS = 1_000_000, 8192, 1e-3, 30  # bench.py::headline
 N_STREAM = 1 << 20  # bench.py::full_streaming
@@ -364,6 +372,23 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, name: str, calls: int) -> float:
+    """Median device-only time of the kernel events whose name holds
+    ``name`` over ``calls`` calls of ``fn`` after one warm-up, from
+    ``torch.profiler``'s device-side events (no host time inside); NaN where
+    the profiler records no such event."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return statistics.median(times) if times else float("nan")
+
+
 def timed(fn):
     """(result, host ms) of ``fn`` between two synchronises."""
     torch.cuda.synchronize()
@@ -434,42 +459,44 @@ def phase_parity(dev) -> dict:
               f"gram_chol_inv f64 M=520 D={D} {name}: max|dL| {eL:.3e} <= 1e-10, "
               f"max|dJ| {eJ:.3e} <= 1e-7, zeros above both diagonals")
 
-    # kernel A, f32 at the slice's shape, on both kernels (the path's panel
-    # steps, "mma", and the host loop, "loop"): relative Frobenius error of L
-    # and the inverse's residual |L J - I| against the plain version in f32,
-    # each run twice (equal bitwise)
+    # kernel A, f32 at the slice's shape (the panel steps): relative Frobenius
+    # error of L and the inverse's residual |L J - I| against the plain
+    # version in f32, run twice (equal bitwise)
     Z32 = torch.tensor(rng.standard_normal((M, D)), dtype=torch.float32, device=dev)
     eye = torch.eye(M, dtype=torch.float64, device=dev)
     check(panel_chol.gram_chol_inv_part(M, D, torch.float32) == "mma",
           "gram_chol_inv f32 takes the panel steps (part mma), f64 the host loop")
+
+    def f32_factor_check(what, run, L0):
+        L, J = run()
+        L2, J2 = run()
+        torch.cuda.synchronize()
+        fro = (torch.linalg.norm(L.double() - L0.double())
+               / torch.linalg.norm(L0.double())).item()
+        res = (L.double() @ J.double() - eye).abs().max().item()
+        same = torch.equal(L, L2) and torch.equal(J, J2)
+        upper = bool(torch.triu(L, 1).any() or torch.triu(J, 1).any())
+        check(fro <= 1e-4 and res <= 1e-3 and max(fro, res) <= ROW1_TIGHT32 and same
+              and not upper,
+              f"{what}: ||dL||_F/||L||_F {fro:.3e} <= 1e-4, max|LJ - I| {res:.3e} <= 1e-3, "
+              f"both <= {ROW1_TIGHT32:g}, two runs equal bitwise, zeros above both diagonals")
+        return max_abs(L, L0)
+
     for name in ("se", "matern32"):
         L0, _ = panel_chol.gram_chol_inv_plain(Z32, sig2, JITTER, maps[name])
-        for part in ("mma", "loop"):
-            L, J = panel_chol.gram_chol_inv(Z32, sig2, JITTER, maps[name], part)
-            L2, J2 = panel_chol.gram_chol_inv(Z32, sig2, JITTER, maps[name], part)
-            torch.cuda.synchronize()
-            fro = (torch.linalg.norm(L.double() - L0.double())
-                   / torch.linalg.norm(L0.double())).item()
-            res = (L.double() @ J.double() - eye).abs().max().item()
-            same = torch.equal(L, L2) and torch.equal(J, J2)
-            upper = bool(torch.triu(L, 1).any() or torch.triu(J, 1).any())
-            check(fro <= 1e-4 and res <= 1e-3 and max(fro, res) <= ROW1_TIGHT32 and same
-                  and not upper,
-                  f"gram_chol_inv {part} f32 M={M} D={D} {name}: ||dL||_F/||L||_F {fro:.3e} "
-                  f"<= 1e-4, max|LJ - I| {res:.3e} <= 1e-3, both <= {ROW1_TIGHT32:g}, two runs "
-                  "equal bitwise, zeros above both diagonals")
-            if name == "se" and part == "mma":
-                out["gram_chol_inv"] = {"max_abs_err": max_abs(L, L0)}
+        err = f32_factor_check(f"gram_chol_inv f32 M={M} D={D} {name}",
+                               lambda: panel_chol.gram_chol_inv(Z32, sig2, JITTER, maps[name]), L0)
+        if name == "se":
+            out["gram_chol_inv"] = {"max_abs_err": err}
     se = maps["se"]
-    ms = {part: cuda_ms(lambda: panel_chol.gram_chol_inv(Z32, sig2, JITTER, se, part), 10)
-          for part in ("mma", "loop")}
+    ms = cuda_ms(lambda: panel_chol.gram_chol_inv(Z32, sig2, JITTER, se), 10)
     plain_ms = cuda_ms(lambda: panel_chol.gram_chol_inv_plain(Z32, sig2, JITTER, se), 10)
     (b_ms, b_by), (s_ms, s_by) = gram_chol_bounds()
-    out["gram_chol_inv"].update({"ms": ms["mma"], "ms_loop": ms["loop"], "plain_ms": plain_ms,
-                                 "bound_ms": b_ms, "bound_by": b_by, "bound_ms_simt": s_ms})
-    print(f"time gram_chol_inv f32 M={M}: mma {ms['mma']:.3f} ms, loop {ms['loop']:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), SIMT bound {s_ms:.3f} ms "
-          f"({s_by})")
+    out["gram_chol_inv"].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "bound_ms_simt": s_ms})
+    print(f"time gram_chol_inv f32 M={M}: kernel {ms:.3f} ms (before rows 4 and 11's redesign "
+          f"{EARLIER_MS['gram_chol_inv']:.3f}), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}), SIMT bound {s_ms:.3f} ms ({s_by})")
 
     def epilogue_inputs(m, b, dtype, d=D):
         R = rng.standard_normal((m, m)) / math.sqrt(m)
@@ -522,23 +549,22 @@ def phase_parity(dev) -> dict:
         check(eL <= 1e-10 and eJ <= 1e-7 and not upper,
               f"chol_inv f64 M=520 {name}: max|dL| {eL:.3e} <= 1e-10, "
               f"max|dJ| {eJ:.3e} <= 1e-7, zeros above both diagonals")
+    # f32 on the panel steps, as row 1
     for name in ("se", "matern32"):
         A32 = spd(Z32, maps[name])
-        L, J = panel_chol.chol_inv(A32)
         L0, _ = panel_chol.chol_inv_plain(A32)
-        torch.cuda.synchronize()
-        fro = (torch.linalg.norm(L.double() - L0.double()) / torch.linalg.norm(L0.double())).item()
-        res = (L.double() @ J.double() - eye).abs().max().item()
-        check(fro <= 1e-4 and res <= 1e-3,
-              f"chol_inv f32 M={M} {name}: ||dL||_F/||L||_F {fro:.3e} <= 1e-4, "
-              f"max|LJ - I| {res:.3e} <= 1e-3")
+        err = f32_factor_check(f"chol_inv f32 M={M} {name}", lambda: panel_chol.chol_inv(A32), L0)
         if name == "se":
-            out["chol_inv"] = {"max_abs_err": max_abs(L, L0)}
+            out["chol_inv"] = {"max_abs_err": err}
     A32 = spd(Z32, se)
-    out["chol_inv"]["ms"] = cuda_ms(lambda: panel_chol.chol_inv(A32), 10)
-    out["chol_inv"]["plain_ms"] = cuda_ms(lambda: panel_chol.chol_inv_plain(A32), 10)
-    print(f"time chol_inv f32 M={M}: kernel {out['chol_inv']['ms']:.3f} ms, "
-          f"plain {out['chol_inv']['plain_ms']:.3f} ms")
+    ms = cuda_ms(lambda: panel_chol.chol_inv(A32), 10)
+    plain_ms = cuda_ms(lambda: panel_chol.chol_inv_plain(A32), 10)
+    (b_ms, b_by), (s_ms, s_by) = gram_chol_bounds(gram=False)
+    out["chol_inv"].update({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "bound_ms_simt": s_ms})
+    print(f"time chol_inv f32 M={M}: kernel {ms:.3f} ms (before its redesign "
+          f"{EARLIER_MS['chol_inv']:.3f}), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}), SIMT bound {s_ms:.3f} ms ({s_by})")
 
     # kernel 3, the epilogue's pullback, against the closed-form plain
     # version: the relative error max|d| / max|plain| of each cotangent.
@@ -615,18 +641,22 @@ def parity_epilogue_parts(maps: dict, inputs, which: str) -> None:
                       + f" <= {limit:g}, two runs equal bitwise")
 
 
-def gram_chol_bounds(m: int = M, d: int = D):
+def gram_chol_bounds(m: int = M, d: int = D, gram: bool = True):
     """((ms, what bounds it) by the tensor-core count, (ms, ...) by the SIMT
-    count) of row 1 in f32 at (m, d): the factor and the triangular inverse
-    are m³/6 FMAs each, as 3xTF32 (three TF32 products an FMA) on the tensor
-    cores or as f32 FMAs on the SIMT units; beside them the Gram's lower
-    triangle, 3d + 1 flops and one exp an entry; Zs read once, L and J
-    written once."""
+    count) of row 1 (``gram``) or row 4 in f32 at (m, d): the factor and
+    the triangular inverse are m³/6 FMAs each, as 3xTF32 (three TF32
+    products an FMA) on the tensor cores or as f32 FMAs on the SIMT units;
+    beside them row 1's Gram over the lower triangle, 3d + 1 flops and one
+    exp an entry, and row 4's symmetrization, an add and a product an entry
+    of the triangle; Zs (row 1) or A (row 4) read once, L and J written
+    once."""
     fmas = m ** 3 / 3
-    gram = m * m / 2 * (3 * d + 1)
-    nbytes = 4 * (m * d + 2 * m * m)
-    return (bound(gram, nbytes, m * m / 2, tc_flops=2 * 3 * fmas),
-            bound(gram + 2 * fmas, nbytes, m * m / 2))
+    if gram:
+        simt, exps, nbytes = m * m / 2 * (3 * d + 1), m * m / 2, 4 * (m * d + 2 * m * m)
+    else:
+        simt, exps, nbytes = m * m, 0.0, 4 * 3 * m * m
+    return (bound(simt, nbytes, exps, tc_flops=2 * 3 * fmas),
+            bound(simt + 2 * fmas, nbytes, exps))
 
 
 def epilogue_bounds(which: str, m: int = M, b: int = BLOCK, d: int = D):
@@ -2047,15 +2077,18 @@ def parity_stationary_gram(dev) -> dict:
     Z = torch.randn((BATCH, D), device=dev)
     se = maps["SqExponentialKernel"]
     got, ref = gram.stationary_gram_pass(X, Z, se), gram.stationary_gram_plain(X, Z, se)
-    numbers = {"max_abs_err": max_abs(got, ref),
-               "ms": cuda_ms(lambda: gram.stationary_gram_pass(X, Z, se), 20),
+    run = lambda: gram.stationary_gram_pass(X, Z, se)  # noqa: E731
+    numbers = {"max_abs_err": max_abs(got, ref), "ms": cuda_ms(run, 20),
+               "device_ms": device_ms(run, "stationary_gram_kernel", 20),
                "plain_ms": cuda_ms(lambda: gram.stationary_gram_plain(X, Z, se), 20)}
     # a pair costs D differences and D FMAs and the map's scaling, one exp
     numbers["bound_ms"], numbers["bound_by"] = bound(M * BATCH * (3 * D + 1),
                                                      4 * (M * D + BATCH * D + M * BATCH), M * BATCH)
     print(f"time stationary_gram f32 N={M} M={BATCH} D={D} se (the step's Kuf): kernel "
-          f"{numbers['ms']:.3f} ms, plain {numbers['plain_ms']:.3f} ms, bound "
-          f"{numbers['bound_ms']:.3f} ms ({numbers['bound_by']})")
+          f"{numbers['ms']:.4f} ms by CUDA events around the call (before its redesign "
+          f"{EARLIER_MS['stationary_gram']:.3f}), {numbers['device_ms']:.4f} ms device-only "
+          f"(torch.profiler), plain {numbers['plain_ms']:.3f} ms, bound "
+          f"{numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
     return numbers
 
 
@@ -2136,7 +2169,7 @@ def main() -> None:
                                "approximategps_tpu/ops/svgp_epilogue.py:201"),
         "svgp_data_epilogue_bwd": ("approximategps_tpu_torch/csrc/svgp_epilogue_bwd_mma.cu",
                                    "approximategps_tpu/ops/svgp_epilogue.py:271"),
-        "chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv.cu",
+        "chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv_mma.cu",
                      "approximategps_tpu/ops/panel_chol.py:338"),
         "gram_matvec": ("approximategps_tpu_torch/csrc/gram_matvec.cu",
                         "approximategps_tpu/ops/gram_matvec.py:151"),
@@ -2167,27 +2200,22 @@ def main() -> None:
             "svgp_data_epilogue_bwd": {"sources_also": [
                 "approximategps_tpu_torch/csrc/svgp_epilogue_bwd.cu",
                 "approximategps_tpu_torch/csrc/svgp_epilogue_mma.cuh"]},
-            # row 1: the f32 panel steps (the path's) and the host loop (f64,
-            # and the route part="loop" forces), on one counter
+            # rows 1 and 4: the f32 panel steps (the paths') and the host loop
+            # (f64), each row on one counter
             "gram_chol_inv": {"sources_also": [
+                "approximategps_tpu_torch/csrc/gram_chol_inv.cu"]},
+            "chol_inv": {"sources_also": [
                 "approximategps_tpu_torch/csrc/gram_chol_inv.cu"]},
             "gram_matvec": {"sources_also": [
                 "approximategps_tpu_torch/csrc/gram_matvec_mma.cu",
                 "approximategps_tpu_torch/csrc/gram_matvec_self_bwd.cu"]}}
-    # the bound of kernel 4 at the shape phase 3 timed it (f32, M = 2048): a
-    # Cholesky and a triangular inverse are M³/6 FMAs each, an FMA two flops.
-    # Rows 1, 2 and 3 bring theirs from phase 3 (gram_chol_bounds,
-    # epilogue_bounds)
-    chol = 2 * M ** 3 / 3
-    bounds = {"chol_inv": bound(chol, 4 * 3 * M * M)}
     kernels = []
     for k, (src, rep) in meta.items():
         per_path = {path: counts[k] for path, counts in by_path.items()}
-        extra = dict(zip(("bound_ms", "bound_by"), bounds[k])) if k in bounds else {}
         # no single PyTorch call computes any of the nine functions
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         **also.get(k, {}), "launches": sum(per_path.values()),
-                        "launches_by_path": per_path, "library_ms": None, **extra,
+                        "launches_by_path": per_path, "library_ms": None,
                         **numbers[k]})
     check(all(k["launches"] > 0 for k in kernels), "every kernel launched by a path run")
     print(json.dumps({"kernels": kernels}))

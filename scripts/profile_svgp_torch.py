@@ -2,26 +2,35 @@
 """Where the time of the PyTorch port's SVGP serving sweep, streaming step
 and minibatch training step goes, on one CUDA GPU.
 
-    python3 scripts/profile_svgp_torch.py [sweep] [streaming] [minibatch] [row1]
+    python3 scripts/profile_svgp_torch.py [sweep] [streaming] [minibatch] [fused] [row1]
+        [row4] [row11]
 
 Builds ``chip_smoke.py``'s phase-4 posterior (M = 2048, D = 8, SE, a
 non-trivial q), phase-6 streaming loss (N = 2^20 points, blocks of 16384)
 and phase-5 minibatch step (Adam on −``elbo`` over 8192 points gathered
 from 10^6, the bench's parameters), runs each once to warm up, then
-profiles one ``predict_blocks`` sweep over 10^6 points, one value and
-gradient of −``streaming_elbo``, one Adam step, and one call of row 1
-(``gram_chol_inv`` at M = 2048, D = 8, f32) alone on each of its two
-kernels with ``torch.profiler``:
+profiles with ``torch.profiler`` one ``predict_blocks`` sweep over 10^6
+points, one value and gradient of −``streaming_elbo``, one Adam step
+(``minibatch``), one Adam step under ``gram_mode="fused"`` (``fused``),
+one call of row 1 (``gram_chol_inv`` at M = 2048, D = 8, f32), one of
+row 4 (``chol_inv`` of phase 3's f32 matrix at M = 2048) and 20 of row 11
+(``stationary_gram_pass`` at the step's Kuf, (2048, 8192, 8) SE f32):
 the device time by kernel name, the device's busy share of the wall time
-and, for the last two, the longest idle gaps between device events.  The
-arguments pick the parts (all four without any).  Prints the card's name
-and power limit first.  Needs a CUDA device (it exits non-zero without
-one).
+and, for the steps and rows 1 and 4, the longest idle gaps between device
+events and each panel step's time in order; for row 11 also the median
+CUDA-event window of one call beside the median device time of its
+kernel and the host time a call of the wrapper and of the autograd
+Function around it.  The arguments pick the parts
+(all without any).  Prints the card's name and power limit first.  Needs
+a CUDA device (it exits non-zero without one).  To measure an older tree
+of the package, copy this script, ``profile_exact_gp_torch.py`` and
+``chip_smoke.py`` into that tree and run it there.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -33,10 +42,10 @@ import approximategps_tpu_torch as tgp  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from approximategps_tpu_torch import convert  # noqa: E402
 from approximategps_tpu_torch.core import kernels as tk  # noqa: E402
-from approximategps_tpu_torch.ops import panel_chol  # noqa: E402
+from approximategps_tpu_torch.ops import gram, panel_chol  # noqa: E402
 from profile_exact_gp_torch import profile  # noqa: E402
 
-PARTS = ("sweep", "streaming", "minibatch", "row1")
+PARTS = ("sweep", "streaming", "minibatch", "fused", "row1", "row4", "row11")
 
 
 def main(parts) -> None:
@@ -45,10 +54,13 @@ def main(parts) -> None:
     cs.phase_build()
     if "sweep" in parts or "streaming" in parts:
         sweep_and_streaming(dev, parts)
-    if "minibatch" in parts:
-        minibatch(dev)
-    if "row1" in parts:
-        row1(dev)
+    for mode, part in (("auto", "minibatch"), ("fused", "fused")):
+        if part in parts:
+            minibatch(dev, mode)
+    if "row1" in parts or "row4" in parts:
+        rows_1_4(dev, parts)
+    if "row11" in parts:
+        row11(dev)
 
 
 def sweep_and_streaming(dev, parts) -> None:
@@ -83,8 +95,10 @@ def sweep_and_streaming(dev, parts) -> None:
     profile(f"streaming value and gradient, N={cs.N_STREAM}", step)
 
 
-def minibatch(dev) -> None:
-    """One Adam step of phase 5 (``bench.py::headline``)."""
+def minibatch(dev, mode: str) -> None:
+    """One Adam step of phase 5 (``bench.py::headline``) under
+    ``gram_mode`` ``mode``: "auto" (the default), or "fused" (phase 11's:
+    the step's cross-Gram Kuf through row 11)."""
     rng = np.random.default_rng(cs.SEED + 2)
     params = {"k": np.array(cs.RAW_K), "z": rng.standard_normal((cs.M, cs.D)),
               "m": np.zeros(cs.M), "A": np.eye(cs.M)}
@@ -100,26 +114,79 @@ def minibatch(dev) -> None:
     p = {k: t.detach() for k, t in cs.leaf_params(params, dev, torch.float32).items()}
 
     def step():
-        tgp.adam_fit(cs.minibatch_loss, p, batches(1), learning_rate=cs.LR)
+        with tgp.config_context(gram_mode=mode):
+            tgp.adam_fit(cs.minibatch_loss, p, batches(1), learning_rate=cs.LR)
 
     step()
-    profile(f"one minibatch Adam step, B={cs.BATCH}, M={cs.M}", step, top=16, gaps=8)
+    profile(f"one minibatch Adam step, B={cs.BATCH}, M={cs.M}, gram_mode {mode}", step,
+            top=16, gaps=8)
 
 
-def row1(dev) -> None:
-    """Row 1 alone at the step's shape (M = 2048, D = 8, f32, SE), on both
-    kernels: the panel steps ("mma", the path's) and the host loop."""
-    Z = torch.tensor(np.random.default_rng(cs.SEED + 1).standard_normal((cs.M, cs.D)),
-                     dtype=torch.float32, device=dev)
+def rows_1_4(dev, parts) -> None:
+    """Rows 1 and 4 alone at phase 3's f32 inputs (M = 2048, D = 8, SE):
+    row 1 from the points, row 4 from their Gram plus the jitter and a
+    small asymmetry (the kernel factors the symmetric part)."""
+    rng = np.random.default_rng(cs.SEED + 1)
+    rng.standard_normal((520, cs.D))  # phase 3's f64 inputs come first
+    Z = torch.tensor(rng.standard_normal((cs.M, cs.D)), dtype=torch.float32, device=dev)
     sig2 = torch.tensor(1.3, device=dev)  # on the card, as the training step's
     se = tk.SqExponentialKernel().kernel_map()
-    for part in ("mma", "loop"):
-        def call():
-            panel_chol.gram_chol_inv(Z, sig2, cs.JITTER, se, part)
+    if "row1" in parts:
+        def call1():
+            panel_chol.gram_chol_inv(Z, sig2, cs.JITTER, se)
 
-        call()
-        profile(f"row 1 ({part}), gram_chol_inv M={cs.M} D={cs.D} f32", call, top=12, gaps=8,
-                sequence="step_kernel" if part == "mma" else None)
+        call1()
+        profile(f"row 1, gram_chol_inv M={cs.M} D={cs.D} f32", call1, top=12, gaps=8,
+                sequence="step_kernel")
+    if "row4" in parts:
+        r2 = tk.pairwise_sq_dist(Z, Z, mode="broadcast")
+        A = 1.3 * se.k_of_r2(r2) + cs.JITTER * torch.eye(cs.M, device=dev)
+        A = A + 1e-7 * torch.triu(torch.ones_like(A), 1)
+
+        def call4():
+            panel_chol.chol_inv(A)
+
+        call4()
+        profile(f"row 4, chol_inv M={cs.M} f32", call4, top=12, gaps=8, sequence="step_kernel")
+
+
+def row11(dev, calls: int = 20) -> None:
+    """Row 11 at the minibatch step's Kuf ((2048, 8192, 8), SE, f32): the
+    median CUDA-event window of one call (as ``chip_smoke.py`` times it)
+    and the profile of ``calls`` calls, whose kernel's device time a call
+    is the device-only time."""
+    X = torch.randn((cs.M, cs.D), device=dev)
+    Z = torch.randn((cs.BATCH, cs.D), device=dev)
+    se = tk.SqExponentialKernel().kernel_map()
+
+    def call():
+        gram.stationary_gram_pass(X, Z, se)
+
+    def host_ms(fn, n=200):
+        """The host's side of a call alone: ``n`` calls, no sync until the last."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = 1e3 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        return host
+
+    event = cs.cuda_ms(call, 50)
+    print(f"row 11, stationary_gram f32 N={cs.M} M={cs.BATCH} D={cs.D} se: CUDA-event window "
+          f"{event:.4f} ms a call (median of 50); on the host (mean of 200 enqueued without a "
+          f"sync) the wrapper {host_ms(call):.4f} ms a call, the autograd Function "
+          f"{host_ms(lambda: gram.stationary_gram(X, Z, se)):.4f} ms")
+
+    def many():
+        for _ in range(calls):
+            call()
+
+    many()
+    profile(f"row 11, {calls} calls of stationary_gram_pass", many, top=4, gaps=4)
+    print(f"  device-only, a call: {cs.device_ms(call, 'stationary_gram', calls):.4f} ms "
+          f"(median of {calls} kernel events)")
 
 
 if __name__ == "__main__":

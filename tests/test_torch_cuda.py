@@ -48,20 +48,19 @@ def test_torch_cuda_gram_chol_inv_matches_plain(cls, cuda):
     assert not torch.triu(L, 1).any() and not torch.triu(J, 1).any()
 
 
-@pytest.mark.parametrize("part", ["mma", "loop"])
 @pytest.mark.parametrize("M", [200, 520])  # not multiples of the 64-wide panel
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
-def test_torch_cuda_gram_chol_inv_f32_parts_match_plain(cls, M, part, cuda):
-    """Row 1 in f32 on both kernels (the panel steps with look-ahead and
-    3xTF32 products, "mma", and the host loop, "loop") against the plain
-    version in f64 on the same inputs: ||dL||_F/||L||_F <= 1e-4 and
-    max|LJ - I| <= 1e-3 (chip_smoke.py phase 3's limits), exact zeros above
-    both diagonals, one launch a call, two calls equal bitwise."""
+def test_torch_cuda_gram_chol_inv_f32_parts_match_plain(cls, M, cuda):
+    """Row 1 in f32 (the panel steps with look-ahead and 3xTF32 products)
+    against the plain version in f64 on the same inputs: ||dL||_F/||L||_F
+    <= 1e-4 and max|LJ - I| <= 1e-3 (chip_smoke.py phase 3's limits), exact
+    zeros above both diagonals, one launch a call, two calls equal
+    bitwise."""
     Z = _t(np.random.default_rng(M).standard_normal((M, 8)), cuda, torch.float32)
     kmap = cls().kernel_map()
     before = panel_chol.gram_chol_inv.launches
-    L, J = panel_chol.gram_chol_inv(Z, 1.3, 1e-6, kmap, part)
-    L2, J2 = panel_chol.gram_chol_inv(Z, 1.3, 1e-6, kmap, part)
+    L, J = panel_chol.gram_chol_inv(Z, 1.3, 1e-6, kmap)
+    L2, J2 = panel_chol.gram_chol_inv(Z, 1.3, 1e-6, kmap)
     assert panel_chol.gram_chol_inv.launches == before + 2
     L0, _ = panel_chol.gram_chol_inv_plain(Z.double(), 1.3, 1e-6, kmap)
     fro = (torch.linalg.norm(L.double() - L0) / torch.linalg.norm(L0)).item()
@@ -72,19 +71,21 @@ def test_torch_cuda_gram_chol_inv_f32_parts_match_plain(cls, M, part, cuda):
 
 
 def test_torch_cuda_gram_chol_inv_parts_choose_and_raise(cuda):
-    """f32 takes the panel steps, f64 the host loop; "mma" raises in f64
-    and an unknown part raises; f64 forced to "loop" equals the default."""
+    """The kernel is chosen by dtype alone, for both rows: f32 the panel
+    steps, f64 the host loop; no route is forced (the wrappers take no
+    part), and sig2 and jitter on the card serve as floats do."""
     assert panel_chol.gram_chol_inv_part(2048, 8, torch.float32) == "mma"
     assert panel_chol.gram_chol_inv_part(2048, 8, torch.float64) == "loop"
     kmap = tk.SqExponentialKernel().kernel_map()
     Z = _t(np.random.default_rng(1).standard_normal((70, 3)), cuda)
-    with pytest.raises(ValueError):
-        panel_chol.gram_chol_inv(Z, 1.0, 1e-6, kmap, "mma")
-    with pytest.raises(ValueError):
-        panel_chol.gram_chol_inv(Z.float(), 1.0, 1e-6, kmap, "warp")
-    for a, b in zip(panel_chol.gram_chol_inv(Z, 1.0, 1e-6, kmap),
-                    panel_chol.gram_chol_inv(Z, 1.0, 1e-6, kmap, "loop")):
-        assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        panel_chol.gram_chol_inv(Z, 1.0, 1e-6, kmap, "loop")
+    for z in (Z, Z.float()):
+        on_card = (torch.tensor(1.0, dtype=z.dtype, device=cuda),
+                   torch.tensor(1e-6, dtype=z.dtype, device=cuda))
+        for a, b in zip(panel_chol.gram_chol_inv(z, 1.0, 1e-6, kmap),
+                        panel_chol.gram_chol_inv(z, *on_card, kmap)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -173,6 +174,34 @@ def test_torch_cuda_chol_inv_matches_plain(dtype, cuda):
     torch.testing.assert_close(L, L0, atol=tol[0], rtol=0)
     torch.testing.assert_close(J, J0, atol=tol[1], rtol=0)
     assert not torch.triu(L, 1).any() and not torch.triu(J, 1).any()
+
+
+@pytest.mark.parametrize("M,offset", [(200, 0), (201, 0), (520, 0), (2048, 0), (200, 1)],
+                         ids=["200", "201", "520", "2048", "200-unaligned"])
+def test_torch_cuda_chol_inv_f32_steps_match_plain(M, offset, cuda):
+    """Row 4 in f32 on the panel steps, A's tiles read and symmetrized
+    (16-byte row reads where M is a multiple of 4 and A is aligned, scalar
+    ones at M = 201 and for an A that starts one float past an aligned
+    address), against the plain version in f64 on the same inputs:
+    ||dL||_F/||L||_F <= 1e-4 and max|LJ - I| <= 1e-3 (chip_smoke.py phase 3's
+    limits), exact zeros above both diagonals, two calls equal bitwise."""
+    rng = np.random.default_rng(M + offset)
+    Z = rng.standard_normal((M, 8))
+    r2 = ((Z[:, None, :] - Z[None, :, :]) ** 2).sum(-1)
+    A = 1.3 * np.exp(-0.5 * r2) + 1e-6 * np.eye(M) + 1e-7 * np.triu(np.ones((M, M)), 1)
+    buf = torch.empty(M * M + offset, dtype=torch.float32, device=cuda)
+    At = buf[offset:].view(M, M)
+    At.copy_(_t(A, cuda, torch.float32))
+    before = panel_chol.chol_inv.launches
+    L, J = panel_chol.chol_inv(At)
+    L2, J2 = panel_chol.chol_inv(At)
+    assert panel_chol.chol_inv.launches == before + 2
+    L0, _ = panel_chol.chol_inv_plain(At.double())
+    fro = (torch.linalg.norm(L.double() - L0) / torch.linalg.norm(L0)).item()
+    res = (L.double() @ J.double() - torch.eye(M, dtype=torch.float64, device=cuda)).abs().max()
+    assert fro <= 1e-4 and res.item() <= 1e-3, (fro, res.item())
+    assert not torch.triu(L, 1).any() and not torch.triu(J, 1).any()
+    assert torch.equal(L, L2) and torch.equal(J, J2)
 
 
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
@@ -917,3 +946,57 @@ def test_torch_cuda_minibatch_step_under_fused_gram_reaches_row_11(cuda):
     assert gram.stationary_gram.launches == before + 1
     assert abs((v - v0).item()) <= 1e-10 * abs(v0.item())
     assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-10
+
+
+@pytest.mark.parametrize("dtype,M", [(torch.float32, 8189), (torch.float32, 8190),
+                                     (torch.float32, 8191), (torch.float32, 8192),
+                                     (torch.float64, 4097), (torch.float64, 4096)],
+                         ids=["f32-8189", "f32-8190", "f32-8191", "f32-8192", "f64-4097",
+                              "f64-4096"])
+def test_torch_cuda_stationary_gram_ragged_rows(dtype, M, cuda):
+    """Row 11's 16-byte stores: M not a multiple of the vector (4 floats or
+    2 doubles) leaves rows that start off a 16-byte boundary and a run
+    that crosses column M, both written by scalar stores; N ragged against
+    the 64-row tiles, D = 8; a strided X (a transposed view), and a batch
+    of two with Z expanded (stride 0) and X's batch strided, against the
+    plain version (f64 1e-12, f32 1e-5 relative to the largest entry)."""
+    from approximategps_tpu_torch.ops import gram
+
+    kmap = tk.Matern52Kernel().kernel_map()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    rng = np.random.default_rng(M)
+    X = _t(rng.standard_normal((130, 8)), cuda, dtype)
+    Z = _t(rng.standard_normal((M, 8)), cuda, dtype)
+    Z[:5] = X[:5]
+    for A in (X, X.T.contiguous().T):
+        before = gram.stationary_gram.launches
+        got = gram.stationary_gram(A, Z, kmap)
+        assert gram.stationary_gram.launches == before + 1
+        ref = gram.stationary_gram_plain(X, Z, kmap)
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
+    Xb = _t(rng.standard_normal((2, 8, 130)), cuda, dtype).mT  # (2, 130, 8), strided
+    Zb = Z[None].expand(2, M, 8)
+    got = gram.stationary_gram(Xb, Zb, kmap)
+    ref = gram.stationary_gram_plain(Xb, Zb, kmap)
+    assert got.shape == (2, 130, M)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_torch_cuda_stationary_gram_small_grams_batch(dtype, cuda):
+    """A batch of 8192 Grams of 33 × 33 at D = 2 (the Vecchia windows'
+    shape: rows of 33 values, so most start off a 16-byte boundary), under
+    ``vmap`` (one launch) and called batched, against the plain version."""
+    from approximategps_tpu_torch.ops import gram
+
+    kmap = tk.SqExponentialKernel().kernel_map()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    W = _t(np.random.default_rng(17).standard_normal((8192, 33, 2)), cuda, dtype)
+    ref = gram.stationary_gram_plain(W, W, kmap)
+    before = gram.stationary_gram.launches
+    got = torch.func.vmap(lambda w: gram.stationary_gram(w, w, kmap))(W)
+    assert gram.stationary_gram.launches == before + 1
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
+    got = gram.stationary_gram(W, W, kmap)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
+    assert torch.equal(torch.diagonal(got, dim1=-2, dim2=-1), torch.ones_like(got[..., 0]))

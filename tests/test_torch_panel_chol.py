@@ -92,3 +92,23 @@ def test_torch_gram_chol_inv_rejects_unsupported_inputs():
             torch.empty((64, 3), device="meta"), SIG2, JITTER,
             tk.SqExponentialKernel().kernel_map(),
         )
+
+
+def test_torch_host_float_parameters_stay_off_the_host():
+    """σ² and the jitter reach the kernel without a copy from the host: the
+    posterior build's ``_scalar`` makes a float into a 0-dim tensor on
+    ``like``'s device in ``like``'s dtype (a meta tensor stands in for the
+    card), a tensor keeps its device and takes the dtype; ``_coef`` fills
+    the kernel's two-element array from floats and tensors alike."""
+    from approximategps_tpu_torch.models.svgp import _scalar
+
+    like = torch.empty(3, dtype=torch.float32, device="meta")
+    s = _scalar(1e-6, like)
+    assert s.device == like.device and s.dtype == torch.float32 and s.ndim == 0
+    t = _scalar(torch.tensor(2.0, dtype=torch.float64), torch.empty(2, dtype=torch.float32))
+    assert t.device.type == "cpu" and t.dtype == torch.float32 and t.item() == 2.0
+    assert _scalar(0.5, torch.empty(2, dtype=torch.float64)).dtype == torch.float64
+    coef = panel_chol._coef(torch.tensor(1.3, dtype=torch.float64), 1e-6,
+                            torch.empty(2, dtype=torch.float32))
+    assert coef.dtype == torch.float32 and coef.tolist() == [np.float32(1.3), np.float32(1e-6)]
+    assert panel_chol._coef(1.3, like.new_full((), 1e-6), like).device == like.device
