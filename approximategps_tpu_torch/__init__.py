@@ -12,7 +12,14 @@ and nearest / scaled neighbour sets), ``approx_lml`` with its
 hyperparameter gradient (a white-noise nugget included) and
 ``predict_knn``, with the kernels that do not unwrap (rational quadratic,
 periodic, linear, polynomial, products) and noise that is not a scalar on the
-windowed tier.
+windowed tier; every likelihood of the JAX package (Gaussian, Bernoulli,
+Poisson, Exponential, Gamma, negative binomial, Student-t, the Gauss–Newton
+wrapper and user functions) with Gauss–Hermite, Monte-Carlo and analytic
+expectations; VFE (the Titsias bound and optimal q); the natural-gradient
+updates and the hybrid step ``make_natgrad_adam_step`` (Adam on the
+hyperparameters, one natural-gradient step on q), and ``lbfgs_fit``; and
+block-Vecchia (``BlockNearestNeighbors``: ``approx_lml`` and ``posterior``
+from batched per-block factorizations, no hand-written kernel).
 Hand-written CUDA kernels for Hopper (``csrc/``) carry them
 on the GPU, each beside a plain PyTorch version that CPU tensors take:
 
@@ -43,8 +50,24 @@ from .config import config, config_context, set_config
 from .core import (
     GP,
     AbstractGP,
+    Analytic,
+    BernoulliLikelihood,
     ConstantKernel,
+    DefaultExpectationMethod,
+    ExponentialLikelihood,
+    FunctionLikelihood,
+    GammaLikelihood,
+    GaussHermite,
     GaussianLikelihood,
+    GaussNewtonLikelihood,
+    Likelihood,
+    MonteCarlo,
+    NegativeBinomialLikelihood,
+    PoissonLikelihood,
+    StudentTLikelihood,
+    as_likelihood,
+    blocked_tril_inv,
+    expected_loglikelihood,
     LatentFiniteGP,
     LatentGP,
     LinearKernel,
@@ -72,7 +95,10 @@ from .core import (
     with_lengthscale,
 )
 from .models import (
+    VFE,
     BandInvRoot,
+    BlockInvRoot,
+    BlockNearestNeighbors,
     CGPosterior,
     Centered,
     NonCentered,
@@ -84,11 +110,13 @@ from .models import (
     approx_root_prec_band,
     approx_root_prec_sparse,
     band_U_matvec,
+    block_vecchia_factors,
     band_Ut_matmul,
     cg_solve,
     elbo,
     kernel_matvec,
     logpdf_slq,
+    optimal_variational_posterior,
     pivoted_cholesky,
     posterior,
     posterior_cg,
@@ -96,11 +124,22 @@ from .models import (
     prior_kl,
     resolve_ordering,
     streaming_elbo,
+    vfe_elbo,
     woodbury_preconditioner,
 )
 from .native import maximin_ordering, nearest_predecessor_neighbors, scaled_ball_predecessors
 from .ops import knn_search
-from .utils import SVGPParams, adam_fit, build_svgp, init_svgp_params, make_slq_hyperopt_step
+from .utils import (
+    SVGPParams,
+    adam_fit,
+    build_svgp,
+    init_svgp_params,
+    lbfgs_fit,
+    make_natgrad_adam_step,
+    make_slq_hyperopt_step,
+    natgrad_update,
+    natgrad_update_tril,
+)
 
 __all__ = [
     "config",
@@ -111,7 +150,23 @@ __all__ = [
     "FiniteGP",
     "LatentGP",
     "LatentFiniteGP",
+    "Likelihood",
     "GaussianLikelihood",
+    "BernoulliLikelihood",
+    "PoissonLikelihood",
+    "ExponentialLikelihood",
+    "GammaLikelihood",
+    "NegativeBinomialLikelihood",
+    "GaussNewtonLikelihood",
+    "StudentTLikelihood",
+    "FunctionLikelihood",
+    "as_likelihood",
+    "GaussHermite",
+    "MonteCarlo",
+    "Analytic",
+    "DefaultExpectationMethod",
+    "expected_loglikelihood",
+    "blocked_tril_inv",
     "Kernel",
     "StationaryKernel",
     "SqExponentialKernel",
@@ -147,6 +202,13 @@ __all__ = [
     "init_svgp_params",
     "build_svgp",
     "adam_fit",
+    "lbfgs_fit",
+    "natgrad_update",
+    "natgrad_update_tril",
+    "make_natgrad_adam_step",
+    "VFE",
+    "optimal_variational_posterior",
+    "vfe_elbo",
     "logpdf",
     "cg_solve",
     "kernel_matvec",
@@ -169,4 +231,7 @@ __all__ = [
     "nearest_predecessor_neighbors",
     "scaled_ball_predecessors",
     "knn_search",
+    "BlockNearestNeighbors",
+    "BlockInvRoot",
+    "block_vecchia_factors",
 ]

@@ -4,8 +4,8 @@
 read: JAX arrays, numpy arrays) in each form the repo uses and returns the
 same form on the port's side, so that ``build_svgp`` / ``posterior`` /
 ``build_exact_fx`` / ``build_vecchia_fx`` / ``build_vecchia_nugget_fx`` /
-``build_vecchia_rq_fx`` / ``build_knn_hetero_fx`` compute the same thing in
-both packages.  The tensors
+``build_vecchia_rq_fx`` / ``build_knn_hetero_fx`` / ``natgrad_elbo`` /
+``poisson_svgp_loss`` compute the same thing in both packages.  The tensors
 land on the card unless the caller names another device.  Nothing here
 imports JAX.
 """
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .core.distributions import MultivariateNormal
-from .core.gp import GP, FiniteGP
+from .core.gp import GP, FiniteGP, LatentGP
 from .core.kernels import (
     Matern32Kernel,
     RationalQuadraticKernel,
@@ -24,14 +24,15 @@ from .core.kernels import (
     WhiteKernel,
     with_lengthscale,
 )
+from .core.likelihoods import PoissonLikelihood
 from .models.api import posterior
-from .models.svgp import SparseVariationalApproximation, SVGPPosterior
+from .models.svgp import SparseVariationalApproximation, SVGPPosterior, elbo
 from .utils.bijectors import softplus
 from .utils.training import SVGPParams
 
 __all__ = ["from_jax_params", "build_posterior_from_bench_params", "build_exact_fx",
            "build_vecchia_fx", "build_vecchia_nugget_fx", "build_vecchia_rq_fx",
-           "build_knn_hetero_fx"]
+           "build_knn_hetero_fx", "natgrad_elbo", "poisson_svgp_loss"]
 
 _BENCH_KEYS = ("k", "z", "m", "A")
 _THETA_LENS = (3, 4)  # raw θ of the exact GP and the Vecchia models (3), and of the RQ model
@@ -77,10 +78,7 @@ def build_posterior_from_bench_params(params: dict, jitter: float = 1e-6) -> SVG
     """The serving posterior of ``bench.py``'s ``svgp_predict_sweep``:
     σ² = softplus(k[0]), lengthscale softplus(k[1]), SE kernel, inducing
     jitter ``jitter``, q = N(m, tril(A)), NonCentered."""
-    k = params["k"]
-    kernel = softplus(k[0]) * with_lengthscale(SqExponentialKernel(), softplus(k[1]))
-    f = GP(kernel)
-    fz = f(params["z"], jitter)
+    fz = _bench_gp(params["k"])(params["z"], jitter)
     q = MultivariateNormal(params["m"], torch.tril(params["A"]))
     return posterior(SparseVariationalApproximation(fz, q))
 
@@ -133,3 +131,36 @@ def build_knn_hetero_fx(theta: torch.Tensor, x: torch.Tensor,
     (N,)."""
     kernel = softplus(theta[0]) * with_lengthscale(Matern32Kernel(), softplus(theta[1]))
     return GP(kernel)(x, noise_vec)
+
+
+def _bench_gp(k: torch.Tensor) -> GP:
+    """``bench.py``'s SVGP prior from raw k: softplus(k₀)·SE(lengthscale
+    softplus(k₁))."""
+    return GP(softplus(k[0]) * with_lengthscale(SqExponentialKernel(), softplus(k[1])))
+
+
+def natgrad_elbo(hyper: dict, m: torch.Tensor, L: torch.Tensor, xb: torch.Tensor,
+                 yb: torch.Tensor, num_data: int | None = None, jitter: float = 1e-6,
+                 noise: float = 0.1) -> torch.Tensor:
+    """The ELBO of ``bench.py::natgrad_hybrid``'s ``elbo_fn`` (to maximise):
+    hyperparameters ``{"k": raw (variance, lengthscale), "z": (M, D)}``,
+    the SE prior of :func:`build_posterior_from_bench_params`, inducing
+    jitter ``jitter``, q = N(m, tril(L)) NonCentered, Gaussian noise
+    ``noise``, the minibatch scaled to ``num_data``."""
+    f = _bench_gp(hyper["k"])
+    sva = SparseVariationalApproximation(f(hyper["z"], jitter),
+                                         MultivariateNormal(m, torch.tril(L)))
+    return elbo(sva, f(xb, noise), yb, num_data=num_data)
+
+
+def poisson_svgp_loss(params: dict, xb: torch.Tensor, yb: torch.Tensor,
+                      num_data: int | None = None, jitter: float = 1e-3) -> torch.Tensor:
+    """−ELBO of ``bench.py::poisson_svgp``: the bench dict's SE prior, a
+    Poisson likelihood (exp link, analytic expectation) with latent jitter
+    1e-6, inducing jitter ``jitter`` (1e-3: f32 cannot factor 1024 densely
+    spaced 1-D inducing points at 1e-6), q = N(m, tril(A)) NonCentered."""
+    f = _bench_gp(params["k"])
+    lf = LatentGP(f, PoissonLikelihood(), 1e-6)
+    sva = SparseVariationalApproximation(f(params["z"], jitter),
+                                         MultivariateNormal(params["m"], torch.tril(params["A"])))
+    return -elbo(sva, lf(xb), yb, num_data=num_data)

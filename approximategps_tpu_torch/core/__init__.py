@@ -42,11 +42,25 @@ from .kernels import (
     unwrap_stationary_nugget,
     with_lengthscale,
 )
-from .likelihoods import GaussianLikelihood, Likelihood
+from .likelihoods import (
+    BernoulliLikelihood,
+    ExponentialLikelihood,
+    FunctionLikelihood,
+    GammaLikelihood,
+    GaussianLikelihood,
+    GaussNewtonLikelihood,
+    Likelihood,
+    NegativeBinomialLikelihood,
+    PoissonLikelihood,
+    StudentTLikelihood,
+    as_likelihood,
+)
+from .linalg import blocked_tril_inv
 from .quadrature import (
     Analytic,
     DefaultExpectationMethod,
     GaussHermite,
+    MonteCarlo,
     expected_loglikelihood,
 )
 from .means import ConstMean, FunctionMean, ZeroMean

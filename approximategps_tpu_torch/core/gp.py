@@ -150,12 +150,6 @@ class LatentFiniteGP:
 # ---------------------------------------------------------------------------
 
 
-def _solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    vec = B.ndim == 1
-    X = torch.linalg.solve_triangular(L, B[:, None] if vec else B, upper=False)
-    return X[:, 0] if vec else X
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class CholeskyRep:
     """The precision of C = K(x, x) + Σy through its Cholesky factor L."""
@@ -164,7 +158,7 @@ class CholeskyRep:
 
     def whiten(self, X: torch.Tensor) -> torch.Tensor:
         """V = L⁻¹X, so that VᵀV = XᵀC⁻¹X."""
-        return _solve_lower(self.L, X)
+        return linalg.solve_lower_triangular(self.L, X)
 
     def logdet(self) -> torch.Tensor:
         return linalg.chol_logdet(self.L)

@@ -1,8 +1,8 @@
 """Dense linear-algebra helpers (port of the parts of
-``approximategps_tpu/core/linalg.py`` the SVGP serving and training paths
-read): log-determinants, ``diag_quad_sym`` and ``chol_with_inv``, the last
-two as ``torch.autograd.Function``s with the JAX package's closed-form,
-matmul-only pullbacks."""
+``approximategps_tpu/core/linalg.py`` the ported paths read): triangular
+solves, log-determinants, ``diag_quad_sym``, ``blocked_tril_inv`` and
+``chol_with_inv``, the last three as ``torch.autograd.Function``s with the
+JAX package's closed-form, matmul-only pullbacks."""
 
 from __future__ import annotations
 
@@ -12,10 +12,15 @@ from ..config import config, kernels_take
 
 __all__ = [
     "symmetrize",
+    "add_jitter",
     "safe_cholesky",
+    "solve_lower_triangular",
+    "solve_upper_triangular",
+    "cholesky_solve",
     "tril_logdet",
     "chol_logdet",
     "diag_quad_sym",
+    "blocked_tril_inv",
     "chol_with_inv",
     "chol_with_inv_plain",
 ]
@@ -25,9 +30,34 @@ def symmetrize(A: torch.Tensor) -> torch.Tensor:
     return 0.5 * (A + A.transpose(-1, -2))
 
 
+def add_jitter(A: torch.Tensor, jitter) -> torch.Tensor:
+    return A + jitter * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+
+
 def safe_cholesky(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of the symmetrized A (add jitter before)."""
     return torch.linalg.cholesky(symmetrize(A))
+
+
+def _solve_triangular(T: torch.Tensor, B: torch.Tensor, upper: bool) -> torch.Tensor:
+    vec = B.ndim == T.ndim - 1
+    X = torch.linalg.solve_triangular(T, B[..., None] if vec else B, upper=upper)
+    return X[..., 0] if vec else X
+
+
+def solve_lower_triangular(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L X = B for lower-triangular L (a vector B too)."""
+    return _solve_triangular(L, B, upper=False)
+
+
+def solve_upper_triangular(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve U X = B for upper-triangular U (a vector B too)."""
+    return _solve_triangular(U, B, upper=True)
+
+
+def cholesky_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L Lᵀ) X = B given the lower Cholesky factor L."""
+    return solve_upper_triangular(L.transpose(-1, -2), solve_lower_triangular(L, B))
 
 
 def tril_logdet(L: torch.Tensor) -> torch.Tensor:
@@ -73,6 +103,40 @@ def diag_quad_sym(S: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
             f"diag_quad_sym requires S.dtype == K.dtype, got {S.dtype} vs {K.dtype}"
         )
     return _DiagQuadSym.apply(S, K)
+
+
+class _BlockedTrilInv(torch.autograd.Function):
+    """L⁻¹ of a lower-triangular L, with the pullback
+    L̄ = tril(−L⁻ᵀ L̄ᵢₙᵥ L⁻ᵀ) from the saved inverse: two matmuls."""
+
+    @staticmethod
+    def forward(ctx, L):
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+        ctx.save_for_backward(Linv)
+        return Linv
+
+    @staticmethod
+    def backward(ctx, Linv_bar):
+        (Linv,) = ctx.saved_tensors
+        LiT = Linv.transpose(-1, -2)
+        return torch.tril(-(LiT @ (Linv_bar @ LiT)))
+
+
+def blocked_tril_inv(L: torch.Tensor) -> torch.Tensor:
+    """Inverse of a lower-triangular matrix, with a matmul-only pullback.
+
+    The JAX package inverts by recursive 2×2 blocking so that the TPU's
+    matrix unit does the work; here one ``torch.linalg.solve_triangular``
+    against the identity does (cuBLAS's triangular solve on the card)."""
+    return _BlockedTrilInv.apply(L)
+
+
+def _chol_bwd_from_inv(L, Linv, L_bar):
+    """Ā from L̄ for L = chol(A), using L⁻¹ (Murray 2016, eq. 8 rearranged):
+    Ā = sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹), three matmuls and no triangular solve."""
+    P = _phi(L.transpose(-1, -2) @ torch.tril(L_bar))
+    return symmetrize(Linv.transpose(-1, -2) @ (P @ Linv))
 
 
 def _inv_chol_bwd_fused(L, J, L_bar, J_bar):

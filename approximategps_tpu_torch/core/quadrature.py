@@ -1,6 +1,6 @@
 """Expectation quadrature (port of ``approximategps_tpu/core/quadrature.py``:
-``Analytic``, ``GaussHermite``, ``DefaultExpectationMethod`` and
-``expected_loglikelihood``)."""
+``Analytic``, ``GaussHermite``, ``MonteCarlo``, ``DefaultExpectationMethod``
+and ``expected_loglikelihood``)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 __all__ = [
     "GaussHermite",
+    "MonteCarlo",
     "Analytic",
     "DefaultExpectationMethod",
     "expected_loglikelihood",
@@ -56,6 +57,26 @@ class GaussHermite:
         f_nodes, ws = gauss_hermite_points(self.n_points, q_mean, q_var)
         lls = lik.log_prob(f_nodes, y[None, ...])  # (n_points, N)
         return torch.tensordot(ws, lls, dims=1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MonteCarlo:
+    """Monte-Carlo expectation over ``n_samples`` draws of q(f) from an
+    explicit ``torch.Generator`` on the inputs' device."""
+
+    n_samples: int = 20
+    generator: torch.Generator | None = None
+
+    def expected_loglik(self, lik, q_mean, q_var, y):
+        if self.generator is None:
+            raise ValueError(
+                "MonteCarlo requires an explicit generator: MonteCarlo(n, generator=...)."
+                " A fixed default seed would silently reuse identical samples every step."
+            )
+        eps = torch.randn((self.n_samples,) + tuple(q_mean.shape), generator=self.generator,
+                          dtype=q_mean.dtype, device=q_mean.device)
+        f_samples = q_mean[None, ...] + _safe_sqrt(q_var)[None, ...] * eps
+        return torch.mean(lik.log_prob(f_samples, y[None, ...]), dim=0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
-"""Approximate-inference models: SVGP serving and training, the
-matrix-free exact GP and Vecchia serving and training."""
+"""Approximate-inference models: SVGP serving and training, VFE, the
+matrix-free exact GP, Vecchia serving and training, and block-Vecchia."""
 
-from . import api, iterative, svgp, svgp_streaming, vecchia
+from . import api, block_vecchia, iterative, svgp, svgp_streaming, vecchia, vfe
 from .api import approx_lml, posterior
+from .block_vecchia import BlockInvRoot, BlockNearestNeighbors, block_vecchia_factors
 from .svgp import (
     Centered,
     NonCentered,
@@ -32,3 +33,4 @@ from .vecchia import (
     predict_knn,
     resolve_ordering,
 )
+from .vfe import VFE, optimal_variational_posterior, vfe_elbo

@@ -1,11 +1,14 @@
-"""SVGP parameters and training (port of the parts of
-``approximategps_tpu/utils/training.py`` the serving and training paths
-read: ``SVGPParams``, ``init_svgp_params``, ``build_svgp`` and
-``adam_fit``; and ``make_slq_hyperopt_step`` of the matrix-free exact GP).
-The natural-gradient step is not ported yet."""
+"""SVGP parameters and training (port of
+``approximategps_tpu/utils/training.py``): ``SVGPParams``,
+``init_svgp_params``, ``build_svgp``, ``adam_fit`` and ``lbfgs_fit``; the
+natural-gradient updates of the variational (m, S) and the hybrid step
+``make_natgrad_adam_step`` (Adam on the hyperparameters, one natural
+gradient step on q); and ``make_slq_hyperopt_step`` of the matrix-free exact
+GP."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import torch
@@ -13,10 +16,21 @@ import torch
 from ..core.distributions import MultivariateNormal
 from ..core.gp import GP
 from ..core.kernels import SqExponentialKernel, with_lengthscale
+from ..core.linalg import _chol_bwd_from_inv, blocked_tril_inv, chol_with_inv, symmetrize
 from ..models.svgp import NonCentered, SparseVariationalApproximation
 from .bijectors import cholesky_parameter, flat_from_tril, invsoftplus, softplus
 
-__all__ = ["SVGPParams", "init_svgp_params", "build_svgp", "adam_fit", "make_slq_hyperopt_step"]
+__all__ = [
+    "SVGPParams",
+    "init_svgp_params",
+    "build_svgp",
+    "adam_fit",
+    "lbfgs_fit",
+    "natgrad_update",
+    "natgrad_update_tril",
+    "make_natgrad_adam_step",
+    "make_slq_hyperopt_step",
+]
 
 
 class SVGPParams(NamedTuple):
@@ -63,6 +77,9 @@ def build_svgp(params: SVGPParams, jitter: float = 1e-6, kernel_cls=SqExponentia
 
 
 def _leaves(params) -> list[torch.Tensor]:
+    """The leaf tensors of a tensor, or of a dict or sequence of tensors."""
+    if isinstance(params, torch.Tensor):
+        return [params]
     return list(params.values()) if isinstance(params, dict) else list(params)
 
 
@@ -91,6 +108,189 @@ def adam_fit(loss_fn: Callable, params, data_iter, learning_rate: float = 1e-2,
         opt.step()
         losses.append(loss.detach())
     return params, losses
+
+
+@contextlib.contextmanager
+def _tf32(allow: bool | None):
+    """``torch.backends.cuda.matmul.allow_tf32`` set to ``allow`` inside,
+    the caller's value restored after; None leaves it as it is."""
+    if allow is None:
+        yield
+        return
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# gradient_precision of make_natgrad_adam_step -> allow_tf32 in its gradient pass
+_GRADIENT_TF32 = {"default": True, "high": False, "highest": False, None: None}
+
+
+def _natgrad_core(m, Sinv, grad_m, grad_S, lr):
+    """The (m, S) natural-gradient step given the current precision S⁻¹ and
+    ascent gradients of the ELBO w.r.t. (m, S).  Its O(M³) work is two
+    ``chol_with_inv`` factorizations (the (L, L⁻¹) kernel on the card) and
+    matmuls.
+
+    With natural parameters θ₁ = S⁻¹m, θ₂ = −½S⁻¹ and expectation
+    parameters η₁ = m, η₂ = S + mmᵀ, the natural gradient w.r.t. θ is the
+    plain gradient w.r.t. η; with dL/dη₁ = dL/dm − 2 (dL/dS) m and
+    dL/dη₂ = dL/dS:
+        θ₂ ← θ₂ + lr·(dL/dS)        ⇒ S⁻¹ ← S⁻¹ − 2·lr·(dL/dS)
+        θ₁ ← θ₁ + lr·(dL/dη₁)
+    Returns (m_new, L_new, Linv_new) with L_new = chol(S_new).  Its
+    matmuls run without TF32: the update adds the gradient into a
+    precision matrix that must stay positive definite."""
+    with _tf32(False):
+        theta1 = Sinv @ m + lr * (grad_m - 2.0 * (grad_S @ m))
+        Li, Li_inv = chol_with_inv(symmetrize(Sinv - 2.0 * lr * grad_S))
+        # S_new = (Li Liᵀ)⁻¹ = Li⁻ᵀ Li⁻¹, one matmul from the factor's inverse
+        S_new = symmetrize(Li_inv.T @ Li_inv)
+        m_new = S_new @ theta1
+        L_new, Linv_new = chol_with_inv(S_new)
+    return m_new, L_new, Linv_new
+
+
+def natgrad_update(m, S_L, grad_m, grad_S, lr: float = 0.1):
+    """One natural-gradient step on the variational (m, S) of an SVGP in
+    expectation-parameter space (see :func:`_natgrad_core`).  ``grad_m`` and
+    ``grad_S`` are ascent gradients of the ELBO w.r.t. m and the dense
+    symmetric S.  Returns the updated (m, S_L)."""
+    with _tf32(False):
+        Linv = blocked_tril_inv(S_L)
+        Sinv = Linv.T @ Linv
+    m_new, L_new, _ = _natgrad_core(m, Sinv, grad_m, grad_S, lr)
+    return m_new, L_new
+
+
+def natgrad_update_tril(m, L, grad_m, grad_L, lr: float = 0.1, Linv=None):
+    """The step of :func:`natgrad_update` from the gradient w.r.t. q's
+    Cholesky factor L (what autograd gives for an ELBO written in terms of
+    ``MultivariateNormal(m, L)``).  The L̄ → S̄ conversion is the Cholesky
+    pullback evaluated from L⁻¹ by matmuls (Murray 2016, eq. 8):
+    S̄ = sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹).  Pass ``Linv`` (the previous step's) to skip
+    the triangular inversion.  Returns ``(m_new, L_new, Linv_new)``, the
+    carried triple of :func:`make_natgrad_adam_step`."""
+    with _tf32(False):
+        if Linv is None:
+            Linv = blocked_tril_inv(L)
+        grad_S = _chol_bwd_from_inv(L, Linv, torch.tril(grad_L))
+        Sinv = Linv.T @ Linv
+    return _natgrad_core(m, Sinv, grad_m, grad_S, lr)
+
+
+def make_natgrad_adam_step(
+    elbo_fn: Callable,
+    optimizer: Callable | None = None,
+    nat_lr: float = 0.1,
+    learning_rate: float = 1e-3,
+    gradient_precision: str | None = "high",
+):
+    """The hybrid SVGP step: Adam on the hyperparameters and one
+    natural-gradient step on the variational (m, S), from one gradient pass.
+
+    ``elbo_fn(hyper, m, L, *batch)`` returns the ELBO (to maximise) of a
+    model whose variational distribution is ``MultivariateNormal(m, L)``
+    (Centered for the exact conjugate natural gradient, NonCentered for the
+    whitened one; the update is the same).  ``hyper`` is a tensor, or a
+    dict or sequence of tensors, updated in place by the optimiser:
+    ``optimizer``, if given, maps the list of leaves to a ``torch.optim``
+    optimiser; the default is Adam at ``learning_rate``, whose defaults are
+    ``optax.adam``'s.
+
+    Returns ``(step, init)``: ``init(hyper, m, L)`` builds the carry
+    ``(hyper, optimizer, m, L, Linv)``; ``step(carry, *batch)`` returns
+    ``(carry, elbo)``, the ELBO at the carry it was given.  The carried
+    L⁻¹ feeds the L̄ → S̄ Cholesky pullback, so that the update's only
+    O(M³) factorizations are the two ``chol_with_inv`` calls of
+    :func:`_natgrad_core`.  The update runs under ``torch.no_grad()``.
+
+    ``gradient_precision`` sets TF32 for the gradient pass's matmuls:
+    "high" and "highest" (the default "high") turn it off, "default" turns
+    it on, and None leaves the caller's setting; the caller's value is
+    restored after.  The natural gradient adds the gradient into a
+    precision matrix that must stay positive definite: on the TPU,
+    single-pass bf16 products left ~1e-3 relative noise on S̄ and drove
+    S⁻¹ − 2·lr·S̄ indefinite.  The update's own matmuls never use TF32."""
+    if gradient_precision not in _GRADIENT_TF32:
+        raise ValueError(f"unknown gradient_precision: {gradient_precision!r}")
+    allow_tf32 = _GRADIENT_TF32[gradient_precision]
+
+    def init(hyper, m, L):
+        leaves = _leaves(hyper)
+        for p in leaves:
+            p.requires_grad_(True)
+        opt = (optimizer(leaves) if optimizer is not None
+               else torch.optim.Adam(leaves, lr=learning_rate))
+        with torch.no_grad(), _tf32(False):
+            Linv = blocked_tril_inv(L)
+        return (hyper, opt, m.detach(), L.detach(), Linv)
+
+    def step(carry, *batch):
+        hyper, opt, m, L, Linv = carry
+        leaves = _leaves(hyper)
+        m_in = m.detach().requires_grad_(True)
+        L_in = L.detach().requires_grad_(True)
+        with _tf32(allow_tf32):
+            e = elbo_fn(hyper, m_in, L_in, *batch)
+            grads = torch.autograd.grad(e, leaves + [m_in, L_in], materialize_grads=True)
+        g_h, g_m, g_L = grads[:-2], grads[-2], grads[-1]
+        # torch.optim minimises: hand it the gradients of −elbo
+        for p, g in zip(leaves, g_h):
+            p.grad = -g
+        opt.step()
+        with torch.no_grad():
+            m, L, Linv = natgrad_update_tril(m, L, g_m, g_L, lr=nat_lr, Linv=Linv)
+        return (hyper, opt, m, L, Linv), e.detach()
+
+    return step, init
+
+
+def lbfgs_fit(loss_fn: Callable, params, max_iters: int = 200, tol: float = 1e-8,
+              optimizer: Callable | None = None):
+    """L-BFGS minimisation of ``loss_fn(params)``, on ``params``' device.
+
+    ``params`` is a tensor, or a dict or sequence of tensors, updated in
+    place.  The default optimiser is ``torch.optim.LBFGS`` with the strong
+    Wolfe line search, one iteration a call (its history carries over);
+    ``optimizer``, if given, maps the list of leaves to another.  Stops
+    after ``max_iters`` iterations or the first whose starting gradient has
+    ‖g‖₂ ≤ ``tol``, as the JAX package's loop does, or the first that
+    leaves the parameters unchanged (the line search found no decrease the
+    dtype can resolve; every later iteration would repeat it).  Its line
+    search is not optax's, so the iterates differ from the JAX package's;
+    the minimiser is the same.  Returns ``(params, final_loss, n_iters)``."""
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = (optimizer(leaves) if optimizer is not None else torch.optim.LBFGS(
+        leaves, lr=1.0, max_iter=1, tolerance_grad=0.0, tolerance_change=0.0,
+        line_search_fn="strong_wolfe"))
+    start_gnorm = []
+
+    def closure():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params)
+        loss.backward()
+        if not start_gnorm:  # the first evaluation of an iteration is at its start
+            gsq = sum(torch.sum(p.grad * p.grad) for p in leaves if p.grad is not None)
+            start_gnorm.append(float(torch.sqrt(torch.as_tensor(gsq))))
+        return loss
+
+    n = 0
+    while n < max_iters:
+        start_gnorm.clear()
+        before = [p.detach().clone() for p in leaves]
+        opt.step(closure)
+        n += 1
+        if start_gnorm[0] <= tol or all(torch.equal(a, p) for a, p in zip(before, leaves)):
+            break
+    with torch.no_grad():
+        final_loss = loss_fn(params)
+    return params, final_loss, n
 
 
 def make_slq_hyperopt_step(
@@ -131,11 +331,8 @@ def make_slq_hyperopt_step(
         fx = build_fx(params)
         return pivoted_cholesky(fx.f.kernel, as_points(fx.x), precond_rank)
 
-    def _params_leaves(params):
-        return [params] if isinstance(params, torch.Tensor) else _leaves(params)
-
     def init(params):
-        leaves = _params_leaves(params)
+        leaves = _leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         opt = (optimizer(leaves) if optimizer is not None

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's SVGP serving and training paths, its
 matrix-free exact GP, its Vecchia serving and training paths, the Vecchia
-tier on prebuilt Grams and the fused Gram on one CUDA GPU.
+tier on prebuilt Grams, the fused Gram, the natural-gradient and Poisson
+SVGP steps and block-Vecchia on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -149,9 +150,39 @@ Phases (a failing phase raises, and the script exits non-zero):
     under ``gram_mode="fused"``: row 11 once a cross-Gram the step builds
     (counted on the default path), step 1's loss and gradients against the
     plain path (f32), 30 Adam steps, ms a step beside the default mode's.
+12. The natural-gradient hybrid step (``bench.py::natgrad_hybrid``):
+    ``make_natgrad_adam_step`` (Adam 1e-3 on k and z, nat_lr 0.1 on q) over
+    fresh minibatches of 8192 gathered from 10^6 points (phase 5's data
+    model, M = 2048, D = 8, SE, jitter 1e-6, noise 0.1), from k = (0.5,
+    0.5), z ~ N(0, 1), m = 0, L = I.  Step 1 on both paths: exact launch
+    counts (row 1 once for the posterior build, row 4 twice for the update;
+    none on the plain path), the elbo, k, z, m and L after it against the
+    plain path (f32), m and L of both paths against the f64 plain path
+    (printed); 10 steps counted, finite, the smallest pivot of L by step;
+    ms a step of both paths; in f64 at N = 4096, M = 256 (full batch), one
+    step with nat_lr = 1 from an arbitrary q lands on the optimal q: the
+    elbo there equals ``vfe_elbo`` to 1e-8.
+13. The Poisson SVGP step (``bench.py::poisson_svgp``): 8192 points on
+    [0, 100] with counts from numpy, num_data 10^5, M = 1024 inducing points
+    on linspace(0, 100), jitter 1e-3, analytic expected log-likelihood,
+    Adam 1e-3: step 1's gradients against the plain path (the bench's q and
+    a non-trivial one), 10 steps with row 1 once a step, ms a step of both
+    paths; then every likelihood at 10^6 points in f64 and f32 on the card:
+    Gauss–Hermite against the analytic expectation, Monte Carlo against it
+    (or against Gauss–Hermite) within 5 standard errors, and
+    ``log_prob_d1_d2`` against autograd.
+14. Block-Vecchia (``bench.py::block_vecchia_lml`` and
+    ``block_vecchia_lml_grad``): N = 10^6 on linspace(0, 10^6), y =
+    sin(x/3), b = k = 64, previous neighbours, softplus(0.55)·Matérn-3/2(ℓ =
+    softplus(0.55)): ``approx_lml`` and its θ-gradient (no hand-written
+    kernel; batched block Grams and ``torch.linalg``), against the f64 run,
+    timed; in f64, b = 1 against scalar Vecchia (N = 4096, k = 6), full
+    conditioning against the exact GP's logpdf and posterior (N = 512), and
+    maximin with nearest neighbours on the card against the CPU (N = 2^14
+    in 2-D).
 
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-11 (each run with the counts
+source, launches in the path runs of phases 4-14 (each run with the counts
 set to 0 just before it), error, times and bound (the least time the card
 could take for the work: operations over the peak rate of their unit or
 bytes over the memory rate, whichever is larger); the last line is
@@ -342,6 +373,40 @@ ROWS_RTOL32 = 1e-4
 # a few eps of each entry
 GRAM_PARITY = ((M, BATCH, D), (1000, 777, 1), (129, 4099, 11))
 GRAM_RTOL32 = 1e-5
+# Phase 12, the natural-gradient hybrid step (bench.py::natgrad_hybrid): phase 5's N, M, D, B
+# and Adam rate, nat_lr 0.1, the start k = (0.5, 0.5), z ~ N(0, 1), m = 0, L = I, 10 steps;
+# the f64 conjugate check at N = 4096, M = 256 (full batch)
+N_NAT, M_NAT, NAT_LR, NAT_STEPS, NAT_N64, NAT_M64 = N_DATA, M, 0.1, 10, 4096, 256
+# step 1's hyperparameters after Adam, kernels against the plain path, relative to each one's
+# largest entry: Adam's first step moves every entry by lr with its gradient's sign, and z's
+# gradient vanishes at the bench's start (α = 0, S = 0), so roundoff picks its sign on each
+# path and an entry of z may differ by 2·lr = 2e-3, about 4.4e-4 of max|z|
+NAT_HYPER_RTOL = 1e-3
+# step 1's (m, L) after the natural gradient, kernels against the plain path and against the
+# f64 plain path, relative to the largest entry: both factor S⁻¹ − 2·lr·S̄ = I + 1221·AAᵀ
+# (A = Lk⁻¹Kuf at B = 8192) and then its inverse in f32, row 4 against cuSOLVER; each f32
+# path's m lay 2e-3–3e-3 from the f64 one on an NVIDIA H100 80GB HBM3 (printed), so f32
+# decides this limit
+NAT_Q_RTOL = 1e-2
+# Phase 13, the Poisson SVGP step (bench.py::poisson_svgp): 8192 points on [0, 100], counts
+# ~ Poisson(exp(sin x)) from numpy, num_data 10^5, M = 1024 inducing points on
+# linspace(0, 100), inducing jitter 1e-3, Adam 1e-3, 10 steps; the likelihood checks at 10^6
+# points
+POIS_M, POIS_BATCH, POIS_N, POIS_JITTER, POIS_STEPS, N_LIK = 1024, 8192, 100_000, 1e-3, 10, \
+    1_000_000
+# Phase 14, block-Vecchia (bench.py::block_vecchia_lml and block_vecchia_lml_grad): N = 10^6
+# on linspace(0, 10^6), y = sin(x/3), blocks of 64 each conditioning on the previous 64
+# points, softplus(0.55)·Matérn-3/2(ℓ = softplus(0.55)), noise 0; f64 checks: b = 1 against
+# scalar Vecchia (N = 4096, k = 6), full conditioning against the exact GP (N = 512), maximin
+# with nearest neighbours against the CPU (N = 2^14 in 2-D)
+N_BV, BV_B, BV_K = 1_000_000, 64, 64
+BV_THETA = np.array([0.55, 0.55, -np.inf])
+N_BV_SCALAR, BV_SCALAR_K, N_BV_EXACT, N_BV_NEAREST = 4096, 6, 512, 1 << 14
+# f32 against f64 at N = 10^6, relative (the gradient to its largest entry): sums over 15625
+# blocks' log-determinants and quadratic forms, the gradient through each block's two
+# Cholesky pullbacks (Matérn-3/2 Grams of 64 points a lengthscale apart); an NVIDIA H100
+# 80GB HBM3 (700 W) read 9.9e-5 on the value and 9.0e-4 on the lengthscale entry
+BV_VALUE_RTOL32, BV_GRAD_RTOL32 = 1e-3, 1e-2
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
 # paper) × 132 SMs × 1.98 GHz boost; TF32 on the tensor cores (dense)
@@ -349,6 +414,9 @@ PEAK_F32, PEAK_BYTES, PEAK_SFU, PEAK_TF32 = 67e12, 3.35e12, 16 * 132 * 1.98e9, 4
 # row 5's f32 passes: the widths both kernels are timed at to place the
 # crossover, and the widths the kernels line reports
 GMV_CROSSOVER_R, GMV_TIMED_R = (1, 2, 4, 8, 16, 32), (1, 16, 32)
+
+
+CARD = "not read"  # the card's name and power limit, as nvidia-smi gives them (phase 1)
 
 
 def check(ok: bool, what: str) -> None:
@@ -416,7 +484,9 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -2142,6 +2212,340 @@ def phase_fused_gram(dev) -> tuple[dict, dict]:
     return launches, numbers
 
 
+# -- phases 12-14: the natural-gradient step, the Poisson step, block-Vecchia ------------
+
+
+def nat_elbo(hyper: dict, m, L, xb, yb):
+    """``bench.py::natgrad_hybrid``'s elbo_fn: SE prior from raw k, inducing
+    jitter 1e-6, q = N(m, tril(L)) NonCentered, noise 0.1, the minibatch
+    scaled to N_NAT points."""
+    return convert.natgrad_elbo(hyper, m, L, xb, yb, num_data=N_NAT, jitter=JITTER,
+                                noise=NOISE)
+
+
+def nat_start(dev, dtype, M_: int | None = None, z=None):
+    """``bench.py::natgrad_hybrid``'s start: k = (0.5, 0.5), z ~ N(0, 1)
+    from numpy (M_NAT of them), m = 0, L = I; returns (hyper, m, L)."""
+    M_ = M_NAT if M_ is None else M_
+    if z is None:
+        z = np.random.default_rng(SEED + 20).standard_normal((M_, D))
+    hyper = {"k": torch.tensor(RAW_K, dtype=dtype, device=dev),
+             "z": torch.as_tensor(z, dtype=dtype, device=dev).clone()}
+    return (hyper, torch.zeros(M_, dtype=dtype, device=dev),
+            torch.eye(M_, dtype=dtype, device=dev))
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def min_pivot(L: torch.Tensor) -> float:
+    return torch.diagonal(L).min().item()
+
+
+def phase_natgrad(dev) -> dict:
+    """Phase 12: the natural-gradient hybrid step.  Returns the path run's
+    launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    x = torch.randn((N_NAT, D), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + NOISE * torch.randn((N_NAT,), generator=gen, device=dev)
+
+    def batches(n):
+        for _ in range(n):
+            idx = torch.randint(0, N_NAT, (BATCH,), generator=gen, device=dev)
+            yield x[idx], y[idx]
+
+    def make():
+        return tgp.make_natgrad_adam_step(nat_elbo, learning_rate=LR, nat_lr=NAT_LR)
+
+    # step 1 on both paths from the bench's start, on the same minibatch
+    xb, yb = next(batches(1))
+    after = {}
+    for label, use in (("kernels", True), ("plain", False)):
+        step, init = make()
+        with tgp.config_context(use_kernels=use):
+            carry = init(*nat_start(dev, torch.float32))
+            ((hyper, _, m, L, Linv), e), got = counted(lambda: step(carry, xb, yb), {})
+        want = only(gram_chol_inv=1, chol_inv=2) if use else only()
+        check(got == want, f"natgrad step 1 ({label}): launches {nonzero(got)} "
+              f"(row 1 once and row 4 twice on the kernel path, none plain)")
+        eye = torch.eye(M_NAT, device=dev)
+        print(f"natgrad step 1 ({label}): elbo {e.item():.8g}, smallest pivot of L "
+              f"{min_pivot(L):.4g}, max|L L⁻¹ − I| {max_abs(L @ Linv, eye):.3e}")
+        after[label] = (e, {k: v.detach() for k, v in hyper.items()}, m, L)
+    (e, h, m, L), (ep, hp, mp, Lp) = after["kernels"], after["plain"]
+    with tgp.config_context(use_kernels=False):
+        step, init = make()
+        (_, _, m64, L64, _), _ = step(init(*nat_start(dev, torch.float64)), xb.double(),
+                                      yb.double())
+    print(f"natgrad step 1 against the f64 plain path, rel err: kernels m {rel_err(m, m64):.3e}, "
+          f"L {rel_err(L, L64):.3e}; plain path m {rel_err(mp, m64):.3e}, L {rel_err(Lp, L64):.3e}")
+    errs = {"elbo": abs(e.item() - ep.item()) / abs(ep.item()), "m": rel_err(m, mp),
+            "L": rel_err(L, Lp), **{k: rel_err(h[k], hp[k]) for k in h}}
+    check(errs["elbo"] <= GRAD_RTOL and max(errs[k] for k in h) <= NAT_HYPER_RTOL
+          and max(errs["m"], errs["L"], rel_err(m, m64), rel_err(L, L64)) <= NAT_Q_RTOL,
+          "natgrad step 1, kernels vs plain path f32: rel err " +
+          ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
+          f" (elbo <= {GRAD_RTOL:g}, k and z <= {NAT_HYPER_RTOL:g}, m and L, and the kernel "
+          f"path's against the f64 plain path, <= {NAT_Q_RTOL:g})")
+
+    # the path, counted: NAT_STEPS steps over fresh minibatches
+    step, init = make()
+    carry = init(*nat_start(dev, torch.float32))
+    launches = {k: 0 for k in COUNTERS}
+    elbos, pivots = [], []
+
+    def run():
+        nonlocal carry
+        for xb, yb in batches(NAT_STEPS):
+            carry, e = step(carry, xb, yb)
+            elbos.append(e)
+            pivots.append(torch.diagonal(carry[3]).min())
+
+    counted(run, launches)
+    print(f"natgrad launches over {NAT_STEPS} steps: {nonzero(launches)}")
+    check(launches == only(gram_chol_inv=NAT_STEPS, chol_inv=2 * NAT_STEPS),
+          f"row 1 once and row 4 twice a natgrad step ({NAT_STEPS} steps)")
+    elbos, pivots = torch.stack(elbos), torch.stack(pivots)
+    hyper, _, m, L, Linv = carry
+    finite = (bool(torch.isfinite(elbos).all()) and bool(torch.isfinite(m).all())
+              and bool(torch.isfinite(L).all()) and bool(torch.isfinite(Linv).all())
+              and all(bool(torch.isfinite(v).all()) for v in hyper.values()))
+    print("natgrad smallest pivot of L by step: " + " ".join(f"{p:.4g}" for p in pivots.tolist()))
+    check(finite, f"{NAT_STEPS} natgrad steps: elbo, hyperparameters, m, L and L⁻¹ finite "
+          f"(elbo {elbos[0].item():.6g} -> {elbos[-1].item():.6g})")
+    for label, use in (("kernels", True), ("plain", False)):
+        step, init = make()
+        with tgp.config_context(use_kernels=use):
+            c = [init(*nat_start(dev, torch.float32))]
+            reps = 5
+
+            def steps():
+                for xb, yb in batches(reps):
+                    c[0] = step(c[0], xb, yb)[0]
+
+            ms = cuda_ms(steps, 2) / reps
+        print(f"time natgrad step ({label}): {ms:.3f} ms a step (Adam on k and z, natural "
+              f"gradient on q, B={BATCH}, M={M_NAT}, fresh gather from N={N_NAT}; {CARD})")
+
+    # f64 on the card: one step with nat_lr = 1 from an arbitrary q lands on
+    # the optimal q of the old hyperparameters (the conjugate case)
+    g64 = torch.Generator(device=dev).manual_seed(SEED + 22)
+    x64 = torch.randn((NAT_N64, D), generator=g64, device=dev, dtype=torch.float64)
+    y64 = torch.sin(x64[:, 0]) + NOISE * torch.randn((NAT_N64,), generator=g64, device=dev,
+                                                     dtype=torch.float64)
+    z64 = x64[:NAT_M64].cpu().numpy()
+
+    def full(h, m_, L_, xb, yb):  # the full batch: no num_data scaling
+        return convert.natgrad_elbo(h, m_, L_, xb, yb, jitter=JITTER, noise=NOISE)
+
+    step, init = tgp.make_natgrad_adam_step(full, learning_rate=LR, nat_lr=1.0)
+    hyper0, _, _ = nat_start(dev, torch.float64, NAT_M64, z64)
+    h0 = {k: v.clone() for k, v in hyper0.items()}
+    m0 = torch.full((NAT_M64,), 0.3, dtype=torch.float64, device=dev)
+    L0 = 1.4 * torch.eye(NAT_M64, dtype=torch.float64, device=dev)
+    reset_counts()
+    (_, _, m1, L1, Li1), _ = step(init(hyper0, m0, L0), x64, y64)
+    got = read_counts()
+    with torch.no_grad():
+        e1 = full(h0, m1, L1, x64, y64)
+        f0 = tgp.GP(softplus(h0["k"][0]) * tgp.with_lengthscale(tgp.SqExponentialKernel(),
+                                                                 softplus(h0["k"][1])))
+        bound = tgp.vfe_elbo(tgp.VFE(f0(h0["z"], JITTER)), f0(x64, NOISE), y64)
+    ev = abs(e1.item() - bound.item()) / abs(bound.item())
+    eye = torch.eye(NAT_M64, dtype=torch.float64, device=dev)
+    check(ev <= 1e-8 and max_abs(Li1 @ L1, eye) <= 1e-8 and got["chol_inv"] == 2,
+          f"natgrad f64 N={NAT_N64} M={NAT_M64}, nat_lr 1: elbo at the new q {e1.item():.10g} vs "
+          f"vfe_elbo {bound.item():.10g}, rel err {ev:.3e} <= 1e-8, max|L⁻¹L − I| "
+          f"{max_abs(Li1 @ L1, eye):.3e} <= 1e-8, row 4 launched {got['chol_inv']} times")
+    return launches
+
+
+def likelihood_checks(dev) -> None:
+    """Phase 13 (b): every likelihood's quadratures on the card, f64 and
+    f32, at N_LIK points: Gauss–Hermite against the analytic expectation
+    where one exists (f64 1e-10, f32 1e-5 relative to the largest), Monte
+    Carlo (20 draws) against it, or against Gauss–Hermite, within 5
+    standard errors of the points' mean difference; ``log_prob_d1_d2``
+    against autograd of ``log_prob`` (f64 1e-12, f32 1e-5; the Gauss–Newton
+    wrapper's second derivative against minus the Fisher information)."""
+    from approximategps_tpu_torch.core.likelihoods import _autograd_d1_d2
+
+    liks = {"gaussian": tgp.GaussianLikelihood(0.3), "poisson": tgp.PoissonLikelihood(),
+            "exponential": tgp.ExponentialLikelihood(), "gamma": tgp.GammaLikelihood(2.5),
+            "bernoulli": tgp.BernoulliLikelihood(),
+            "bernoulli_probit": tgp.BernoulliLikelihood(link="probit"),
+            "poisson_softplus": tgp.PoissonLikelihood(link="softplus"),
+            "negbin": tgp.NegativeBinomialLikelihood(2.5),
+            "studentt": tgp.StudentTLikelihood(5.0, 0.7),
+            "gaussnewton_fisher": tgp.GaussNewtonLikelihood(tgp.StudentTLikelihood(5.0, 0.7),
+                                                            mode="fisher")}
+    for dtype, tol_gh, tol_d in ((torch.float64, 1e-10, 1e-12), (torch.float32, 1e-5, 1e-5)):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        mean = 4.0 * torch.rand((N_LIK,), generator=gen, device=dev, dtype=dtype) - 2.0
+        var = 0.01 + 0.49 * torch.rand((N_LIK,), generator=gen, device=dev, dtype=dtype)
+        for name, lik in liks.items():
+            y = lik.conditional_sample(gen, mean).to(dtype)
+            an = lik.expected_log_prob_analytic(mean, var, y)
+            gh = tgp.GaussHermite(20).expected_loglik(lik, mean, var, y)
+            mc = tgp.MonteCarlo(20, generator=gen).expected_loglik(lik, mean, var, y)
+            ref = gh if an is None else an
+            d = (mc - ref).double()
+            z = abs(d.mean().item()) / (d.std().item() / math.sqrt(N_LIK))
+            e_gh = 0.0 if an is None else rel_err(gh, an)
+            ll, d1, d2 = lik.log_prob_d1_d2(mean, y)
+            all_, a1, a2 = _autograd_d1_d2(lik, mean, y)
+            if isinstance(lik, tgp.GaussNewtonLikelihood):  # its curvature is the Fisher's
+                a2 = -lik.fisher_information(mean, y)
+            e_d = max(rel_err(d1, a1), rel_err(d2, a2), abs(ll.item() - all_.item()) / abs(all_.item()))
+            finite = all(bool(torch.isfinite(t).all()) for t in (gh, mc, d1, d2))
+            check(finite and e_gh <= tol_gh and z <= 5.0 and e_d <= tol_d,
+                  f"likelihood {name} {str(dtype)[6:]} N={N_LIK}: "
+                  + ("" if an is None else f"GH vs analytic rel err {e_gh:.3e} <= {tol_gh:g}, ")
+                  + f"MC vs {'GH' if an is None else 'analytic'} {z:.2f} standard errors <= 5, "
+                  f"log_prob_d1_d2 vs autograd rel err {e_d:.3e} <= {tol_d:g}")
+
+
+def phase_poisson(dev) -> dict:
+    """Phase 13: the Poisson SVGP step (``bench.py::poisson_svgp``), then
+    the likelihood checks.  Returns the path run's launches."""
+    rng = np.random.default_rng(SEED + 30)
+    xh = np.sort(rng.uniform(size=POIS_BATCH)) * 100.0
+    x = torch.tensor(xh[:, None], dtype=torch.float32, device=dev)
+    y = torch.tensor(rng.poisson(np.exp(np.sin(xh))), device=dev)  # integer counts
+    bench = {"k": np.array(RAW_K), "z": np.linspace(0.0, 100.0, POIS_M)[:, None],
+             "m": np.zeros(POIS_M), "A": np.eye(POIS_M)}
+    nontrivial = {**bench, "m": 0.3 * rng.standard_normal(POIS_M),
+                  "A": 0.6 * np.eye(POIS_M) + 0.01 * np.tril(rng.standard_normal((POIS_M, POIS_M)))}
+
+    def loss(p, xb, yb):
+        return convert.poisson_svgp_loss(p, xb, yb, num_data=POIS_N, jitter=POIS_JITTER)
+
+    for what, ps in (("bench q", bench), ("non-trivial q", nontrivial)):
+        (v, g), got = counted(lambda: value_and_grad(loss, leaf_params(ps, dev, torch.float32),
+                                                     x, y), {})
+        check(got == only(gram_chol_inv=1),
+              f"Poisson step 1 ({what}): row 1 once (launches {nonzero(got)})")
+        with tgp.config_context(use_kernels=False):
+            vp, gp = value_and_grad(loss, leaf_params(ps, dev, torch.float32), x, y)
+            v64, g64 = value_and_grad(loss, leaf_params(ps, dev, torch.float64), x.double(), y)
+        # each f32 path against the f64 plain path: the kernel path no further
+        # from it than GRAD_RTOL or twice the plain path's own distance
+        errs = {k: (rel_err(g[k], g64[k]), rel_err(gp[k], g64[k]), rel_err(g[k], gp[k]))
+                for k in g}
+        ev = [abs(a.item() - v64.item()) / abs(v64.item()) for a in (v, vp)]
+        check(ev[0] <= max(GRAD_RTOL, 2 * ev[1])
+              and all(e[0] <= max(GRAD_RTOL, 2 * e[1]) for e in errs.values()),
+              f"Poisson step 1 ({what}), rel err against the f64 plain path (kernels, plain; "
+              f"kernels vs plain): loss {ev[0]:.3e}, {ev[1]:.3e}; " + "; ".join(
+                  f"d{k} {a:.3e}, {b:.3e}; {c:.3e}" for k, (a, b, c) in errs.items())
+              + f"; the kernels' <= max({GRAD_RTOL:g}, 2 × the plain path's); dk "
+              f"{g['k'].tolist()}, plain {gp['k'].tolist()}, f64 {g64['k'].tolist()}")
+
+    launches = {k: 0 for k in COUNTERS}
+    p = {k: t.detach() for k, t in leaf_params(bench, dev, torch.float32).items()}
+    (p, losses), _ = counted(lambda: tgp.adam_fit(loss, p, [(x, y)] * POIS_STEPS,
+                                                  learning_rate=LR), launches)
+    losses = torch.stack(losses)
+    print(f"Poisson launches over {POIS_STEPS} steps: {nonzero(launches)}")
+    check(launches == only(gram_chol_inv=POIS_STEPS)
+          and bool(torch.isfinite(losses).all())
+          and all(bool(torch.isfinite(t).all()) for t in p.values()),
+          f"row 1 once a Poisson step, {POIS_STEPS} Adam steps finite "
+          f"(loss {losses[0].item():.6g} -> {losses[-1].item():.6g})")
+    for label, use in (("kernels", True), ("plain", False)):
+        with tgp.config_context(use_kernels=use):
+            q = {k: t.detach() for k, t in leaf_params(bench, dev, torch.float32).items()}
+            reps = 5
+            ms = cuda_ms(lambda: tgp.adam_fit(loss, q, [(x, y)] * reps, LR), 2) / reps
+        print(f"time Poisson step ({label}): {ms:.3f} ms a step (Adam, B={POIS_BATCH}, "
+              f"M={POIS_M}, D=1, analytic expectation; {CARD})")
+    likelihood_checks(dev)
+    return launches
+
+
+def bv_lml(theta, x, y, nn):
+    return tgp.approx_lml(nn, convert.build_vecchia_fx(theta, x), y)
+
+
+def bv_value_and_grad(theta0: torch.Tensor, x, y, nn):
+    th = theta0.clone().requires_grad_()
+    v = bv_lml(th, x, y, nn)
+    (g,) = torch.autograd.grad(v, th)
+    return v.detach(), g[:2]
+
+
+def phase_block_vecchia(dev) -> dict:
+    """Phase 14: block-Vecchia (``bench.py::block_vecchia_lml`` and
+    ``block_vecchia_lml_grad``) and its f64 checks.  Returns the path run's
+    launches (none: no hand-written kernel runs here)."""
+    nn = tgp.BlockNearestNeighbors(block_size=BV_B, k=BV_K)
+    x = torch.linspace(0.0, float(N_BV), N_BV, device=dev)[:, None]
+    y = torch.sin(x[:, 0] / 3.0)
+    theta = convert.from_jax_params(BV_THETA, device=dev, dtype=torch.float32)
+    launches = {k: 0 for k in COUNTERS}
+    torch.cuda.reset_peak_memory_stats()
+    (v, g), _ = counted(lambda: bv_value_and_grad(theta, x, y, nn), launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(sum(launches.values()) == 0 and bool(torch.isfinite(v)) and bool(torch.isfinite(g).all()),
+          f"block-Vecchia N={N_BV} b={BV_B} k={BV_K}: value {v.item():.8g} and θ-gradient "
+          f"finite, no kernel launched (peak memory {peak:.2f} GiB)")
+    v64, g64 = bv_value_and_grad(theta.double(), x.double(), y.double(), nn)
+    ev, eg = abs(v.item() - v64.item()) / abs(v64.item()), rel_err(g, g64)
+    check(ev <= BV_VALUE_RTOL32 and eg <= BV_GRAD_RTOL32,
+          f"block-Vecchia f32 vs f64, N={N_BV}: rel err value {ev:.3e} <= {BV_VALUE_RTOL32:g}, "
+          f"gradient {eg:.3e} <= {BV_GRAD_RTOL32:g} (gradient {g.tolist()} vs {g64.tolist()})")
+    ms = cuda_ms(lambda: bv_lml(theta, x, y, nn), 3)
+    ms_grad = cuda_ms(lambda: bv_value_and_grad(theta, x, y, nn), 3)
+    print(f"time block-Vecchia approx_lml: {ms:.3f} ms, value and θ-gradient {ms_grad:.3f} ms "
+          f"(N={N_BV}, b={BV_B}, k={BV_K}, {N_BV // BV_B} blocks, f32; {CARD})")
+
+    # f64 on the card
+    f64 = dict(device=dev, dtype=torch.float64)
+    th64 = theta.double()
+    xs = torch.linspace(0.0, float(N_BV_SCALAR), N_BV_SCALAR, **f64)[:, None]
+    fx = convert.build_vecchia_fx(th64, xs)
+    ys = torch.sin(xs[:, 0] / 3.0)
+    scalar = tgp.approx_lml(tgp.NearestNeighbors(k=BV_SCALAR_K), fx, ys)
+    block = tgp.approx_lml(tgp.BlockNearestNeighbors(block_size=1, k=BV_SCALAR_K), fx, ys)
+    e = abs(block.item() - scalar.item()) / abs(scalar.item())
+    check(e <= 1e-9, f"block-Vecchia b=1 f64 N={N_BV_SCALAR} k={BV_SCALAR_K} vs scalar Vecchia: "
+          f"{block.item():.12g} vs {scalar.item():.12g}, rel err {e:.3e} <= 1e-9")
+
+    xe = torch.linspace(0.0, float(N_BV_EXACT), N_BV_EXACT, **f64)[:, None]
+    ye = torch.sin(xe[:, 0] / 3.0)
+    full = tgp.BlockNearestNeighbors(block_size=BV_B, k=N_BV_EXACT)
+    lml = tgp.approx_lml(full, convert.build_vecchia_fx(th64, xe), ye)
+    exact = convert.build_vecchia_fx(th64, xe).logpdf(ye)
+    post = tgp.posterior(full, convert.build_vecchia_fx(th64, xe), ye)
+    gpr = tgp.posterior(convert.build_vecchia_fx(th64, xe).f(xe, 1e-12), ye)
+    xt = torch.linspace(-3.0, N_BV_EXACT + 3.0, 33, **f64)[:, None]
+    e = abs(lml.item() - exact.item()) / abs(exact.item())
+    em, evar = max_abs(post.mean(xt), gpr.mean(xt)), max_abs(post.var(xt), gpr.var(xt))
+    check(e <= 1e-7 and em <= 1e-6 and evar <= 1e-6,
+          f"block-Vecchia full conditioning f64 N={N_BV_EXACT} b={BV_B}: lml vs exact logpdf rel "
+          f"err {e:.3e} <= 1e-7, posterior at 33 points max|d mean| {em:.3e}, max|d var| "
+          f"{evar:.3e} <= 1e-6")
+
+    gn = torch.Generator(device=dev).manual_seed(SEED + 40)
+    side = math.sqrt(N_BV_NEAREST)  # points about a lengthscale apart
+    xn = side * torch.rand((N_BV_NEAREST, 2), generator=gn, **f64)
+    yn = torch.sin(xn[:, 0] / 3.0) + torch.cos(xn[:, 1] / 5.0)
+    near = tgp.BlockNearestNeighbors(block_size=BV_B, k=BV_K, ordering="maximin",
+                                     neighbors="nearest")
+    (lml_dev, ms_dev) = timed(lambda: bv_lml(th64, xn, yn, near))
+    t0 = time.perf_counter()
+    lml_cpu = bv_lml(th64.cpu(), xn.cpu(), yn.cpu(), near)
+    ms_cpu = 1e3 * (time.perf_counter() - t0)
+    e = abs(lml_dev.item() - lml_cpu.item()) / abs(lml_cpu.item())
+    check(bool(torch.isfinite(lml_dev)) and e <= 1e-10,
+          f"block-Vecchia maximin + nearest f64 N={N_BV_NEAREST} in 2-D: the card "
+          f"{lml_dev.item():.12g} vs the CPU {lml_cpu.item():.12g}, rel err {e:.3e} <= 1e-10 "
+          f"({ms_dev:.1f} ms on the card, {ms_cpu:.1f} ms on the CPU, host ordering and search "
+          f"included)")
+    return launches
+
+
 def _plain(fn, *args):
     with tgp.config_context(use_kernels=False):
         return fn(*args)
@@ -2162,6 +2566,9 @@ def main() -> None:
     by_path["vecchia_train"], numbers["vecchia_band_bwd"] = phase_vecchia_train(dev)
     by_path["vecchia_rows"], numbers["batched_chol_solve_band"] = phase_band_rows(dev)
     by_path["fused_gram"], numbers["stationary_gram"] = phase_fused_gram(dev)
+    by_path["natgrad"] = phase_natgrad(dev)
+    by_path["poisson"] = phase_poisson(dev)
+    by_path["block_vecchia"] = phase_block_vecchia(dev)
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv_mma.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),

@@ -3,7 +3,7 @@
 and minibatch training step goes, on one CUDA GPU.
 
     python3 scripts/profile_svgp_torch.py [sweep] [streaming] [minibatch] [fused] [row1]
-        [row4] [row11]
+        [row4] [row11] [natgrad]
 
 Builds ``chip_smoke.py``'s phase-4 posterior (M = 2048, D = 8, SE, a
 non-trivial q), phase-6 streaming loss (N = 2^20 points, blocks of 16384)
@@ -20,7 +20,12 @@ and, for the steps and rows 1 and 4, the longest idle gaps between device
 events and each panel step's time in order; for row 11 also the median
 CUDA-event window of one call beside the median device time of its
 kernel and the host time a call of the wrapper and of the autograd
-Function around it.  The arguments pick the parts
+Function around it; and one step of phase 12's natural-gradient hybrid
+step (``natgrad``): the device time by kernel with rows 1 and 4 (the f32
+panel steps ``step_kernel<false>`` and ``step_kernel<true>``) listed apart,
+the idle share, and the longest idle gaps each with the host operations
+that began inside it (what the host was doing while the card waited).
+The arguments pick the parts
 (all without any).  Prints the card's name and power limit first.  Needs
 a CUDA device (it exits non-zero without one).  To measure an older tree
 of the package, copy this script, ``profile_exact_gp_torch.py`` and
@@ -45,7 +50,7 @@ from approximategps_tpu_torch.core import kernels as tk  # noqa: E402
 from approximategps_tpu_torch.ops import gram, panel_chol  # noqa: E402
 from profile_exact_gp_torch import profile  # noqa: E402
 
-PARTS = ("sweep", "streaming", "minibatch", "fused", "row1", "row4", "row11")
+PARTS = ("sweep", "streaming", "minibatch", "fused", "row1", "row4", "row11", "natgrad")
 
 
 def main(parts) -> None:
@@ -61,6 +66,8 @@ def main(parts) -> None:
         rows_1_4(dev, parts)
     if "row11" in parts:
         row11(dev)
+    if "natgrad" in parts:
+        natgrad(dev)
 
 
 def sweep_and_streaming(dev, parts) -> None:
@@ -187,6 +194,65 @@ def row11(dev, calls: int = 20) -> None:
     profile(f"row 11, {calls} calls of stationary_gram_pass", many, top=4, gaps=4)
     print(f"  device-only, a call: {cs.device_ms(call, 'stationary_gram', calls):.4f} ms "
           f"(median of {calls} kernel events)")
+
+
+def natgrad(dev, gaps: int = 10) -> None:
+    """One step of phase 12 (``bench.py::natgrad_hybrid``: Adam on k and z,
+    the natural gradient on q, B = 8192 gathered from 10^6, M = 2048,
+    D = 8) after two to warm up: device time by kernel, rows 1 and 4
+    apart, and the idle gaps by the host operations begun inside them."""
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
+    x = torch.randn((cs.N_NAT, cs.D), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + cs.NOISE * torch.randn((cs.N_NAT,), generator=gen, device=dev)
+    step, init = tgp.make_natgrad_adam_step(cs.nat_elbo, learning_rate=cs.LR, nat_lr=cs.NAT_LR)
+    carry = [init(*cs.nat_start(dev, torch.float32))]
+
+    def one():
+        idx = torch.randint(0, cs.N_NAT, (cs.BATCH,), generator=gen, device=dev)
+        carry[0] = step(carry[0], x[idx], y[idx])[0]
+
+    one()
+    one()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    dev_ev = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    host_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    rows = {"step_kernel<false>": "row 1 (gram_chol_inv)", "step_kernel<true>": "row 4 (chol_inv)"}
+    by_name: dict[str, list] = {}
+    for e in dev_ev:
+        label = next((r for k, r in rows.items() if k in e.name), e.name)
+        row = by_name.setdefault(label, [0.0, 0])
+        row[0] += e.time_range.elapsed_us() / 1e3
+        row[1] += 1
+    busy = sum(ms for ms, _ in by_name.values())
+    span = (dev_ev[-1].time_range.end - dev_ev[0].time_range.start) / 1e3
+    print(f"one natural-gradient hybrid step, B={cs.BATCH}, M={cs.M_NAT}: wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %, idle "
+          f"{100 * (1 - busy / wall):.1f} %), first to last device event {span:.3f} ms")
+    for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:18]:
+        print(f"  {ms:10.3f} ms  {calls:6d} calls  {name[:90]}")
+    holes = [(b.time_range.start - a.time_range.end, a.time_range.end, b.time_range.start)
+             for a, b in zip(dev_ev, dev_ev[1:])]
+    idle = sum(max(h, 0) for h, _, _ in holes) / 1e3
+    print(f"  idle between device events {idle:.3f} ms over {len(holes)} gaps; the longest, "
+          f"with the host operations begun inside each (calls, host ms):")
+    for h, lo, hi in sorted(holes, reverse=True)[:gaps]:
+        inside: dict[str, list] = {}
+        for e in host_ev:
+            if lo <= e.time_range.start < hi:
+                r = inside.setdefault(e.name, [0, 0.0])
+                r[0] += 1
+                r[1] += e.time_range.elapsed_us() / 1e3
+        top = sorted(inside.items(), key=lambda kv: -kv[1][1])[:4]
+        print(f"    gap {h / 1e3:8.3f} ms: " + "; ".join(
+            f"{name[:40]} ({n}, {ms:.3f})" for name, (n, ms) in top))
 
 
 if __name__ == "__main__":

@@ -1000,3 +1000,123 @@ def test_torch_cuda_stationary_gram_small_grams_batch(dtype, cuda):
     got = gram.stationary_gram(W, W, kmap)
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
     assert torch.equal(torch.diagonal(got, dim1=-2, dim2=-1), torch.ones_like(got[..., 0]))
+
+
+# -- the natural-gradient step, the Poisson step, block-Vecchia (f64 on the card) ------------
+
+
+def _nat_elbo(num_data=None):
+    from approximategps_tpu_torch import convert
+
+    return lambda h, m, L, xb, yb: convert.natgrad_elbo(h, m, L, xb, yb, num_data=num_data)
+
+
+def test_torch_cuda_natgrad_step_conjugate_exact_reaches_rows_1_and_4(cuda):
+    """One hybrid step with nat_lr = 1 from an arbitrary q (N = 512, M = 64,
+    D = 8, ``solve_mode="inv_matmul"`` so that the posterior build takes
+    row 1): row 1 once, row 4 twice, and the elbo at the new q equals
+    ``vfe_elbo`` of the old hyperparameters to 1e-8."""
+    from approximategps_tpu_torch.utils.bijectors import softplus
+
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((512, 8)), cuda)
+    y = torch.sin(x[:, 0]) + 0.1 * _t(rng.standard_normal(512), cuda)
+    hyper = {"k": _t([0.5, 0.5], cuda), "z": x[:64].clone()}
+    h0 = {k: v.clone() for k, v in hyper.items()}
+    m0, L0 = torch.full((64,), 0.3, dtype=torch.float64, device=cuda), 1.4 * torch.eye(
+        64, dtype=torch.float64, device=cuda)
+    with tgp.config_context(solve_mode="inv_matmul"):
+        step, init = tgp.make_natgrad_adam_step(_nat_elbo(), nat_lr=1.0)
+        b1, b4 = panel_chol.gram_chol_inv.launches, panel_chol.chol_inv.launches
+        (_, _, m1, L1, Li1), _ = step(init(hyper, m0, L0), x, y)
+        assert panel_chol.gram_chol_inv.launches == b1 + 1
+        assert panel_chol.chol_inv.launches == b4 + 2
+        with torch.no_grad():
+            e1 = _nat_elbo()(h0, m1, L1, x, y)
+    f0 = tgp.GP(softplus(h0["k"][0]) * tgp.with_lengthscale(tgp.SqExponentialKernel(),
+                                                             softplus(h0["k"][1])))
+    bound = tgp.vfe_elbo(tgp.VFE(f0(h0["z"], 1e-6)), f0(x, 0.1), y)
+    assert abs(e1.item() - bound.item()) <= 1e-8 * abs(bound.item())
+    torch.testing.assert_close(Li1 @ L1, torch.eye(64, dtype=torch.float64, device=cuda),
+                               atol=1e-8, rtol=0)
+
+
+def test_torch_cuda_poisson_step_matches_plain(cuda):
+    """The Poisson SVGP loss (``bench.py::poisson_svgp`` at M = 64, B = 512)
+    and its gradients in f64: row 1 once, against the plain path to 1e-9
+    relative to each gradient's largest entry."""
+    from approximategps_tpu_torch import convert
+
+    rng = np.random.default_rng(6)
+    xh = np.sort(rng.uniform(size=512)) * 100.0
+    x, y = _t(xh[:, None], cuda), torch.tensor(rng.poisson(np.exp(np.sin(xh))), device=cuda)
+    base = {"k": [0.5, 0.5], "z": np.linspace(0, 100, 64)[:, None],
+            "m": 0.3 * rng.standard_normal(64), "A": 0.6 * np.eye(64)}
+
+    def run():
+        p = {k: _t(v, cuda).requires_grad_() for k, v in base.items()}
+        loss = convert.poisson_svgp_loss(p, x, y, num_data=100_000)
+        return loss, torch.autograd.grad(loss, list(p.values()))
+
+    with tgp.config_context(solve_mode="inv_matmul"):
+        before = panel_chol.gram_chol_inv.launches
+        v, g = run()
+        assert panel_chol.gram_chol_inv.launches == before + 1
+        with tgp.config_context(use_kernels=False):
+            vp, gp = run()
+    assert abs(v.item() - vp.item()) <= 1e-9 * abs(vp.item())
+    for a, b in zip(g, gp):
+        assert (a - b).abs().max().item() <= 1e-9 * max(b.abs().max().item(), 1e-30)
+
+
+def test_torch_cuda_likelihoods_match_cpu(cuda):
+    """Every likelihood's log_prob_d1_d2 and Gauss–Hermite expectation on
+    the card against the same code on the CPU, f64, 1e-12."""
+    rng = np.random.default_rng(8)
+    f, v = rng.standard_normal(1000), rng.uniform(0.05, 0.5, 1000)
+    counts, pos = rng.poisson(2.0, 1000), rng.gamma(2.0, 1.0, 1000)
+    for lik, y in ((tgp.BernoulliLikelihood(), rng.integers(0, 2, 1000)),
+                   (tgp.BernoulliLikelihood(link="probit"), rng.integers(0, 2, 1000)),
+                   (tgp.PoissonLikelihood(), counts), (tgp.PoissonLikelihood(link="softplus"), counts),
+                   (tgp.ExponentialLikelihood(), pos), (tgp.GammaLikelihood(2.5), pos),
+                   (tgp.NegativeBinomialLikelihood(2.5), counts),
+                   (tgp.StudentTLikelihood(5.0, 0.7), f),
+                   (tgp.GaussNewtonLikelihood(tgp.StudentTLikelihood(5.0, 0.7)), f)):
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            ft, vt, yt = _t(f, dev), _t(v, dev), _t(y, dev)
+            outs.append([*lik.log_prob_d1_d2(ft, yt),
+                         tgp.GaussHermite(20).expected_loglik(lik, ft, vt, yt)])
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-12, rtol=1e-12)
+
+
+def test_torch_cuda_block_vecchia_checks(cuda):
+    """Block-Vecchia in f64 on the card: b = 1 equals scalar Vecchia
+    (N = 512, k = 6, 1e-9), full conditioning equals the exact GP (N = 128,
+    lml 1e-7, posterior 1e-6), and maximin with nearest neighbours equals
+    the CPU run of the same code (N = 1024 in 2-D, 1e-10)."""
+    f = tgp.GP(1.3 * tgp.with_lengthscale(tgp.Matern32Kernel(), 1.1))
+    x = torch.linspace(0.0, 512.0, 512, dtype=torch.float64, device=cuda)[:, None]
+    y = torch.sin(x[:, 0] / 3.0)
+    scalar = tgp.approx_lml(tgp.NearestNeighbors(k=6), f(x, 0.0), y)
+    block = tgp.approx_lml(tgp.BlockNearestNeighbors(block_size=1, k=6), f(x, 0.0), y)
+    assert abs(block.item() - scalar.item()) <= 1e-9 * abs(scalar.item())
+
+    xe, ye = x[:128], y[:128]
+    nn = tgp.BlockNearestNeighbors(block_size=16, k=128)
+    lml = tgp.approx_lml(nn, f(xe, 0.0), ye)
+    exact = f(xe, 0.0).logpdf(ye)
+    assert abs(lml.item() - exact.item()) <= 1e-7 * abs(exact.item())
+    post, gpr = tgp.posterior(nn, f(xe, 0.0), ye), tgp.posterior(f(xe, 1e-12), ye)
+    xt = torch.linspace(-2.0, 130.0, 17, dtype=torch.float64, device=cuda)[:, None]
+    torch.testing.assert_close(post.mean(xt), gpr.mean(xt), atol=1e-6, rtol=0)
+    torch.testing.assert_close(post.var(xt), gpr.var(xt), atol=1e-6, rtol=0)
+
+    rng = np.random.default_rng(9)
+    xn = 32.0 * rng.uniform(size=(1024, 2))
+    yn = np.sin(xn[:, 0] / 3.0) + np.cos(xn[:, 1] / 5.0)
+    near = tgp.BlockNearestNeighbors(block_size=16, k=32, ordering="maximin", neighbors="nearest")
+    got = tgp.approx_lml(near, f(_t(xn, cuda), 0.0), _t(yn, cuda))
+    ref = tgp.approx_lml(near, f(_t(xn, "cpu"), 0.0), _t(yn, "cpu"))
+    assert abs(got.item() - ref.item()) <= 1e-10 * abs(ref.item())

@@ -37,6 +37,13 @@ def test_torch_port_imports_no_jax():
         "t.ProductKernel, t.ops.batched_chol_solve_band, t.ops.batched_chol_solve_band_pass\n"
         "t.ops.stationary_gram, t.ops.stationary_gram_pass, t.ops.stationary_gram_plain\n"
         "t.ops.stationary_gram_bwd, t.convert.build_vecchia_rq_fx, t.convert.build_knn_hetero_fx\n"
+        "t.BernoulliLikelihood, t.PoissonLikelihood, t.ExponentialLikelihood, t.GammaLikelihood\n"
+        "t.NegativeBinomialLikelihood, t.GaussNewtonLikelihood, t.StudentTLikelihood\n"
+        "t.FunctionLikelihood, t.Likelihood, t.as_likelihood, t.MonteCarlo, t.GaussHermite\n"
+        "t.VFE, t.optimal_variational_posterior, t.vfe_elbo, t.BlockNearestNeighbors\n"
+        "t.BlockInvRoot, t.block_vecchia_factors, t.natgrad_update, t.natgrad_update_tril\n"
+        "t.make_natgrad_adam_step, t.lbfgs_fit, t.blocked_tril_inv, t.convert.natgrad_elbo\n"
+        "t.convert.poisson_svgp_loss, t.core.linalg.cholesky_solve, t.core.linalg.add_jitter\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'approximategps_tpu' not in sys.modules\n"
     )
