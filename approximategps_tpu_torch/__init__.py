@@ -19,7 +19,12 @@ expectations; VFE (the Titsias bound and optimal q); the natural-gradient
 updates and the hybrid step ``make_natgrad_adam_step`` (Adam on the
 hyperparameters, one natural-gradient step on q), and ``lbfgs_fit``; and
 block-Vecchia (``BlockNearestNeighbors``: ``approx_lml`` and ``posterior``
-from batched per-block factorizations, no hand-written kernel).
+from batched per-block factorizations, no hand-written kernel); and the
+Laplace approximation, dense (``LaplaceApproximation``: Newton with IFT
+gradients, ``build_laplace_objective``) and matrix-free (``LaplaceCG``:
+CG-Newton and the SLQ log determinant, every product through the Gram
+matvec kernel on the card), with the Lanczos
+square-root samplers ``sample_prior_msqrt`` and ``sample_posterior_msqrt``.
 Hand-written CUDA kernels for Hopper (``csrc/``) carry them
 on the GPU, each beside a plain PyTorch version that CPU tensors take:
 
@@ -126,6 +131,26 @@ from .models import (
     streaming_elbo,
     vfe_elbo,
     woodbury_preconditioner,
+    LaplaceApproximation,
+    LaplaceObjective,
+    LaplacePosterior,
+    LaplaceResult,
+    build_laplace_objective,
+    laplace_f_and_lml,
+    laplace_f_cov,
+    laplace_lml,
+    laplace_steps,
+    laplace_steps_scan,
+    newton_inner_loop,
+    newton_inner_loop_jvp,
+    newton_multistart,
+    LaplaceCG,
+    LaplaceCGPosterior,
+    laplace_lml_cg,
+    newton_inner_loop_cg,
+    msqrt_matvec,
+    sample_prior_msqrt,
+    sample_posterior_msqrt,
 )
 from .native import maximin_ordering, nearest_predecessor_neighbors, scaled_ball_predecessors
 from .ops import knn_search
@@ -234,4 +259,24 @@ __all__ = [
     "BlockNearestNeighbors",
     "BlockInvRoot",
     "block_vecchia_factors",
+    "LaplaceApproximation",
+    "LaplaceObjective",
+    "LaplacePosterior",
+    "LaplaceResult",
+    "build_laplace_objective",
+    "laplace_f_and_lml",
+    "laplace_f_cov",
+    "laplace_lml",
+    "laplace_steps",
+    "laplace_steps_scan",
+    "newton_inner_loop",
+    "newton_inner_loop_jvp",
+    "newton_multistart",
+    "LaplaceCG",
+    "LaplaceCGPosterior",
+    "laplace_lml_cg",
+    "newton_inner_loop_cg",
+    "msqrt_matvec",
+    "sample_prior_msqrt",
+    "sample_posterior_msqrt",
 ]

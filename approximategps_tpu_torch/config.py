@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of ``approximategps_tpu/config.py``, cut to the
 knobs the SVGP serving and training paths and the matrix-free exact-GP
-path read.  Like the JAX package, this holds only
+and Laplace paths read.  Like the JAX package, this holds only
 switches that must agree across a whole computation (solve strategy,
 factorization and data-term routes), never model options.
 
@@ -80,6 +80,14 @@ class _Config:
     # Widest (N, R) block the fused matvec takes; wider blocks take the
     # block path, where one Gram serves every column.
     matvec_fused_max_rhs: int = int(os.environ.get("AGP_MATVEC_MAX_RHS", "32"))
+    # The Laplace CG tier's storage="auto" (models/laplace_cg.py) where the
+    # fused kernel does not run (the CPU, a kernel it does not take): N at or
+    # below this builds the N × N Gram once a solve and multiplies with it
+    # (2.4 GB in f32 at 24576); above it, every K·V is a kernel_matvec's
+    # Gram blocks, in O(N·block) memory.  Where the kernel runs, "auto"
+    # always takes it: on the H100 its product outruns one with a stored
+    # Gram (exps against the Gram's bytes; chip_smoke.py phase 15).
+    cg_dense_threshold: int = int(os.environ.get("AGP_CG_DENSE_N", "24576"))
 
 
 config = _Config()

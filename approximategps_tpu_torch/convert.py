@@ -5,7 +5,9 @@ read: JAX arrays, numpy arrays) in each form the repo uses and returns the
 same form on the port's side, so that ``build_svgp`` / ``posterior`` /
 ``build_exact_fx`` / ``build_vecchia_fx`` / ``build_vecchia_nugget_fx`` /
 ``build_vecchia_rq_fx`` / ``build_knn_hetero_fx`` / ``natgrad_elbo`` /
-``poisson_svgp_loss`` compute the same thing in both packages.  The tensors
+``poisson_svgp_loss`` / ``laplace_neg_lml`` compute the same thing in both
+packages, and ``laplace_kernel`` with ``laplace_data`` give the Laplace rows'
+model and data (from numpy).  The tensors
 land on the card unless the caller names another device.  Nothing here
 imports JAX.
 """
@@ -24,15 +26,17 @@ from .core.kernels import (
     WhiteKernel,
     with_lengthscale,
 )
-from .core.likelihoods import PoissonLikelihood
+from .core.likelihoods import BernoulliLikelihood, PoissonLikelihood
 from .models.api import posterior
+from .models.laplace import laplace_lml
 from .models.svgp import SparseVariationalApproximation, SVGPPosterior, elbo
 from .utils.bijectors import softplus
 from .utils.training import SVGPParams
 
 __all__ = ["from_jax_params", "build_posterior_from_bench_params", "build_exact_fx",
            "build_vecchia_fx", "build_vecchia_nugget_fx", "build_vecchia_rq_fx",
-           "build_knn_hetero_fx", "natgrad_elbo", "poisson_svgp_loss"]
+           "build_knn_hetero_fx", "natgrad_elbo", "poisson_svgp_loss", "laplace_neg_lml",
+           "laplace_kernel", "laplace_data", "LAPLACE_CG_THETA"]
 
 _BENCH_KEYS = ("k", "z", "m", "A")
 _THETA_LENS = (3, 4)  # raw θ of the exact GP and the Vecchia models (3), and of the RQ model
@@ -164,3 +168,38 @@ def poisson_svgp_loss(params: dict, xb: torch.Tensor, yb: torch.Tensor,
     sva = SparseVariationalApproximation(f(params["z"], jitter),
                                          MultivariateNormal(params["m"], torch.tril(params["A"])))
     return -elbo(sva, lf(xb), yb, num_data=num_data)
+
+
+def laplace_kernel(theta: torch.Tensor):
+    """The Laplace rows' kernel from raw θ: softplus(θ₀)·SE(lengthscale
+    softplus(θ₁)), ``bench.py::laplace_n5k``'s, and at
+    :data:`LAPLACE_CG_THETA` the 1.5·SE(lengthscale 1.2) of
+    ``laplace_cg_mode`` and ``laplace_cg_lml``."""
+    return _bench_gp(theta).kernel
+
+
+# raw θ of the matrix-free Laplace rows' kernel: softplus⁻¹ of (1.5, 1.2)
+LAPLACE_CG_THETA = np.log(np.expm1(np.array([1.5, 1.2])))
+
+
+def laplace_neg_lml(theta: torch.Tensor, x: torch.Tensor, y: torch.Tensor, jitter: float = 1e-6,
+                    maxiter: int = 20) -> torch.Tensor:
+    """−``laplace_lml`` of ``bench.py::laplace_n5k``: K = the Gram of
+    :func:`laplace_kernel` at ``x`` plus ``jitter``·I, a Bernoulli (logit)
+    likelihood, at most ``maxiter`` Newton steps."""
+    K = GP(laplace_kernel(theta))(x, jitter).cov()
+    return -laplace_lml(BernoulliLikelihood(), y, K, maxiter=maxiter)
+
+
+def laplace_data(N: int, D: int, seed: int = 0, device="cuda", dtype=torch.float32):
+    """``bench.py``'s Laplace rows' data, drawn with numpy from ``seed`` (the
+    JAX draws cannot be reproduced): N points uniform on [0, 10]^D (for
+    D = 1 sorted and of shape (N,), as ``laplace_n5k`` has them) and labels
+    in {0, 1}, each 1 with probability 1/2 (int32)."""
+    rng = np.random.default_rng(seed)
+    x = 10.0 * rng.uniform(size=(N, D))
+    if D == 1:
+        x = np.sort(x[:, 0])
+    y = (rng.uniform(size=N) > 0.5).astype(np.int32)
+    return (torch.tensor(x, dtype=dtype, device=device),
+            torch.tensor(y, device=device))

@@ -1,5 +1,6 @@
 """Gaussian distributions (port of ``approximategps_tpu/core/distributions.py``:
-``MultivariateNormal`` and the closed-form ``kl_divergence``)."""
+``MultivariateNormal``, ``mvnormal_from_cov`` and the closed-form
+``kl_divergence``)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 
 from . import linalg
 
-__all__ = ["MultivariateNormal", "kl_divergence"]
+__all__ = ["MultivariateNormal", "mvnormal_from_cov", "kl_divergence"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -43,6 +44,14 @@ class MultivariateNormal:
         quad = torch.sum(alpha * alpha, dim=-1)
         return -0.5 * (self.dim * math.log(2.0 * math.pi) + quad) - linalg.tril_logdet(
             self.scale_tril)
+
+
+def mvnormal_from_cov(mean: torch.Tensor, cov: torch.Tensor,
+                      jitter: float | None = None) -> MultivariateNormal:
+    """N(mean, cov) through the Cholesky factor of the symmetrized cov (plus
+    ``jitter``·I where given)."""
+    return MultivariateNormal(mean, linalg.safe_cholesky(
+        cov if jitter is None else linalg.add_jitter(cov, jitter)))
 
 
 def kl_divergence(q: MultivariateNormal, p: MultivariateNormal) -> torch.Tensor:

@@ -14,6 +14,7 @@ __all__ = [
     "symmetrize",
     "add_jitter",
     "safe_cholesky",
+    "cholesky_or_nan",
     "solve_lower_triangular",
     "solve_upper_triangular",
     "cholesky_solve",
@@ -37,6 +38,15 @@ def add_jitter(A: torch.Tensor, jitter) -> torch.Tensor:
 def safe_cholesky(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of the symmetrized A (add jitter before)."""
     return torch.linalg.cholesky(symmetrize(A))
+
+
+def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of A (batched too; its lower triangle is
+    read), NaN where a factorization fails, as ``jnp.linalg.cholesky``
+    returns them: unlike :func:`safe_cholesky` it neither raises nor makes
+    the host wait for the device to check."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
 
 
 def _solve_triangular(T: torch.Tensor, B: torch.Tensor, upper: bool) -> torch.Tensor:

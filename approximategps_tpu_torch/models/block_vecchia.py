@@ -130,12 +130,6 @@ def _batched_gram(kern: Kernel, A: torch.Tensor, B: torch.Tensor | None = None) 
     return torch.func.vmap(lambda a, c: kern.gram(a, c))(A, B)
 
 
-def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
-    """Batched lower Cholesky factors; NaN where a factorization fails."""
-    L, info = torch.linalg.cholesky_ex(A)
-    return torch.where((info == 0)[..., None, None], L, torch.nan)
-
-
 def block_vecchia_factors(x, nbr: torch.Tensor, b: int, kern: Kernel, jitter: float = 0.0):
     """Per-block (C, Ls_inv) from one batched factorization pass."""
     Xp = as_points(x)
@@ -153,13 +147,13 @@ def block_vecchia_factors(x, nbr: torch.Tensor, b: int, kern: Kernel, jitter: fl
     K_nb = torch.where(mask[:, :, None] & mask[:, None, :], _batched_gram(kern, Xnb), eye_k)
     K_nbB = torch.where(mask[:, :, None], _batched_gram(kern, Xnb, Xb), 0.0)  # (NB, k, b)
     K_BB = _batched_gram(kern, Xb) + jitter * eye_b
-    L_nb = _cholesky_or_nan(K_nb + 8.0 * eps * eye_k)
+    L_nb = linalg.cholesky_or_nan(K_nb + 8.0 * eps * eye_k)
     W = torch.cholesky_solve(K_nbB, L_nb)  # K_nb⁻¹ K_{nb,B}
     C = W.transpose(-1, -2)  # (NB, b, k)
     S = linalg.symmetrize(K_BB - K_nbB.transpose(-1, -2) @ W)
     trace = torch.diagonal(K_BB, dim1=-2, dim2=-1).sum(-1)[:, None, None]
     S = S + 8.0 * eps * trace / b * eye_b
-    L_S = _cholesky_or_nan(S)
+    L_S = linalg.cholesky_or_nan(S)
     Ls_inv = torch.linalg.solve_triangular(L_S, eye_b, upper=False)
     return C, Ls_inv
 

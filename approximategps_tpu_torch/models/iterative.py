@@ -12,14 +12,16 @@ Gram row blocks elsewhere.
   preconditioner P = Lk Lkᵀ + σ²I;
 - :func:`posterior_cg`: the exact posterior through CG solves;
 - :func:`logpdf_slq`: the log marginal likelihood, quad term by CG, logdet by
-  SLQ, with the stochastic-trace gradient.
+  SLQ, with the stochastic-trace gradient;
+- :func:`msqrt_matvec`, :func:`sample_prior_msqrt`,
+  :func:`sample_posterior_msqrt`: A^{1/2}b by Lanczos and the samplers on it.
 
 Differences from the JAX package: ``lax.while_loop`` and ``scan`` are Python
 loops; CG tests its residuals on the host once an iteration (one sync,
 counted in ``stats``); CG runs without autograd (the JAX loop is not
 reverse-differentiable either), and :func:`logpdf_slq` brings its own
-gradient.  The ``mesh=`` paths, ``msqrt_matvec`` and the msqrt samplers are
-not ported yet.
+gradient; random draws come from a ``torch.Generator`` (or an int seed).
+The ``mesh=`` paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ __all__ = [
     "pivoted_cholesky",
     "woodbury_preconditioner",
     "rademacher_probes",
+    "msqrt_matvec",
+    "sample_prior_msqrt",
+    "sample_posterior_msqrt",
     "stats",
     "reset_stats",
 ]
@@ -121,8 +126,9 @@ def pivoted_cholesky(kernel, x, rank: int) -> torch.Tensor:
     pivoting on the largest residual diagonal (Harbrecht et al. 2012); only
     ``rank`` kernel rows are evaluated.  A column whose pivot is below the
     relative floor max(N, 100)·eps·max(diag K) is left zero.  Returns a
-    constant (no autograd graph); its loop never syncs the host."""
-    with torch.no_grad():
+    constant (no autograd graph); its loop never syncs the host.  Its work
+    is one ``torch.profiler`` range, "pivoted_cholesky"."""
+    with torch.no_grad(), torch.profiler.record_function("pivoted_cholesky"):
         X = as_points(x)
         N = X.shape[0]
         d = kernel.diag(X)
@@ -280,28 +286,6 @@ def posterior_cg(fx: FiniteGP, y, tol=1e-8, maxiter=1000, block_size=None,
                        precond_rank=precond_rank)
 
 
-def _lanczos(matvec, v0, num_iters, reorth: bool = False):
-    """Lanczos tridiagonalization of A started at v0/‖v0‖: (alphas (m,),
-    betas (m−1,)).  ``reorth`` reorthogonalizes against the whole basis."""
-    if reorth:
-        _, alphas, betas = _lanczos_basis(matvec, v0, num_iters)
-        return alphas, betas
-    v = v0 / torch.linalg.vector_norm(v0)
-    v_prev = torch.zeros_like(v)
-    beta_prev = v.new_zeros(())
-    alphas, betas = [], []
-    for _ in range(num_iters):
-        w = matvec(v) - beta_prev * v_prev
-        alpha = torch.dot(w, v)
-        w = w - alpha * v
-        beta = torch.linalg.vector_norm(w)
-        v_prev, v = v, w / torch.where(beta == 0, 1.0, beta)
-        beta_prev = beta
-        alphas.append(alpha)
-        betas.append(beta)
-    return torch.stack(alphas), torch.stack(betas)[:-1]
-
-
 def _lanczos_block(matvec, V0, num_iters):
     """R independent one-step Lanczos recurrences, column-blocked: V0 (n, R)
     → (alphas (m, R), betas (m−1, R)).  The matvec sees a real (n, R)
@@ -337,30 +321,121 @@ def _slq_quadrature(alphas, betas, n, ritz_floor):
 def _lanczos_basis(matvec, v0, num_iters):
     """Fully reorthogonalized Lanczos keeping the basis: (Q (n, m), alphas
     (m,), betas (m−1,)) with QᵀAQ = T and Q[:, 0] = v0/‖v0‖; two
-    Gram-Schmidt passes against the stored basis a step."""
-    n = v0.shape[0]
+    Gram-Schmidt passes against the stored basis a step.
+
+    A block v0 (n, S) runs S independent recurrences, each column against
+    its own basis, with one (n, S) product a step: (Q (S, n, m), alphas
+    (m, S), betas (m−1, S))."""
+    vec = v0.ndim == 1
+    V = v0[:, None] if vec else v0
+    n, S = V.shape
     m = num_iters
-    v = v0 / torch.linalg.vector_norm(v0)
-    Q = v0.new_zeros((n, m))
-    Q[:, 0] = v
-    v_prev = torch.zeros_like(v)
-    beta_prev = v.new_zeros(())
+    V = V / torch.linalg.vector_norm(V, dim=0)
+    Q = V.new_zeros((S, n, m))
+    Q[:, :, 0] = V.T
+    V_prev = torch.zeros_like(V)
+    beta_prev = V.new_zeros((S,))
     alphas, betas = [], []
     for i in range(m):
-        w = matvec(v) - beta_prev * v_prev
-        alpha = torch.dot(w, v)
-        w = w - alpha * v
+        Wb = (matvec(V[:, 0])[:, None] if vec else matvec(V)) - beta_prev * V_prev
+        alpha = torch.sum(Wb * V, dim=0)
+        Wb = Wb - alpha * V
         # columns past i are zero, so the products over all of Q are exact
-        w = w - Q @ (Q.T @ w)
-        w = w - Q @ (Q.T @ w)
-        beta = torch.linalg.vector_norm(w)
-        v_prev, v = v, w / torch.where(beta == 0, 1.0, beta)
+        for _ in range(2):
+            Wb = Wb - torch.einsum("snm,sm->ns", Q, torch.einsum("snm,ns->sm", Q, Wb))
+        beta = torch.linalg.vector_norm(Wb, dim=0)
+        V_prev, V = V, Wb / torch.where(beta == 0, 1.0, beta)
         beta_prev = beta
         if i + 1 < m:
-            Q[:, i + 1] = v
+            Q[:, :, i + 1] = V.T
         alphas.append(alpha)
         betas.append(beta)
-    return Q, torch.stack(alphas), torch.stack(betas)[:-1]
+    alphas, betas = torch.stack(alphas), torch.stack(betas)[:-1]
+    if vec:
+        return Q[0], alphas[:, 0], betas[:, 0]
+    return Q, alphas, betas
+
+
+def msqrt_matvec(matvec, b, num_iters: int = 30):
+    """A^{1/2} b by the Lanczos matrix function (Pleiss et al. 2020, arXiv
+    2006.11267): with T = QᵀAQ = VΛVᵀ,
+
+        A^{1/2} b ≈ ‖b‖ · Q V Λ^{1/2} Vᵀ e₁,
+
+    ``num_iters`` products and no factorization.  A block b (n, S) takes
+    each column's own recurrence, the S columns in one (n, S) product a
+    step."""
+    vec = b.ndim == 1
+    B = b[:, None] if vec else b
+    Q, alphas, betas = _lanczos_basis(matvec, B, num_iters)  # Q (S, n, m)
+    T = (torch.diag_embed(alphas.T) + torch.diag_embed(betas.T, 1)
+         + torch.diag_embed(betas.T, -1))
+    evals, evecs = torch.linalg.eigh(T)
+    evals = torch.clamp(evals, min=0.0)
+    w = torch.einsum("smk,sk->sm", evecs, torch.sqrt(evals) * evecs[:, 0, :])
+    out = torch.linalg.vector_norm(B, dim=0) * torch.einsum("snm,sm->ns", Q, w)
+    return out[:, 0] if vec else out
+
+
+def _generator(generator, device) -> torch.Generator:
+    """``generator`` itself, or a new one on ``device`` seeded by the int."""
+    if isinstance(generator, torch.Generator):
+        return generator
+    return torch.Generator(device=device or "cpu").manual_seed(int(generator))
+
+
+def _normals(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device).to(device)
+
+
+def sample_prior_msqrt(generator, kernel, x, noise, num_samples: int, lanczos_iters: int = 30,
+                       block_size: int | None = None) -> torch.Tensor:
+    """``num_samples`` draws (num_samples, N) from N(0, K(x, x) + Σ) by the
+    Lanczos square root: the prior's covariance exactly (no feature
+    truncation), K never factored.  The standard normals Z (num_samples, N)
+    come from ``generator`` (a ``torch.Generator`` or an int seed for a new
+    one on x's device); the samples' recurrences run as one (N, S) block,
+    so each Lanczos step is one product (row 5 at R = S on the card)."""
+    X = as_points(x)
+    Z = _normals(_generator(generator, X.device), (num_samples, X.shape[0]), X.dtype, X.device)
+    return msqrt_matvec(kernel_matvec(kernel, X, noise, block_size), Z.T, lanczos_iters).T
+
+
+def sample_posterior_msqrt(generator, fx: FiniteGP, y: torch.Tensor, xs, num_samples: int,
+                           lanczos_iters: int = 30, tol: float = 1e-8, maxiter: int = 1000,
+                           block_size: int | None = None,
+                           precond_rank: int = 0) -> torch.Tensor:
+    """Posterior samples (num_samples, N*) at ``xs`` by Matheron's rule,
+    the prior path drawn jointly over [train; test] by the Lanczos square
+    root:
+
+        f* = f_prior(x*) + K(x*, X)(K + σ²I)⁻¹(y − f_prior(X) − ε),
+        ε ~ N(0, σ²I),
+
+    every sample's solve in one (preconditioned) block CG.  From
+    ``generator``: the joint prior's normals (num_samples, N + N*), then
+    ε's (num_samples, N).  Isotropic noise only."""
+    prior = fx.f
+    X = as_points(fx.x)
+    Xs = as_points(xs)
+    N = X.shape[0]
+    noise = torch.as_tensor(fx.noise, dtype=X.dtype, device=X.device)
+    if noise.ndim != 0:
+        raise ValueError("sample_posterior_msqrt requires isotropic noise")
+    gen = _generator(generator, X.device)
+    # the joint prior sample over train and test points, a tiny jitter for PSD-ness
+    eps_j = 1e-6 if X.dtype == torch.float32 else 1e-12
+    joint = sample_prior_msqrt(gen, prior.kernel, torch.cat([X, Xs]), eps_j, num_samples,
+                               lanczos_iters, block_size)
+    fX, fS = joint[:, :N], joint[:, N:]
+    eps = torch.sqrt(noise) * _normals(gen, fX.shape, X.dtype, X.device)
+    resid = y[None, :] - fX - eps  # (S, N)
+    mv = kernel_matvec(prior.kernel, X, noise, block_size)
+    M_inv = None
+    if precond_rank > 0:
+        M_inv = woodbury_preconditioner(pivoted_cholesky(prior.kernel, X, precond_rank), noise)
+    V = cg_solve(mv, resid.T, tol=tol, maxiter=maxiter, M_inv=M_inv)  # (N, S)
+    return fS + V.T @ prior.cov(X, Xs)
 
 
 def _precond_sqrt_ops(Lk: torch.Tensor, sigma2):
@@ -399,8 +474,7 @@ def rademacher_probes(generator, num_probes: int, n: int, dtype=torch.float32,
     ``torch.Generator`` or an int seed for a new one on ``device``).  The
     JAX package's ``jax.random.rademacher`` bits cannot be reproduced: tests
     make probes with numpy and pass them in."""
-    if not isinstance(generator, torch.Generator):
-        generator = torch.Generator(device=device or "cpu").manual_seed(int(generator))
+    generator = _generator(generator, device)
     bits = torch.randint(0, 2, (num_probes, n), generator=generator, device=generator.device)
     return (2 * bits - 1).to(dtype=dtype, device=device)
 
@@ -458,9 +532,7 @@ def _slq_value(opts: _SLQOptions, fx, y, probes, Lk):
         ritz_floor = 1.0 if opts.precond_fresh else torch.finfo(probes.dtype).eps
 
     if opts.reorth:
-        cols = [_lanczos(quad_mv, p, opts.lanczos_iters, reorth=True) for p in probes]
-        alphas = torch.stack([a for a, _ in cols], dim=1)
-        betas = torch.stack([b for _, b in cols], dim=1)
+        _, alphas, betas = _lanczos_basis(quad_mv, probes.T, opts.lanczos_iters)
     else:
         alphas, betas = _lanczos_block(quad_mv, probes.T, opts.lanczos_iters)
     logdet = logdet0 + _slq_quadrature(alphas, betas, n, ritz_floor)

@@ -26,8 +26,8 @@ What bounds the kernels on the H100 is operations (an exp an entry, and R
 FMAs on the SIMT units or 3·R on the tensor cores), not bytes; the notes in
 the ``.cu`` files give the designs.  Every pass and every one-pass pullback
 counts one launch in ``gram_matvec.launches`` (more than 32 columns run as
-chunks inside that launch), and the pullbacks count their passes in
-``pullback_passes``.
+chunks inside that launch) and in ``launches_by_pass`` under its kernel and
+width, and the pullbacks count their passes in ``pullback_passes``.
 
 :func:`fused_stationary_matvec` is the dispatch ``kernel_matvec`` uses: D ≤ 8,
 R ≤ ``config.matvec_fused_max_rhs``, a kernel that unwraps to a scaled
@@ -57,6 +57,7 @@ __all__ = [
     "pass_part",
     "fused_stationary_matvec",
     "pullback_passes",
+    "launches_by_pass",
 ]
 
 _MAX_D = 8
@@ -70,6 +71,14 @@ MMA_FROM_R = 8
 # passes the pullbacks asked for (whatever the device), beside the kernel's
 # own launch count: a run's launches are its forward applications plus these
 pullback_passes = {"calls": 0, "passes": 0}
+# the same launches by kernel and width: ("narrow" or "wide", R) for a pass,
+# ("self pullback", R) for the one-pass pullback
+launches_by_pass: dict[tuple[str, int], int] = {}
+
+
+def _count_launch(kind: str, R: int) -> None:
+    gram_matvec.launches += 1
+    launches_by_pass[kind, R] = launches_by_pass.get((kind, R), 0) + 1
 
 
 def gram_matvec_plain(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: KernelMap,
@@ -137,7 +146,7 @@ def gram_matvec_pass(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: 
             err = fn(Xq.data_ptr(), Zk.data_ptr(), V2.data_ptr(), out.data_ptr(), N, M, D, R,
                      int(kmap.id), int(deriv), stream)
         _build.check(err, "gram_matvec")
-        gram_matvec.launches += 1
+        _count_launch("narrow" if part == "simt" else "wide", R)
     else:
         out.zero_()
     return out[:, 0] if vec else out
@@ -285,7 +294,7 @@ def _self_bwd_kernel(X, V2, O2, kmap: KernelMap):
                 X.data_ptr(), V2.data_ptr(), O2.data_ptr(), V_bar.data_ptr(), X_bar.data_ptr(),
                 N, D, R, int(kmap.id), stream)
         _build.check(err, "gram_matvec_self_bwd")
-        gram_matvec.launches += 1
+        _count_launch("self pullback", R)
     # each chunk of 32 columns wrote its share of X̄: added in a fixed order
     return (X_bar[0] if chunks == 1 else X_bar.sum(dim=0)), V_bar
 

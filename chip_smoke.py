@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port's SVGP serving and training paths, its
 matrix-free exact GP, its Vecchia serving and training paths, the Vecchia
 tier on prebuilt Grams, the fused Gram, the natural-gradient and Poisson
-SVGP steps and block-Vecchia on one CUDA GPU.
+SVGP steps, block-Vecchia and the Laplace approximation (dense and
+matrix-free) on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -180,9 +181,38 @@ Phases (a failing phase raises, and the script exits non-zero):
     conditioning against the exact GP's logpdf and posterior (N = 512), and
     maximin with nearest neighbours on the card against the CPU (N = 2^14
     in 2-D).
+15. The Laplace approximation (``bench.py::laplace_n5k``,
+    ``laplace_cg_mode`` and ``laplace_cg_lml``; data from numpy, Bernoulli
+    labels): (a) the value and θ-gradient of −``laplace_lml`` at N = 5000
+    (dense Newton, at most 20 steps, jitter 1e-6; no kernel) against the
+    f64 run, three steps timed; (b) the CG-Newton mode of 1.5·SE(ℓ = 1.2)
+    in 2-D (Newton to 1e-4, at most 60 steps, CG to 1e-6, at most 400) at
+    N = 2·10^4 on three routes (the resident Gram, ``storage="dense"``,
+    rank 128, no kernel; chunked through row 5; chunked plain), against
+    each other and the f64 dense mode (``torch.linalg`` on the card), then
+    at N = 10^5 (rank 512, blocks of 8192) through row 5, held by the move
+    of one more Newton step from it, with the Newton steps, CG iterations,
+    host syncs and row 5's launches by pass and width, and each route's ms;
+    (c) ``laplace_cg_lml`` at N = 10^5 (16 probes, 30 Lanczos steps): the
+    value and the value with its θ-gradient, timed, with row 5's narrow
+    pass (R = 1), wide pass (R = 16) and self-Gram pullback at R = 1 (the
+    Newton IFT) and R = 16 (the logdet surrogate) each launched and
+    counted, and the gradient against the f64 run (row 5's f64 kernels);
+    at N = 2·10^4 with one probe set row 5 against the plain route (value
+    and gradient) and the f64 run, logdet B by SLQ at one W on the three
+    routes, and, a statistical check, the lml against the dense f64
+    ``laplace_lml`` within four standard errors of the probes' mean; (d)
+    ``posterior(LaplaceCG)`` and ``mean_and_var`` at 32 test points at
+    N = 10^5 (row 5's widest fused block, R = 32), and at N = 2·10^4
+    against the dense f64 ``LaplacePosterior``; ``sample_prior_msqrt`` with
+    16 samples at N = 10^5 (one row-5 launch a Lanczos step), their
+    covariance on 256 points against K within five Monte-Carlo standard
+    deviations (statistical), and at N = 2·10^4 row 5 against the plain
+    route with the same normals; (e) row 5's self-Gram pullback at R = 1,
+    N = 10^5, against its plain version, timed beside its bound.
 
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-14 (each run with the counts
+source, launches in the path runs of phases 4-15 (each run with the counts
 set to 0 just before it), error, times and bound (the least time the card
 could take for the work: operations over the peak rate of their unit or
 bytes over the memory rate, whichever is larger); the last line is
@@ -205,7 +235,7 @@ import torch
 import approximategps_tpu_torch as tgp
 from approximategps_tpu_torch import convert
 from approximategps_tpu_torch.core import kernels as tk
-from approximategps_tpu_torch.models import iterative, vecchia
+from approximategps_tpu_torch.models import iterative, laplace_cg, vecchia
 from approximategps_tpu_torch.ops import _build, batched_chol, gram, gram_matvec, knn, \
     panel_chol, svgp_epilogue
 from approximategps_tpu_torch.utils.bijectors import softplus
@@ -407,6 +437,37 @@ N_BV_SCALAR, BV_SCALAR_K, N_BV_EXACT, N_BV_NEAREST = 4096, 6, 512, 1 << 14
 # Cholesky pullbacks (Matérn-3/2 Grams of 64 points a lengthscale apart); an NVIDIA H100
 # 80GB HBM3 (700 W) read 9.9e-5 on the value and 9.0e-4 on the lengthscale entry
 BV_VALUE_RTOL32, BV_GRAD_RTOL32 = 1e-3, 1e-2
+# Phase 15, the Laplace approximation (bench.py::laplace_n5k, laplace_cg_mode, laplace_cg_lml),
+# data from numpy (convert.laplace_data: points uniform on [0, 10]^D, Bernoulli(1/2) labels).
+# laplace_n5k: N = 5000 sorted in 1-D, softplus-SE from raw θ = (1, 1), jitter 1e-6, at most
+# 20 Newton steps.  The CG rows: D = 2, 1.5·SE(ℓ = 1.2) (convert.LAPLACE_CG_THETA), Newton to
+# 1e-4 (at most 60 steps), CG to 1e-6 (at most 400); N = 2·10^4 with rank-128 preconditioning
+# (the resident Gram, or chunked with blocks of 8192 on the kernel and the plain routes), N = 10^5
+# with rank 512 and blocks of 8192; the lml with 16 probes and 30 Lanczos steps; the serve at
+# 32 test points; the prior sampler's 16 samples (noise 0.01) checked on 256 of the points
+N_LAP5K, LAP5K_JITTER, LAP5K_MAXITER = 5000, 1e-6, 20
+N_LAP, N_LAP_MID, D_LAP, LAP_BLOCK = 100_000, 20_000, 2, 8192
+LAP_NEWTON = dict(maxiter=60, tol=1e-4, cg_tol=1e-6, cg_maxiter=400)
+LAP_RANK, LAP_RANK_MID, LAP_PROBES, LAP_LANCZOS, LAP_N_TEST = 512, 128, 16, 30, 32
+LAP_SAMPLES, LAP_SAMPLE_NOISE, LAP_SUBSET = 16, 0.01, 256
+# f32 limits of phase 15, relative to the largest entry (a scalar: to itself), each a few times
+# what this script read on an NVIDIA H100 80GB HBM3 (700 W): laplace_n5k against its f64 run
+# (value 2.7e-8, gradient 1.6e-5); the CG modes at 2·10^4 against each other and the f64 dense
+# mode (at most 2.1e-4: Newton stops at a relative step of 1e-4, or where the f32 step stops
+# shrinking); one more Newton step from the mode at 10^5 (1.0e-3, the f32 floor); the lml's
+# value, row 5 against the plain route (2.1e-7); logdet B by SLQ at one W, row 5 against the
+# plain route (1.55e-5) and, no further than max(LAP_LOGDET_RTOL32, twice the plain route's
+# distance), the f64 run (1.41e-4, plain 1.57e-4: f32 Lanczos); the θ-gradient against the
+# f64 run, row 5 no further than max(LAP_GRAD_RTOL32, twice the plain route's distance): at
+# 2·10^4 row 5 read 1.04e-3 and the plain route 1.25e-5, because row 5 reaches the
+# lengthscale through the points' cotangents (the Function takes X·scale), whose sum cancels
+# (translation invariance), so f32 leaves about 1e-3 of that entry, as in phases 7 and 9; at
+# 10^5 (rank 512) row 5 alone (2.5e-5); the prior sampler with the same normals, row 5
+# against the plain route (6.3e-5); the serve against the f64 dense posterior (the mean
+# 4.0e-5, and the variance's largest error over the prior variance 8.7e-7)
+LAP5K_RTOL32, LAP_MODE_RTOL32, LAP_STEP_RTOL32, LAP_LML_RTOL32 = 1e-4, 1e-3, 3e-3, 1e-6
+LAP_LOGDET_RTOL32, LAP_GRAD_RTOL32, LAP_GRAD_BIG_RTOL32 = 5e-5, 2e-3, 1e-4
+LAP_SAMPLE_RTOL32, LAP_POST_RTOL32 = 2e-4, 2e-4
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
 # paper) × 132 SMs × 1.98 GHz boost; TF32 on the tensor cores (dense)
@@ -796,12 +857,14 @@ def matvec_bound(N: int, M: int, D: int, R: int, part: str, elt: int = 4):
 
 def self_bwd_work(N: int, D: int, R: int, elt: int = 4):
     """(SIMT flops, bytes, exps, tensor-core flops) of the self-Gram's
-    one-pass pullback: a pair's exp (g and g′ from it), its 3D + 1 flops of
-    r², the product g′·c and D FMAs of X̄ on the SIMT units, and R (V̄) + 2R
-    (c's depth) FMAs of 3xTF32 on the tensor cores; X, V and Ō read once,
-    V̄ and X̄ written once."""
-    pairs = N * N
-    return (pairs * (5 * D + 2), elt * (2 * N * D + 3 * N * R), pairs, pairs * 2 * 3 * 3 * R)
+    pullback, counted over the N(N+1)/2 unordered pairs the function needs:
+    K and the weights g′_ij·c_ij are symmetric, so one exp (g and g′ from
+    it), its 3D + 1 flops of r² and the product g′·c serve both rows of a
+    pair, with D FMAs of X̄ on each side (x_i − x_j flips sign) on the SIMT
+    units; on the tensor cores (3xTF32) c's depth of 2R and R (V̄) FMAs on
+    each side; X, V and Ō read once, V̄ and X̄ written once."""
+    pairs = N * (N + 1) // 2
+    return (pairs * (7 * D + 2), elt * (2 * N * D + 3 * N * R), pairs, pairs * 2 * 3 * 4 * R)
 
 
 def bound(flops: float, nbytes: float, exps: float = 0.0, tc_flops: float = 0.0):
@@ -2546,6 +2609,340 @@ def phase_block_vecchia(dev) -> dict:
     return launches
 
 
+# -- phase 15: the Laplace approximation -------------------------------------------------
+
+
+@contextlib.contextmanager
+def row5_by_pass(tally: dict):
+    """Inside, add row 5's launches by kernel and width to ``tally``: the
+    forward passes as ("narrow" or "wide", R) and the self-Gram pullback as
+    ("self pullback", R), the growth of the module's own
+    ``launches_by_pass`` (never reset)."""
+    before = dict(gram_matvec.launches_by_pass)
+    try:
+        yield tally
+    finally:
+        for key, n in gram_matvec.launches_by_pass.items():
+            if n > before.get(key, 0):
+                tally[key] = tally.get(key, 0) + n - before.get(key, 0)
+
+
+def by_pass(tally: dict) -> str:
+    return ", ".join(f"{k} R={r} {n}" for (k, r), n in sorted(tally.items())) or "none"
+
+
+def lap_mode(theta, x, y, **kw):
+    """(the CG-Newton mode, Newton steps) of the CG rows' model."""
+    with torch.no_grad():
+        return tgp.newton_inner_loop_cg(tgp.BernoulliLikelihood(), y, convert.laplace_kernel(theta),
+                                        x, return_niter=True, **LAP_NEWTON, **kw)
+
+
+def lap_lml(theta, x, y, probes, grad: bool, **kw):
+    """``laplace_lml_cg`` of the CG rows' model, and its θ-gradient with
+    ``grad``."""
+    th = theta.clone().requires_grad_(grad)
+    with torch.set_grad_enabled(grad):
+        v = tgp.laplace_lml_cg(tgp.BernoulliLikelihood(), y, convert.laplace_kernel(th), x,
+                               probes=probes, lanczos_iters=LAP_LANCZOS, **LAP_NEWTON, **kw)
+    return (v.detach(), torch.autograd.grad(v, th)[0]) if grad else v
+
+
+def cg_counts(st: dict) -> str:
+    return (f"{st['cg_solves']} CG solves, {st['cg_iterations']} iterations, "
+            f"{st['cg_host_syncs']} host syncs; matvecs {st['matvec_fused']} fused, "
+            f"{st['matvec_plain']} plain")
+
+
+def slq_logdet(theta, f, x, probes, **kw) -> tuple[float, float]:
+    """(the SLQ estimate of logdet B at ``f``, its standard error over the
+    probes): the Bernoulli W at f, block Lanczos over the probes on the
+    route ``kw`` names (as ``_LogdetBSLQ`` runs it), each probe's Gauss
+    quadrature in f64."""
+    with torch.no_grad():
+        _, _, d2 = tgp.BernoulliLikelihood().log_prob_d1_d2(f, torch.zeros_like(f))
+        kmv = laplace_cg._k_matvec(convert.laplace_kernel(theta), x, kw.get("block_size"), 0.0,
+                                   kw.get("storage", "auto"))
+        a, b = iterative._lanczos_block(laplace_cg._b_matvec(kmv, torch.sqrt(-d2)), probes.T,
+                                        LAP_LANCZOS)
+        T = torch.diag_embed(a.T) + torch.diag_embed(b.T, 1) + torch.diag_embed(b.T, -1)
+        evals, evecs = torch.linalg.eigh(T.double())
+        each = f.shape[0] * torch.sum(evecs[:, 0, :] ** 2 * torch.log(evals.clamp(min=1e-30)),
+                                      dim=-1)
+    return each.mean().item(), (each.std() / math.sqrt(each.shape[0])).item()
+
+
+def phase_laplace(dev) -> tuple[dict, dict]:
+    """Phase 15: the Laplace approximation, dense and matrix-free.  Returns
+    (the path runs' launches, row 5's numbers at the R = 1 self-Gram
+    pullback for the kernels line)."""
+    launches = {k: 0 for k in COUNTERS}
+    lik = tgp.BernoulliLikelihood()
+    f32 = dict(device=dev, dtype=torch.float32)
+
+    # (a) laplace_n5k: dense Newton, the value and θ-gradient of −laplace_lml
+    x5, y5 = convert.laplace_data(N_LAP5K, 1, seed=SEED + 50, device=dev)
+
+    def n5k(theta0):
+        th = theta0.clone().requires_grad_()
+        v = convert.laplace_neg_lml(th, x5.to(th.dtype), y5, LAP5K_JITTER, LAP5K_MAXITER)
+        return v.detach(), torch.autograd.grad(v, th)[0]
+
+    theta5 = torch.ones(2, **f32)
+    (v, g), got = counted(lambda: n5k(theta5), launches)
+    check(sum(got.values()) == 0 and bool(torch.isfinite(v) and torch.isfinite(g).all()),
+          f"laplace_n5k N={N_LAP5K}: value {v.item():.8g} and θ-gradient finite, no kernel "
+          f"launched (row 5 0: the dense path has no matvec)")
+    v64, g64 = n5k(theta5.double())
+    ev, eg = abs(v.item() - v64.item()) / abs(v64.item()), rel_err(g, g64)
+    check(ev <= LAP5K_RTOL32 and eg <= LAP5K_RTOL32,
+          f"laplace_n5k f32 vs f64 on the card: rel err value {ev:.3e}, θ-gradient {eg:.3e} "
+          f"<= {LAP5K_RTOL32:g} (gradient {g.tolist()} vs {g64.tolist()})")
+    K5 = tgp.GP(convert.laplace_kernel(theta5))(x5, LAP5K_JITTER).cov()
+    _, n5 = tgp.newton_inner_loop(lik, y5, K5, maxiter=LAP5K_MAXITER, return_niter=True)
+    ms = cuda_ms(lambda: n5k(theta5), 3)
+    print(f"time laplace_n5k value and θ-gradient: {ms:.3f} ms a step (median of 3; N={N_LAP5K}, "
+          f"{n5} Newton steps of at most {LAP5K_MAXITER}; {CARD})")
+
+    # (b) laplace_cg_mode at N = 2·10^4 on three routes, then at 10^5 on the kernel route
+    x, y = convert.laplace_data(N_LAP, D_LAP, seed=SEED + 51, device=dev)
+    xm, ym = x[:N_LAP_MID], y[:N_LAP_MID]
+    theta = torch.tensor(convert.LAPLACE_CG_THETA, **f32)
+    mid = dict(precond_rank=LAP_RANK_MID)
+    chunked = dict(mid, storage="chunked", block_size=LAP_BLOCK)
+    modes, route_ms = {}, {}
+    for route, kw, use in (("resident", dict(mid, storage="dense"), True),
+                           ("chunked, row 5", chunked, True),
+                           ("chunked, plain", chunked, False)):
+        tally = {}
+        with tgp.config_context(use_kernels=use):
+            with row5_by_pass(tally):
+                (f, n), got = counted(lambda: lap_mode(theta, xm, ym, **kw), launches)
+            st = dict(iterative.stats)
+            route_ms[route] = cuda_ms(lambda: lap_mode(theta, xm, ym, **kw), 2)
+        modes[route] = f
+        # the resident Gram takes no kernel_matvec; the chunked routes every
+        # product through row 5 or through Gram blocks
+        fused, plain = st["matvec_fused"], st["matvec_plain"]
+        kind = {"resident": fused == plain == 0, "chunked, row 5": fused > 0 == plain,
+                "chunked, plain": plain > 0 == fused}[route]
+        check(got == only(gram_matvec=fused) and kind and bool(torch.isfinite(f).all()),
+              f"laplace_cg_mode N={N_LAP_MID} {route}: {n} Newton steps (as many host syncs), "
+              f"{cg_counts(st)}; row 5 launches {got['gram_matvec']} (by pass: {by_pass(tally)}), "
+              "mode finite")
+    # one product K·V at N = 2·10^4 with the resident Gram and through row 5
+    # (what storage="auto" takes on the card), at Newton's R = 1 and the
+    # probes' R = 16
+    with torch.no_grad():
+        kd, build_ms = timed(lambda: laplace_cg._k_matvec(convert.laplace_kernel(theta), xm,
+                                                          None, 0.0, "dense"))
+        kf = laplace_cg._k_matvec(convert.laplace_kernel(theta), xm, LAP_BLOCK, 0.0, "auto")
+        for R in (1, LAP_PROBES):
+            V = torch.randn((N_LAP_MID, R), generator=torch.Generator(device=dev).manual_seed(R),
+                            **f32)
+            e = rel_err(kf(V), kd(V))
+            check(e <= 1e-5, f"K·V N={N_LAP_MID} R={R}: row 5 (storage=\"auto\") against the "
+                  f"resident Gram rel err {e:.3e} <= 1e-5")
+            print(f"time K·V N={N_LAP_MID} R={R}: resident Gram {cuda_ms(lambda: kd(V), 5):.4f} "
+                  f"ms, row 5 {cuda_ms(lambda: kf(V), 5):.4f} ms (the Gram's build {build_ms:.3f} ms "
+                  f"apart; {CARD})")
+        del kd
+    th64 = theta.double()
+    with torch.no_grad():
+        K64 = convert.laplace_kernel(th64).gram(xm.double())
+        (f64, n64), dense_ms = timed(lambda: tgp.newton_inner_loop(lik, ym, K64, tol=1e-10,
+                                                                  return_niter=True))
+    errs = {r: rel_err(f, f64) for r, f in modes.items()}
+    pair = max(rel_err(modes["chunked, row 5"], modes["resident"]),
+               rel_err(modes["chunked, plain"], modes["resident"]))
+    check(max(errs.values()) <= LAP_MODE_RTOL32 and pair <= LAP_MODE_RTOL32,
+          f"laplace_cg_mode N={N_LAP_MID} f32 modes against the f64 dense mode ({n64} Newton "
+          "steps, torch.linalg on the card, " + f"{dense_ms:.1f} ms): rel err "
+          + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
+          + f"; the chunked routes against the resident {pair:.3e} <= {LAP_MODE_RTOL32:g}")
+    big = dict(precond_rank=LAP_RANK, block_size=LAP_BLOCK)
+    tally = {}
+    with row5_by_pass(tally):
+        (f, n), got = counted(lambda: lap_mode(theta, x, y, **big), launches)
+    st = dict(iterative.stats)
+    # the mode is Newton's fixed point: one more step from it moves it by no
+    # more than the f32 floor (f − K∇ll(f) is no measure here: λmax(K)·max W,
+    # about 3·10³, multiplies the stopping error in it)
+    with torch.no_grad():
+        kmv = iterative.kernel_matvec(convert.laplace_kernel(theta), x, 0.0, LAP_BLOCK)
+        f_next = laplace_cg._newton_body_cg(lik, y, kmv, f, LAP_NEWTON["cg_tol"],
+                                            LAP_NEWTON["cg_maxiter"], 1.0)[0]
+    step = rel_err(f_next, f)
+    check(got == only(gram_matvec=st["matvec_fused"]) and st["matvec_plain"] == 0
+          and step <= LAP_STEP_RTOL32,
+          f"laplace_cg_mode N={N_LAP} (kernel route): {n} Newton steps, {cg_counts(st)}; row 5 "
+          f"launches {got['gram_matvec']} = the matvecs (by pass: {by_pass(tally)}); one more "
+          f"Newton step moves the mode by {step:.3e} of max|f| <= {LAP_STEP_RTOL32:g}")
+    big_ms = cuda_ms(lambda: lap_mode(theta, x, y, **big), 2)
+    print(f"time laplace_cg_mode (median of 2 after a warm-up): N={N_LAP_MID} resident "
+          f"{route_ms['resident']:.3f} ms, chunked through row 5 {route_ms['chunked, row 5']:.3f} "
+          f"ms, chunked plain {route_ms['chunked, plain']:.3f} ms; N={N_LAP} (row 5) "
+          f"{big_ms:.3f} ms ({CARD})")
+
+    # (c) laplace_cg_lml at 10^5: the value, and the value with its θ-gradient
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    probes = iterative.rademacher_probes(gen, LAP_PROBES, N_LAP, torch.float32, dev)
+    tally = {}
+    with row5_by_pass(tally):
+        lv, got_v = counted(lambda: lap_lml(theta, x, y, probes, False, **big), launches)
+        st_v = dict(iterative.stats)
+        (gv, gg), got_g = counted(lambda: lap_lml(theta, x, y, probes, True, **big), launches)
+    passes = dict(gram_matvec.pullback_passes)
+    st = dict(iterative.stats)
+    need = (("narrow", 1), ("wide", LAP_PROBES), ("self pullback", 1),
+            ("self pullback", LAP_PROBES))
+    check(got_v == only(gram_matvec=st_v["matvec_fused"])
+          and got_g == only(gram_matvec=st["matvec_fused"] + passes["passes"])
+          and st_v["matvec_plain"] == st["matvec_plain"] == 0
+          and all(tally.get(k, 0) > 0 for k in need)
+          and bool(torch.isfinite(lv) and torch.isfinite(gg).all())
+          and abs(gv - lv).item() <= 1e-6 * abs(lv.item()),
+          f"laplace_cg_lml N={N_LAP}: value {lv.item():.8g} ({got_v['gram_matvec']} launches; "
+          f"the gradient call's value {gv.item():.8g}), "
+          f"value and θ-gradient {gg.tolist()} ({got_g['gram_matvec']} launches = "
+          f"{st['matvec_fused']} matvecs + {passes['passes']} pullback passes; {cg_counts(st)}); "
+          f"row 5 by pass over both: {by_pass(tally)}, each of {need} at least once")
+    lml_ms = cuda_ms(lambda: lap_lml(theta, x, y, probes, False, **big), 2)
+    grad_ms = cuda_ms(lambda: lap_lml(theta, x, y, probes, True, **big), 2)
+    print(f"time laplace_cg_lml N={N_LAP} (median of 2 after a warm-up): value {lml_ms:.3f} ms, "
+          f"value and θ-gradient {grad_ms:.3f} ms ({LAP_PROBES} probes, {LAP_LANCZOS} Lanczos "
+          f"steps, rank {LAP_RANK}; {CARD})")
+    # the gradient at the cell's own size against the f64 run of the same
+    # algorithm (row 5's f64 kernels, the same probes), once
+    (_, g64b), big64_ms = timed(lambda: lap_lml(th64, x.double(), y, probes.double(), True, **big))
+    eb = rel_err(gg, g64b)
+    check(eb <= LAP_GRAD_BIG_RTOL32,
+          f"laplace_cg_lml N={N_LAP} f32 θ-gradient (row 5) against the f64 run: rel err {eb:.3e} "
+          f"<= {LAP_GRAD_BIG_RTOL32:g} ({gg.tolist()} vs {g64b.tolist()}; the f64 run "
+          f"{big64_ms:.1f} ms)")
+    pm = probes[:, :N_LAP_MID]
+    (vk, gk), mid_ms = timed(lambda: lap_lml(theta, xm, ym, pm, True, **chunked))
+    with tgp.config_context(use_kernels=False):
+        (vp, gp), mid_plain_ms = timed(lambda: lap_lml(theta, xm, ym, pm, True, **chunked))
+    # the gradient: each f32 route against the f64 run of the same algorithm
+    # (row 5's f64 kernels), row 5 no further than max(limit, 2 × plain's)
+    v64, g64 = lap_lml(th64, xm.double(), ym, pm.double(), True, **chunked)
+    ev, ek, ep = abs(vk.item() - vp.item()) / abs(vp.item()), rel_err(gk, g64), rel_err(gp, g64)
+    check(ev <= LAP_LML_RTOL32 and ek <= max(LAP_GRAD_RTOL32, 2 * ep),
+          f"laplace_cg_lml N={N_LAP_MID} f32: value row 5 vs plain rel err {ev:.3e} <= "
+          f"{LAP_LML_RTOL32:g}; θ-gradient against the f64 run rel err row 5 {ek:.3e} <= "
+          f"max({LAP_GRAD_RTOL32:g}, 2 × plain's {ep:.3e}) (row 5 vs plain {rel_err(gk, gp):.3e}; "
+          f"row 5 {gk.tolist()}, plain {gp.tolist()}, f64 {g64.tolist()}; "
+          f"{mid_ms:.3f} ms vs {mid_plain_ms:.3f} ms, once)")
+    # logdet B, the part of the lml that the kernel computes (Σ log p at f ≈ 0
+    # is most of the value), at one W: row 5's f32 Lanczos (the wide pass)
+    # against the plain route's and against the f64 run's
+    f_fix = modes["resident"]
+    ld = {}
+    for route, use, dt in (("row 5", True, torch.float32), ("plain", False, torch.float32),
+                           ("f64", True, torch.float64)):
+        with tgp.config_context(use_kernels=use):
+            ld[route] = slq_logdet(theta.to(dt), f_fix.to(dt), xm.to(dt), pm.to(dt), **chunked)
+    e_kp = abs(ld["row 5"][0] - ld["plain"][0]) / abs(ld["plain"][0])
+    e_k, e_p = (abs(ld[r][0] - ld["f64"][0]) / abs(ld["f64"][0]) for r in ("row 5", "plain"))
+    check(e_kp <= LAP_LOGDET_RTOL32 and e_k <= max(LAP_LOGDET_RTOL32, 2 * e_p),
+          f"logdet B N={N_LAP_MID} by SLQ ({LAP_PROBES} probes, {LAP_LANCZOS} Lanczos steps) at "
+          f"the resident mode's W: row 5 {ld['row 5'][0]:.10g}, plain {ld['plain'][0]:.10g}, f64 "
+          f"{ld['f64'][0]:.10g}; rel err row 5 vs plain {e_kp:.3e} <= {LAP_LOGDET_RTOL32:g}, "
+          f"row 5 vs f64 {e_k:.3e} <= max({LAP_LOGDET_RTOL32:g}, 2 × plain's {e_p:.3e})")
+    with torch.no_grad():
+        dense = tgp.laplace_lml(lik, ym, K64, f_opt=f64).item()
+    se = ld["row 5"][1]
+    lim = max(0.25, 2.0 * se)  # ½·logdet's error: 4 standard errors of the probe mean
+    check(abs(vk.item() - dense) <= lim,
+          f"laplace_cg_lml N={N_LAP_MID} (row 5, f32, {LAP_PROBES} probes) against the dense f64 "
+          f"laplace_lml, a statistical check of the probes: {vk.item():.8g} vs {dense:.8g}, "
+          f"|diff| {abs(vk.item() - dense):.4g} <= {lim:.4g} (max(0.25, 4 × the logdet's probe "
+          f"standard error {se:.4g} / 2))")
+    del K64
+
+    # (d) the serve and the prior sampler
+    la = tgp.LaplaceCG(**LAP_NEWTON, precond_rank=LAP_RANK, block_size=LAP_BLOCK)
+    xs = 10.0 * torch.rand((LAP_N_TEST, D_LAP), generator=gen, **f32)
+    kern = convert.laplace_kernel(theta)
+    lf = tgp.LatentGP(tgp.GP(kern), lik, 1e-8)
+    tally = {}
+    with row5_by_pass(tally), torch.no_grad():
+        ((mu, var), got), serve_ms = timed(lambda: counted(
+            lambda: tgp.posterior(la, lf(x), y).mean_and_var(xs), launches))
+    check(got == only(gram_matvec=iterative.stats["matvec_fused"])
+          and tally.get(("wide", LAP_N_TEST), 0) > 0
+          and bool(torch.isfinite(mu).all()) and bool(((var > 0) & (var <= 1.5 + 1e-4)).all()),
+          f"posterior(LaplaceCG) N={N_LAP} and mean_and_var at {LAP_N_TEST} points: finite mean, "
+          f"variances in (0, 1.5], row 5 launches {got['gram_matvec']} (by pass: {by_pass(tally)}); "
+          f"{serve_ms:.3f} ms ({CARD})")
+    la_mid = tgp.LaplaceCG(**LAP_NEWTON, precond_rank=LAP_RANK_MID, block_size=LAP_BLOCK,
+                           storage="chunked")
+    with torch.no_grad():
+        mu_k, var_k = tgp.posterior(la_mid, lf(xm), ym).mean_and_var(xs)
+        lf64 = tgp.LatentGP(tgp.GP(convert.laplace_kernel(th64)), lik, 1e-8)
+        mu64, var64 = tgp.posterior(tgp.LaplaceApproximation(tol=1e-10), lf64(xm.double()),
+                                    ym).mean_and_var(xs.double())
+    emu, evar = rel_err(mu_k, mu64), max_abs(var_k, var64) / 1.5
+    check(emu <= LAP_POST_RTOL32 and evar <= LAP_POST_RTOL32,
+          f"posterior(LaplaceCG) N={N_LAP_MID} (row 5, f32) against the dense f64 LaplacePosterior "
+          f"at {LAP_N_TEST} points: rel err mean {emu:.3e}, max|d var| / prior variance "
+          f"{evar:.3e} <= {LAP_POST_RTOL32:g}")
+    samples, got = counted(lambda: tgp.sample_prior_msqrt(gen, kern, x, LAP_SAMPLE_NOISE,
+                                                          LAP_SAMPLES, LAP_LANCZOS), launches)
+    # the same normals (an int seed) through row 5 and through the plain route
+    sk = tgp.sample_prior_msqrt(SEED + 54, kern, xm, LAP_SAMPLE_NOISE, LAP_SAMPLES, LAP_LANCZOS,
+                                LAP_BLOCK)
+    with tgp.config_context(use_kernels=False):
+        sp = tgp.sample_prior_msqrt(SEED + 54, kern, xm, LAP_SAMPLE_NOISE, LAP_SAMPLES,
+                                    LAP_LANCZOS, LAP_BLOCK)
+    es = rel_err(sk, sp)
+    check(es <= LAP_SAMPLE_RTOL32,
+          f"sample_prior_msqrt N={N_LAP_MID}, {LAP_SAMPLES} samples, the same normals: row 5 "
+          f"against the plain route rel err {es:.3e} <= {LAP_SAMPLE_RTOL32:g}")
+    sub = torch.randperm(N_LAP, generator=gen, device=dev)[:LAP_SUBSET]
+    C = convert.laplace_kernel(th64).gram(x[sub].double()) + LAP_SAMPLE_NOISE * torch.eye(
+        LAP_SUBSET, dtype=torch.float64, device=dev)
+    s = samples[:, sub].double()
+    emp = s.T @ s / LAP_SAMPLES
+    W = torch.sign(torch.randn((LAP_SUBSET, LAP_SUBSET), generator=gen, device=dev)).double()
+    W = torch.triu(W) + torch.triu(W, 1).T
+    # ⟨W, emp − C⟩ has mean 0 and variance 2·tr(WCWC)/S for Gaussian samples
+    stats = {}
+    for name, Wt in (("diagonal", torch.eye(LAP_SUBSET, dtype=torch.float64, device=dev)
+                      / LAP_SUBSET), ("random signs", W)):
+        stats[name] = (torch.sum(Wt * (emp - C)).item(),
+                       math.sqrt(2.0 * torch.trace(Wt @ C @ Wt @ C).item() / LAP_SAMPLES))
+    check(got == only(gram_matvec=LAP_LANCZOS) and bool(torch.isfinite(samples).all())
+          and all(abs(t) <= 5.0 * sd for t, sd in stats.values()),
+          f"sample_prior_msqrt N={N_LAP}, {LAP_SAMPLES} samples: one row-5 launch a Lanczos step "
+          f"({got['gram_matvec']}); a statistical check: the samples' covariance on "
+          f"{LAP_SUBSET} points against K + {LAP_SAMPLE_NOISE}·I within 5 Monte-Carlo standard "
+          "deviations of ⟨W, emp − C⟩: "
+          + ", ".join(f"{k} {t:.4g} (sd {sd:.4g})" for k, (t, sd) in stats.items()))
+
+    # (e) row 5's self-Gram pullback at R = 1, the Newton IFT's shape
+    rng = np.random.default_rng(SEED + 53)
+    X = torch.tensor(rng.uniform(0.0, 10.0, (N_LAP, D_LAP)), **f32)
+    V, Wb = (torch.tensor(rng.standard_normal((N_LAP, 1)), **f32) for _ in range(2))
+    se_map = tk.SqExponentialKernel().kernel_map()
+    got = gram_matvec.gram_matvec_self_bwd(X, V, Wb, se_map)
+    ref = gram_matvec.gram_matvec_self_bwd_plain(X, V, Wb, se_map)
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    check(max(errs) <= 1e-4, f"gram_matvec self-Gram pullback f32 N={N_LAP} D={D_LAP} R=1 se "
+          f"against its plain version: rel err X {errs[0]:.3e}, V {errs[1]:.3e} <= 1e-4")
+    ms = cuda_ms(lambda: gram_matvec.gram_matvec_self_bwd(X, V, Wb, se_map), 3)
+    plain_ms = cuda_ms(lambda: gram_matvec.gram_matvec_self_bwd_plain(X, V, Wb, se_map), 1)
+    flops, nbytes, exps, tc = self_bwd_work(N_LAP, D_LAP, 1)
+    b_ms, b_by = bound(flops, nbytes, exps, tc_flops=tc)
+    print(f"time gram_matvec self-Gram pullback f32 N={N_LAP} D={D_LAP} R=1: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; {CARD})")
+    r1 = {"max_abs_err_bwd_self_r1": max(max_abs(a, b) for a, b in zip(got, ref)),
+          "ms_bwd_self_r1": ms, "plain_ms_bwd_self_r1": plain_ms, "bound_ms_bwd_self_r1": b_ms,
+          "bound_by_bwd_self_r1": b_by}
+    return launches, r1
+
+
 def _plain(fn, *args):
     with tgp.config_context(use_kernels=False):
         return fn(*args)
@@ -2569,6 +2966,8 @@ def main() -> None:
     by_path["natgrad"] = phase_natgrad(dev)
     by_path["poisson"] = phase_poisson(dev)
     by_path["block_vecchia"] = phase_block_vecchia(dev)
+    by_path["laplace"], r1 = phase_laplace(dev)
+    numbers["gram_matvec"].update(r1)
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv_mma.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),

@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's matrix-free exact GP goes, on one
-CUDA GPU.
+"""Where the time of the PyTorch port's matrix-free exact GP and
+matrix-free Laplace lml goes, on one CUDA GPU.
 
-    python3 scripts/profile_exact_gp_torch.py
+    python3 scripts/profile_exact_gp_torch.py [gp] [laplace]
 
-Builds ``chip_smoke.py``'s phase-7 configuration (N = 10^5 points in
+``gp`` (the default runs both parts) builds ``chip_smoke.py``'s phase-7
+configuration (N = 10^5 points in
 [0, 10]², SE kernel from raw θ = softplus⁻¹(1.5, 1.2, 0.1), 16 probes, 30
 Lanczos iterations, CG tol 1e-5, a rank-512 pivoted-Cholesky preconditioner,
 blocks of 8192), times the rank-512 factor twice, runs one hyperparameter
 step to warm up, then profiles one step and one ``posterior_cg`` serve at 32
 points with ``torch.profiler``: the device time by kernel name and the
-device's busy share of the wall time.  Prints the card's name and power
-limit first.  Needs a CUDA device (it exits non-zero without one).
+device's busy share of the wall time.  ``laplace`` builds phase 15's
+``laplace_cg_lml`` (N = 10^5 Bernoulli labels in 2-D, 1.5·SE(ℓ = 1.2), 16
+probes, 30 Lanczos steps, rank 512, blocks of 8192), times the rank-512
+factor apart, runs one value-and-gradient call to warm up and profiles the
+next: the device time by kernel, the pivoted Cholesky's share (the kernels
+inside its profiler range), the CG and Newton host syncs, and the idle time by the host operation begun
+inside each gap.  Prints the card's name and power limit first.  Needs a
+CUDA device (it exits non-zero without one).
 """
 
 from __future__ import annotations
 
+import bisect
 import sys
 import time
 from pathlib import Path
@@ -28,6 +36,8 @@ import approximategps_tpu_torch as tgp  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from approximategps_tpu_torch import convert  # noqa: E402
 from approximategps_tpu_torch.models import iterative  # noqa: E402
+
+PARTS = ("gp", "laplace")
 
 
 def profile(label: str, fn, top: int = 10, gaps: int = 0, sequence: str | None = None) -> None:
@@ -71,10 +81,17 @@ def profile(label: str, fn, top: int = 10, gaps: int = 0, sequence: str | None =
         print(f"  {sequence} in order (ms): " + " ".join(f"{t:.3f}" for t in each))
 
 
-def main() -> None:
+def main(parts) -> None:
     cs.phase_device()
     dev = torch.device("cuda", 0)
     cs.phase_build()
+    if "gp" in parts:
+        exact_gp(dev)
+    if "laplace" in parts:
+        laplace(dev)
+
+
+def exact_gp(dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
     x = 10.0 * torch.rand((cs.N_GP, cs.D_GP), generator=gen, device=dev)
     y = torch.sin(x[:, 0]) + 0.1 * torch.randn((cs.N_GP,), generator=gen, device=dev)
@@ -115,5 +132,110 @@ def main() -> None:
     print(f"  CG: {iterative.stats}")
 
 
+def device_events(prof) -> list:
+    """The profile's device events, less the device-side copies of
+    ``record_function`` ranges (they span the kernels inside them)."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def idle_by_host_op(prof, gaps: int = 10) -> None:
+    """The device's idle time between its events, summed by the host
+    operation begun inside each gap (what the host was doing while the card
+    waited), and the ``gaps`` longest gaps with theirs (calls, host ms)."""
+    dev_ev = sorted(device_events(prof), key=lambda e: e.time_range.start)
+    host_ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU),
+                     key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in host_ev]
+    holes = [(b.time_range.start - a.time_range.end, a.time_range.end, b.time_range.start)
+             for a, b in zip(dev_ev, dev_ev[1:])]
+    total: dict[str, list] = {}
+    rows = []
+    for h, lo, hi in holes:
+        if h <= 0:
+            continue
+        inside: dict[str, list] = {}
+        for e in host_ev[bisect.bisect_left(starts, lo):bisect.bisect_left(starts, hi)]:
+            r = inside.setdefault(e.name, [0, 0.0])
+            r[0] += 1
+            r[1] += e.time_range.elapsed_us() / 1e3
+        for name in inside:
+            t = total.setdefault(name, [0, 0.0])
+            t[0] += 1
+            t[1] += h / 1e3
+        rows.append((h, inside))
+    idle = sum(h for h, _ in rows) / 1e3
+    print(f"  idle between device events {idle:.3f} ms over {len(rows)} gaps; idle ms by the host "
+          "operation begun inside the gap (gaps, idle ms; a gap counts for each of its ops):")
+    for name, (n, ms) in sorted(total.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"    {ms:10.3f} ms  {n:6d} gaps  {name[:70]}")
+    print("  the longest gaps, with the host operations begun inside each (calls, host ms):")
+    for h, inside in sorted(rows, key=lambda r: -r[0])[:gaps]:
+        top = sorted(inside.items(), key=lambda kv: -kv[1][1])[:4]
+        print(f"    gap {h / 1e3:8.3f} ms: " + "; ".join(
+            f"{name[:40]} ({n}, {ms:.3f})" for name, (n, ms) in top))
+
+
+def laplace(dev) -> None:
+    """One ``laplace_cg_lml`` value-and-gradient call of phase 15 (c)."""
+    x, y = convert.laplace_data(cs.N_LAP, cs.D_LAP, seed=cs.SEED + 51, device=dev)
+    theta = torch.tensor(convert.LAPLACE_CG_THETA, dtype=torch.float32, device=dev)
+    probes = iterative.rademacher_probes(torch.Generator(device=dev).manual_seed(cs.SEED + 52),
+                                         cs.LAP_PROBES, cs.N_LAP, torch.float32, dev)
+    kw = dict(precond_rank=cs.LAP_RANK, block_size=cs.LAP_BLOCK)
+    kern = convert.laplace_kernel(theta)
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iterative.pivoted_cholesky(kern, x, cs.LAP_RANK)
+        torch.cuda.synchronize()
+        print(f"pivoted_cholesky rank {cs.LAP_RANK}, N = {cs.N_LAP}, call {i + 1}: "
+              f"{1e3 * (time.perf_counter() - t0):.3f} ms")
+    cs.lap_lml(theta, x, y, probes, True, **kw)
+    iterative.reset_stats()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        cs.lap_lml(theta, x, y, probes, True, **kw)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    dev_ev = device_events(prof)
+    # the factor's "pivoted_cholesky" range (iterative.pivoted_cholesky): its
+    # calls on the host, and its span of kernels on the device where the
+    # profiler records one (else the host ranges)
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    host = [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.name == "pivoted_cholesky" and e.device_type == cpu]
+    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.name == "pivoted_cholesky" and e.device_type == cuda] or host
+    by_name: dict[str, list] = {}
+    in_factor = 0.0
+    for e in dev_ev:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        ms = e.time_range.elapsed_us() / 1e3
+        row[0] += ms
+        row[1] += 1
+        if any(lo <= e.time_range.start < hi for lo, hi in ranges):
+            in_factor += ms
+    busy = sum(ms for ms, _ in by_name.values())
+    print(f"one laplace_cg_lml value and θ-gradient, N = {cs.N_LAP}: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} %)")
+    for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        print(f"  {ms:10.3f} ms  {calls:6d} calls  {name[:90]}")
+    print(f"  pivoted Cholesky (rank {cs.LAP_RANK}): {len(host)} calls, host "
+          + ", ".join(f"{(hi - lo) / 1e3:.3f}" for lo, hi in host) + " ms, device "
+          + ", ".join(f"{(hi - lo) / 1e3:.3f}" for lo, hi in ranges) + f" ms spans, device busy "
+          f"{in_factor:.3f} ms inside them")
+    st = iterative.stats
+    print(f"  CG: {st['cg_solves']} solves, {st['cg_iterations']} iterations, "
+          f"{st['cg_host_syncs']} host syncs (one an iteration; Newton adds one a step); matvecs "
+          f"{st['matvec_fused']} on row 5, {st['matvec_plain']} plain")
+    idle_by_host_op(prof)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    asked = [a for a in sys.argv[1:] if a in PARTS]
+    if len(asked) != len(sys.argv[1:]):
+        sys.exit(f"usage: {sys.argv[0]} [{'] ['.join(PARTS)}]")
+    main(asked or PARTS)

@@ -23,8 +23,9 @@ kernel and the host time a call of the wrapper and of the autograd
 Function around it; and one step of phase 12's natural-gradient hybrid
 step (``natgrad``): the device time by kernel with rows 1 and 4 (the f32
 panel steps ``step_kernel<false>`` and ``step_kernel<true>``) listed apart,
-the idle share, and the longest idle gaps each with the host operations
-that began inside it (what the host was doing while the card waited).
+the idle share, the idle time by the host operation begun inside each gap
+and the longest idle gaps with theirs (what the host was doing while the
+card waited).
 The arguments pick the parts
 (all without any).  Prints the card's name and power limit first.  Needs
 a CUDA device (it exits non-zero without one).  To measure an older tree
@@ -48,7 +49,7 @@ import chip_smoke as cs  # noqa: E402
 from approximategps_tpu_torch import convert  # noqa: E402
 from approximategps_tpu_torch.core import kernels as tk  # noqa: E402
 from approximategps_tpu_torch.ops import gram, panel_chol  # noqa: E402
-from profile_exact_gp_torch import profile  # noqa: E402
+from profile_exact_gp_torch import idle_by_host_op, profile  # noqa: E402
 
 PARTS = ("sweep", "streaming", "minibatch", "fused", "row1", "row4", "row11", "natgrad")
 
@@ -223,7 +224,6 @@ def natgrad(dev, gaps: int = 10) -> None:
     events = prof.events()
     dev_ev = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    host_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     rows = {"step_kernel<false>": "row 1 (gram_chol_inv)", "step_kernel<true>": "row 4 (chol_inv)"}
     by_name: dict[str, list] = {}
     for e in dev_ev:
@@ -238,21 +238,7 @@ def natgrad(dev, gaps: int = 10) -> None:
           f"{100 * (1 - busy / wall):.1f} %), first to last device event {span:.3f} ms")
     for name, (ms, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:18]:
         print(f"  {ms:10.3f} ms  {calls:6d} calls  {name[:90]}")
-    holes = [(b.time_range.start - a.time_range.end, a.time_range.end, b.time_range.start)
-             for a, b in zip(dev_ev, dev_ev[1:])]
-    idle = sum(max(h, 0) for h, _, _ in holes) / 1e3
-    print(f"  idle between device events {idle:.3f} ms over {len(holes)} gaps; the longest, "
-          f"with the host operations begun inside each (calls, host ms):")
-    for h, lo, hi in sorted(holes, reverse=True)[:gaps]:
-        inside: dict[str, list] = {}
-        for e in host_ev:
-            if lo <= e.time_range.start < hi:
-                r = inside.setdefault(e.name, [0, 0.0])
-                r[0] += 1
-                r[1] += e.time_range.elapsed_us() / 1e3
-        top = sorted(inside.items(), key=lambda kv: -kv[1][1])[:4]
-        print(f"    gap {h / 1e3:8.3f} ms: " + "; ".join(
-            f"{name[:40]} ({n}, {ms:.3f})" for name, (n, ms) in top))
+    idle_by_host_op(prof, gaps)
 
 
 if __name__ == "__main__":

@@ -1120,3 +1120,90 @@ def test_torch_cuda_block_vecchia_checks(cuda):
     got = tgp.approx_lml(near, f(_t(xn, cuda), 0.0), _t(yn, cuda))
     ref = tgp.approx_lml(near, f(_t(xn, "cpu"), 0.0), _t(yn, "cpu"))
     assert abs(got.item() - ref.item()) <= 1e-10 * abs(ref.item())
+
+
+# -- the Laplace approximation ----------------------------------------------
+
+
+def _laplace_value_and_grad(dev, N, D, storage=None, **kw):
+    """−lml and its raw-θ gradient on ``dev`` in f64: dense Laplace
+    (``storage`` None) or ``laplace_lml_cg`` on the given storage route."""
+    from approximategps_tpu_torch import convert
+    from approximategps_tpu_torch.models import laplace_cg
+
+    x, y = convert.laplace_data(N, D, seed=4, device=dev, dtype=torch.float64)
+    theta = _t([0.9, 0.4], dev).requires_grad_()
+    if storage is None:
+        v = convert.laplace_neg_lml(theta, x, y, maxiter=50)
+    else:
+        kern = convert.laplace_kernel(theta)
+        v = -laplace_cg.laplace_lml_cg(tgp.BernoulliLikelihood(), y, kern, x, storage=storage,
+                                       **kw)
+    return v.detach().cpu(), torch.autograd.grad(v, theta)[0].cpu()
+
+
+def test_torch_cuda_laplace_dense_matches_cpu(cuda):
+    """Dense Laplace's −lml and θ-gradient (``laplace_n5k``'s model, N =
+    1000) on the card against the CPU, f64, 1e-9."""
+    v, g = _laplace_value_and_grad(cuda, 1000, 1)
+    v0, g0 = _laplace_value_and_grad(torch.device("cpu"), 1000, 1)
+    assert abs(v.item() - v0.item()) <= 1e-9 * abs(v0.item())
+    assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-9
+
+
+def test_torch_cuda_laplace_cg_runs_through_the_kernel(cuda):
+    """``laplace_lml_cg`` on the chunked route (N = 2000, D = 2, f64): every
+    product on row 5 (launches = counted matvecs + pullback passes; two
+    pullbacks, the Newton IFT's at R = 1 and the probes' at R = 16), value 1e-8 and
+    gradient 1e-7 from the CPU's plain route with the same probes; the
+    resident route (``storage="dense"``) launches nothing, and ``"auto"``
+    takes row 5 on the card, the launches by pass summing to the count."""
+    from approximategps_tpu_torch.models import iterative
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    probes = np.sign(np.random.default_rng(3).standard_normal((16, 2000)))
+    kw = dict(lanczos_iters=30, cg_tol=1e-10, maxiter=60, tol=1e-10, precond_rank=64,
+              block_size=512)
+    iterative.reset_stats()
+    before, passes = gram_matvec.gram_matvec.launches, gram_matvec.pullback_passes["passes"]
+    calls = gram_matvec.pullback_passes["calls"]
+    v, g = _laplace_value_and_grad(cuda, 2000, 2, "chunked", probes=_t(probes, cuda), **kw)
+    assert iterative.stats["matvec_plain"] == 0 and iterative.stats["matvec_fused"] > 0
+    # two pullbacks, at R = 1 and R = 16: in f64 each is the general one, three passes
+    assert gram_matvec.pullback_passes["calls"] - calls == 2
+    assert gram_matvec.gram_matvec.launches - before == \
+        iterative.stats["matvec_fused"] + gram_matvec.pullback_passes["passes"] - passes
+    v0, g0 = _laplace_value_and_grad(torch.device("cpu"), 2000, 2, "chunked",
+                                     probes=_t(probes, "cpu"), **kw)
+    assert abs(v.item() - v0.item()) <= 1e-8 * abs(v0.item())
+    assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-7
+    before = gram_matvec.gram_matvec.launches
+    _laplace_value_and_grad(cuda, 2000, 2, "dense", probes=_t(probes, cuda), **kw)
+    assert gram_matvec.gram_matvec.launches == before
+    by_pass = dict(gram_matvec.launches_by_pass)
+    va, ga = _laplace_value_and_grad(cuda, 2000, 2, "auto", probes=_t(probes, cuda), **kw)
+    added = {k: n - by_pass.get(k, 0) for k, n in gram_matvec.launches_by_pass.items()}
+    assert gram_matvec.gram_matvec.launches - before == sum(added.values()) > 0
+    # f64 passes are all the narrow (SIMT) kernel, the probes' at R = 16 too
+    assert added.get(("narrow", 1), 0) > 0 and added.get(("narrow", 16), 0) > 0
+    assert abs(va.item() - v.item()) <= 1e-12 * abs(v.item())
+    assert ((ga - g).abs().max() / g.abs().max()).item() <= 1e-12
+
+
+def test_torch_cuda_probes_and_samples_are_made_on_the_card(cuda):
+    """An int seed makes the Rademacher probes and the samplers' normals
+    with a generator on the card (no host copy): the draws equal a CUDA
+    generator's; the msqrt prior samples run as one (N, S) block on row 5."""
+    from approximategps_tpu_torch.models import iterative
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    p = iterative.rademacher_probes(7, 16, 1000, torch.float32, cuda)
+    bits = torch.randint(0, 2, (16, 1000), generator=torch.Generator(device=cuda).manual_seed(7),
+                         device=cuda)
+    assert p.is_cuda and torch.equal(p, (2 * bits - 1).float())
+    x = torch.linspace(0.0, 10.0, 3000, device=cuda)[:, None]
+    kern = 1.5 * tgp.with_lengthscale(tgp.SqExponentialKernel(), 1.2)
+    before = gram_matvec.gram_matvec.launches
+    s = tgp.sample_prior_msqrt(3, kern, x, 1e-3, 16, lanczos_iters=20)
+    assert s.is_cuda and s.shape == (16, 3000) and bool(torch.isfinite(s).all())
+    assert gram_matvec.gram_matvec.launches == before + 20

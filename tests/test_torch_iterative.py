@@ -180,8 +180,8 @@ def test_torch_lanczos_block_matches_per_probe_and_jax():
     At = _t(A)
     a_blk, b_blk = titer._lanczos_block(lambda v: At @ v, _t(V0), 12)
     for r in range(V0.shape[1]):
-        a_r, b_r = titer._lanczos(lambda v: At @ v, _t(V0[:, r]), 12)
-        assert _rel(a_blk[:, r], a_r) <= 1e-10 and _rel(b_blk[:, r], b_r) <= 1e-10
+        a_r, b_r = titer._lanczos_block(lambda v: At @ v, _t(V0[:, r:r + 1]), 12)
+        assert _rel(a_blk[:, r], a_r[:, 0]) <= 1e-10 and _rel(b_blk[:, r], b_r[:, 0]) <= 1e-10
     aj, bj = jiter._lanczos_block(lambda v: jnp.asarray(A) @ v, jnp.asarray(V0), 12)
     assert _rel(a_blk, aj) <= 1e-10 and _rel(b_blk, bj) <= 1e-10
     got = titer._slq_quadrature(a_blk, b_blk, 48, 1e-30)
@@ -197,8 +197,110 @@ def test_torch_lanczos_reorth_matches_jax():
     assert _rel(Qt, Qj) <= 1e-10 and _rel(at, aj) <= 1e-10 and _rel(bt, bj) <= 1e-10
     torch.testing.assert_close(Qt.T @ Qt, torch.eye(20, dtype=torch.float64), atol=1e-12,
                                rtol=0)
-    a2, b2 = titer._lanczos(lambda v: At @ v, _t(V0[:, 0]), 20, reorth=True)
-    assert torch.equal(a2, at) and torch.equal(b2, bt)
+
+
+def test_torch_lanczos_basis_block_columns_are_their_own_recurrences():
+    """A block start (n, S) runs each column's own reorthogonalized
+    recurrence: each equals the single-vector call (1e-12)."""
+    A, V0 = _spd(seed=9)
+    At = _t(A)
+    Q, a, b = titer._lanczos_basis(lambda v: At @ v, _t(V0), 20)
+    assert Q.shape == (7, 48, 20) and a.shape == (20, 7) and b.shape == (19, 7)
+    for r in range(V0.shape[1]):
+        Qr, ar, br = titer._lanczos_basis(lambda v: At @ v, _t(V0[:, r]), 20)
+        assert _rel(Q[r], Qr) <= 1e-12 and _rel(a[:, r], ar) <= 1e-12
+        assert _rel(b[:, r], br) <= 1e-12
+
+
+@pytest.mark.parametrize("num_iters", [64, 30])
+def test_torch_msqrt_matvec_matches_sqrtm_and_jax(num_iters):
+    """A^{1/2}b by Lanczos against the dense square root (full Krylov 1e-9,
+    30 steps 5e-3: the JAX test's) and the JAX function (1e-10); a block of
+    columns equals each column's own call."""
+    rng = np.random.default_rng(5)
+    N = 64
+    R = rng.standard_normal((N, N))
+    A = R @ R.T + 0.5 * np.eye(N)
+    B = rng.standard_normal((N, 3))
+    At = _t(A)
+    out = titer.msqrt_matvec(lambda v: At @ v, _t(B[:, 0]), num_iters=num_iters)
+    evals, evecs = np.linalg.eigh(A)
+    ref = evecs @ (np.sqrt(evals) * (evecs.T @ B[:, 0]))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-9 if num_iters == N else 5e-3)
+    want = jiter.msqrt_matvec(lambda v: jnp.asarray(A) @ v, jnp.asarray(B[:, 0]),
+                              num_iters=num_iters)
+    assert _rel(out, want) <= 1e-10
+    blk = titer.msqrt_matvec(lambda v: At @ v, _t(B), num_iters=num_iters)
+    for r in range(3):
+        col = titer.msqrt_matvec(lambda v: At @ v, _t(B[:, r]), num_iters=num_iters)
+        assert _rel(blk[:, r], col) <= 1e-12
+
+
+def _patch_normals(monkeypatch, arrays):
+    """``jax.random.normal`` handing out ``arrays`` in turn, so that the JAX
+    samplers draw what the port's generator drew."""
+    queue = list(arrays)
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape, dtype=None: jnp.asarray(queue.pop(0), dtype))
+
+
+@pytest.mark.parametrize("mode", ["plain", "fused"])
+def test_torch_sample_prior_msqrt_matches_jax(mode, monkeypatch):
+    """Prior draws from the same normals as the JAX package's (1e-10), the
+    S samples as one (N, S) block (one product a Lanczos step, the fused
+    Function's where it serves); their covariance at 4000 draws within 0.12
+    of K + σ²I (the JAX test's)."""
+    N, S = 48, 16
+    x = np.linspace(0, 5, N)
+    jk = 1.3 * agp.with_lengthscale(agp.SqExponentialKernel(), 0.8)
+    tk = 1.3 * tgp.with_lengthscale(tgp.SqExponentialKernel(), 0.8)
+    Z = torch.randn((S, N), generator=torch.Generator().manual_seed(4), dtype=torch.float64)
+    titer.reset_stats()
+    with tgp.config_context(matvec_mode=mode):
+        got = titer.sample_prior_msqrt(4, tk, _t(x), 0.05, S, lanczos_iters=40)
+    assert titer.stats["matvec_" + mode] == 40 and got.shape == (S, N)
+    _patch_normals(monkeypatch, [Z.numpy()])
+    want = jiter.sample_prior_msqrt(jax.random.PRNGKey(0), jk, jnp.asarray(x), 0.05, S,
+                                    lanczos_iters=40)
+    assert _rel(got, want) <= 1e-10
+    draws = titer.sample_prior_msqrt(torch.Generator().manual_seed(0), tk, _t(x), 0.05, 4000,
+                                     lanczos_iters=40)
+    K = tk.gram(_t(x)[:, None]) + 0.05 * torch.eye(N, dtype=torch.float64)
+    assert (draws.T @ draws / 4000 - K).abs().max().item() < 0.12
+
+
+def test_torch_sample_posterior_msqrt_matches_jax(monkeypatch):
+    """Matheron samples from the same normals as the JAX package's (the
+    joint prior's, then ε's; 1e-7: the joint prior's covariance carries a
+    jitter of 1e-12 only, and the square root of its eigenvalues near 1e-12
+    multiplies their rounding by about 10⁶), with the
+    preconditioner; at 6000 draws their mean and covariance within 0.08 of
+    the exact posterior's (the JAX test's)."""
+    N, S = 40, 8
+    x = np.linspace(0, 4, N)
+    y = np.sin(x) + 0.2 * np.random.default_rng(9).standard_normal(N)
+    xs = np.linspace(-0.5, 4.5, 11)
+    jk = 1.5 * agp.with_lengthscale(agp.SqExponentialKernel(), 0.9)
+    tk = 1.5 * tgp.with_lengthscale(tgp.SqExponentialKernel(), 0.9)
+    fx = tgp.GP(tk)(_t(x), 0.05)
+    g = torch.Generator().manual_seed(2)
+    Zj = torch.randn((S, N + 11), generator=g, dtype=torch.float64)
+    Ze = torch.randn((S, N), generator=g, dtype=torch.float64)
+    got = titer.sample_posterior_msqrt(2, fx, _t(y), _t(xs), S, lanczos_iters=48, tol=1e-10,
+                                       precond_rank=10)
+    _patch_normals(monkeypatch, [Zj.numpy(), Ze.numpy()])
+    want = jiter.sample_posterior_msqrt(jax.random.PRNGKey(0), agp.GP(jk)(jnp.asarray(x), 0.05),
+                                        jnp.asarray(y), jnp.asarray(xs), S, lanczos_iters=48,
+                                        tol=1e-10, precond_rank=10)
+    assert got.shape == (S, 11) and _rel(got, want) <= 1e-7
+    draws = titer.sample_posterior_msqrt(torch.Generator().manual_seed(1), fx, _t(y), _t(xs),
+                                         6000, lanczos_iters=48, tol=1e-10)
+    mu, cov = tgp.posterior(fx, _t(y)).mean_and_cov(_t(xs))
+    np.testing.assert_allclose(draws.mean(0).numpy(), mu.numpy(), atol=0.08)
+    np.testing.assert_allclose(np.cov(draws.numpy().T, bias=True), cov.numpy(), atol=0.08)
+    with pytest.raises(ValueError, match="isotropic"):
+        titer.sample_posterior_msqrt(0, tgp.GP(tk)(_t(x), _t(np.full(N, 0.05))), _t(y),
+                                     _t(xs), S)
 
 
 # -- logpdf_slq: value and stochastic-trace gradients ------------------------
@@ -272,6 +374,30 @@ def test_torch_logpdf_slq_matches_jax(precond, mode):
     assert abs(v.item() - jv) <= 1e-9 * abs(jv)
     for what, g, j in zip(("theta", "x", "y"), grads, jg):
         assert _rel(g, j) <= 1e-7, (what, _rel(g, j))
+
+
+@pytest.mark.parametrize("precond", ["none", "fresh"])
+def test_torch_logpdf_slq_reorth_matches_jax(precond):
+    """``reorth=True`` (every probe's recurrence reorthogonalized against
+    its own basis, the probes as one block) against ``_logpdf_slq_core``
+    with reorth, the same probes: the value to 1e-9."""
+    x, y, probes, _ = _slq_case()
+
+    def jlml(theta):
+        fx = _jax_build(theta, jnp.asarray(x))
+        L = None
+        if precond == "fresh":
+            L = jiter.pivoted_cholesky(fx.f.kernel, jnp.asarray(x), _SLQ_RANK)
+        return jiter._logpdf_slq_core(_SLQ["lanczos_iters"], _SLQ["cg_tol"], 1000, None, True,
+                                      True, True, None, "data", fx, jnp.asarray(y),
+                                      jnp.asarray(probes), L)
+
+    jv = float(jlml(jnp.asarray(_THETA)))
+    kw = dict(_SLQ, probes=_t(probes), reorth=True)
+    if precond == "fresh":
+        kw["precond_rank"] = _SLQ_RANK
+    v = tgp.logpdf_slq(convert.build_exact_fx(_t(_THETA), _t(x)), _t(y), **kw)
+    assert abs(v.item() - jv) <= 1e-9 * abs(jv)
 
 
 def test_torch_logpdf_slq_gradient_needs_no_value_solves():

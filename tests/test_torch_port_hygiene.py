@@ -44,6 +44,14 @@ def test_torch_port_imports_no_jax():
         "t.BlockInvRoot, t.block_vecchia_factors, t.natgrad_update, t.natgrad_update_tril\n"
         "t.make_natgrad_adam_step, t.lbfgs_fit, t.blocked_tril_inv, t.convert.natgrad_elbo\n"
         "t.convert.poisson_svgp_loss, t.core.linalg.cholesky_solve, t.core.linalg.add_jitter\n"
+        "t.LaplaceApproximation, t.LaplacePosterior, t.LaplaceObjective, t.LaplaceResult\n"
+        "t.newton_inner_loop, t.newton_inner_loop_jvp, t.newton_multistart, t.laplace_lml\n"
+        "t.laplace_f_and_lml, t.laplace_f_cov, t.laplace_steps, t.laplace_steps_scan\n"
+        "t.build_laplace_objective, t.LaplaceCG, t.LaplaceCGPosterior, t.laplace_lml_cg\n"
+        "t.newton_inner_loop_cg, t.msqrt_matvec, t.sample_prior_msqrt, t.sample_posterior_msqrt\n"
+        "t.convert.laplace_neg_lml, t.convert.laplace_kernel, t.convert.LAPLACE_CG_THETA, t.convert.laplace_data\n"
+        "t.core.linalg.cholesky_or_nan, t.core.distributions.mvnormal_from_cov\n"
+        "t.config.cg_dense_threshold\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'approximategps_tpu' not in sys.modules\n"
     )
