@@ -5,9 +5,10 @@ read: JAX arrays, numpy arrays) in each form the repo uses and returns the
 same form on the port's side, so that ``build_svgp`` / ``posterior`` /
 ``build_exact_fx`` / ``build_vecchia_fx`` / ``build_vecchia_nugget_fx`` /
 ``build_vecchia_rq_fx`` / ``build_knn_hetero_fx`` / ``natgrad_elbo`` /
-``poisson_svgp_loss`` / ``laplace_neg_lml`` compute the same thing in both
-packages, and ``laplace_kernel`` with ``laplace_data`` give the Laplace rows'
-model and data (from numpy).  The tensors
+``poisson_svgp_loss`` / ``laplace_neg_lml`` / ``heteroscedastic_svgp`` /
+``heteroscedastic_loss`` compute the same thing in both packages, and
+``laplace_kernel`` with ``laplace_data`` give the Laplace rows' model and
+data (from numpy).  The tensors
 land on the card unless the caller names another device.  Nothing here
 imports JAX.
 """
@@ -29,6 +30,8 @@ from .core.kernels import (
 from .core.likelihoods import BernoulliLikelihood, PoissonLikelihood
 from .models.api import posterior
 from .models.laplace import laplace_lml
+from .models.multi_latent import HeteroscedasticGaussianLikelihood, MultiLatentSVGP, \
+    multi_latent_elbo
 from .models.svgp import SparseVariationalApproximation, SVGPPosterior, elbo
 from .utils.bijectors import softplus
 from .utils.training import SVGPParams
@@ -36,7 +39,8 @@ from .utils.training import SVGPParams
 __all__ = ["from_jax_params", "build_posterior_from_bench_params", "build_exact_fx",
            "build_vecchia_fx", "build_vecchia_nugget_fx", "build_vecchia_rq_fx",
            "build_knn_hetero_fx", "natgrad_elbo", "poisson_svgp_loss", "laplace_neg_lml",
-           "laplace_kernel", "laplace_data", "LAPLACE_CG_THETA"]
+           "laplace_kernel", "laplace_data", "LAPLACE_CG_THETA", "heteroscedastic_svgp",
+           "heteroscedastic_loss"]
 
 _BENCH_KEYS = ("k", "z", "m", "A")
 _THETA_LENS = (3, 4)  # raw θ of the exact GP and the Vecchia models (3), and of the RQ model
@@ -168,6 +172,31 @@ def poisson_svgp_loss(params: dict, xb: torch.Tensor, yb: torch.Tensor,
     sva = SparseVariationalApproximation(f(params["z"], jitter),
                                          MultivariateNormal(params["m"], torch.tril(params["A"])))
     return -elbo(sva, lf(xb), yb, num_data=num_data)
+
+
+def heteroscedastic_svgp(params: dict, jitter: float = 1e-6) -> MultiLatentSVGP:
+    """The heteroscedastic two-latent SVGP, y ~ N(f¹, exp(f²)), from raw
+    parameters ``{"mean": bench dict, "logvar": bench dict}``: each latent
+    the SE prior of :func:`build_posterior_from_bench_params` from its own
+    raw k, inducing points z (M, D), inducing jitter ``jitter`` and
+    q = N(m, tril(A)) NonCentered (``tests/test_multi_latent.py``'s model,
+    each latent with its own z)."""
+    svas = []
+    for tag in ("mean", "logvar"):
+        p = params[tag]
+        q = MultivariateNormal(p["m"], torch.tril(p["A"]))
+        svas.append(SparseVariationalApproximation(_bench_gp(p["k"])(p["z"], jitter), q))
+    return MultiLatentSVGP(tuple(svas), HeteroscedasticGaussianLikelihood())
+
+
+def heteroscedastic_loss(params: dict, xb: torch.Tensor, yb: torch.Tensor,
+                         num_data: int | None = None, n_gh: int = 10,
+                         jitter: float = 1e-6) -> torch.Tensor:
+    """−``multi_latent_elbo`` of :func:`heteroscedastic_svgp` on a
+    minibatch: Gauss–Hermite with ``n_gh`` points a latent (``n_gh``²
+    nodes), the data term scaled to ``num_data``."""
+    return -multi_latent_elbo(heteroscedastic_svgp(params, jitter), xb, yb, num_data=num_data,
+                              n_gh=n_gh)
 
 
 def laplace_kernel(theta: torch.Tensor):

@@ -2,7 +2,7 @@
 dense linear algebra."""
 
 from . import distributions, gp, kernels, likelihoods, linalg, means, quadrature
-from .distributions import MultivariateNormal, kl_divergence
+from .distributions import DiagNormal, MultivariateNormal, kl_divergence, mvnormal_from_cov
 from .gp import (
     GP,
     AbstractGP,
@@ -12,6 +12,7 @@ from .gp import (
     LatentGP,
     PosteriorGP,
     logpdf,
+    posterior,
     predict_in_blocks,
 )
 from .kernels import (
@@ -31,6 +32,7 @@ from .kernels import (
     RationalQuadraticKernel,
     RBFKernel,
     ScaledKernel,
+    ScaleTransform,
     SEKernel,
     SqExponentialKernel,
     StationaryKernel,
@@ -38,6 +40,7 @@ from .kernels import (
     WhiteKernel,
     as_points,
     pairwise_sq_dist,
+    unwrap_spectral,
     unwrap_stationary,
     unwrap_stationary_nugget,
     with_lengthscale,

@@ -15,7 +15,7 @@ from typing import Any
 import torch
 
 from . import linalg
-from .distributions import MultivariateNormal
+from .distributions import DiagNormal, MultivariateNormal
 from .kernels import Kernel, as_points
 from .likelihoods import Likelihood, as_likelihood
 from .means import ZeroMean
@@ -45,6 +45,9 @@ class AbstractGP:
 
     def var(self, x) -> torch.Tensor:
         return torch.diagonal(self.cov(x))
+
+    def mean_and_cov(self, x) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.mean(x), self.cov(x)
 
     def mean_and_var(self, x) -> tuple[torch.Tensor, torch.Tensor]:
         return self.mean(x), self.var(x)
@@ -111,11 +114,27 @@ class FiniteGP:
         noise = _noise_tensor(self.noise, v)
         return v + (torch.diagonal(noise) if noise.ndim == 2 else noise)
 
+    def mean_and_cov(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.mean(), self.cov()
+
+    def mean_and_var(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.mean(), self.var()
+
     def scale_tril(self) -> torch.Tensor:
         return linalg.safe_cholesky(self.cov())
 
     def to_mvn(self) -> MultivariateNormal:
         return MultivariateNormal(self.mean(), self.scale_tril())
+
+    def marginals(self) -> DiagNormal:
+        """Per-point N(μ_i, σ_i²), AbstractGPs' ``marginals``."""
+        return DiagNormal(*self.mean_and_var())
+
+    def sample(self, generator: torch.Generator, sample_shape: tuple[int, ...] = ()):
+        """A draw of N(mean, cov) with its normals from ``generator``."""
+        return self.to_mvn().sample(generator, sample_shape)
+
+    rand = sample  # AbstractGPs' name
 
     def logpdf(self, y: torch.Tensor) -> torch.Tensor:
         return self.to_mvn().log_prob(y)

@@ -49,6 +49,7 @@ __all__ = [
     "SumKernel",
     "ProductKernel",
     "with_lengthscale",
+    "ScaleTransform",
     "pairwise_sq_dist",
     "as_points",
     "KernelMapId",
@@ -56,6 +57,8 @@ __all__ = [
     "dk_from_k_for",
     "unwrap_stationary",
     "unwrap_stationary_nugget",
+    "SPECTRAL_DF",
+    "unwrap_spectral",
 ]
 
 
@@ -457,6 +460,16 @@ def with_lengthscale(kernel: Kernel, lengthscale) -> Kernel:
     return InputScaledKernel(kernel, 1.0 / _as_param(lengthscale))
 
 
+def ScaleTransform(scale):
+    """The reference's ``kernel ∘ ScaleTransform(s)``: returns a function that
+    wraps a kernel as ``InputScaledKernel(kernel, s)``."""
+
+    def apply(kernel: Kernel) -> Kernel:
+        return InputScaledKernel(kernel, _as_param(scale))
+
+    return apply
+
+
 def dk_from_k_for(kmap: KernelMap):
     """The g′(r²)-through-g(r²) shortcut of a map, or None: a pullback then
     turns the map's derivative into one multiply on a K it already has."""
@@ -549,3 +562,26 @@ def unwrap_stationary_nugget(kern: Kernel):
     kmap, scale, variance = base
     return (kmap, _mul(out_scale, scale), _mul(out_var, variance),
             None if white is None else _mul(out_var, white))
+
+
+# Each CUDA map's spectral density for random Fourier features: None for the
+# SE map (a standard normal ω), else the degrees of freedom ν of the Matérn's
+# multivariate Student-t (Matérn-ν/2).  The keys are exactly KernelMapId.
+SPECTRAL_DF = {KernelMapId.SE: None, KernelMapId.MATERN12: 1, KernelMapId.MATERN32: 3,
+               KernelMapId.MATERN52: 5}
+
+
+def unwrap_spectral(kern: Kernel):
+    """:func:`unwrap_stationary` read for random Fourier features:
+    ``(df, input_scale, variance)`` with ``df`` from :data:`SPECTRAL_DF` and
+    ``input_scale`` and ``variance`` 1.0 where no wrapper supplies them.
+    Raises ``NotImplementedError`` for a kernel that does not unwrap
+    (rational quadratic, periodic, sums, products), as the JAX sampler
+    does."""
+    parts = unwrap_stationary(kern)
+    if parts is None:
+        raise NotImplementedError(
+            f"RFF sampling implemented for SE/Matérn bases, got {type(kern).__name__}")
+    kmap, scale, variance = parts
+    return (SPECTRAL_DF[kmap.id], 1.0 if scale is None else scale,
+            1.0 if variance is None else variance)

@@ -1,17 +1,39 @@
 """Approximate-inference models: SVGP serving and training, VFE, the
 matrix-free exact GP and its Lanczos samplers, the Laplace approximation
-(dense and matrix-free), Vecchia serving and training, and block-Vecchia."""
+(dense and matrix-free), Vecchia serving and training, block-Vecchia,
+pathwise sampling, the multi-latent and online SVGPs, and leave-one-out
+cross-validation."""
 
-from . import (api, block_vecchia, iterative, laplace, laplace_cg, svgp, svgp_streaming, vecchia,
-               vfe)
+from . import (api, block_vecchia, crossval, iterative, laplace, laplace_cg, multi_latent,
+               sampling, svgp, svgp_online, svgp_streaming, vecchia, vfe)
 from .api import approx_lml, posterior
+from .crossval import loo_logpdf, loo_mean_and_var
+from .multi_latent import (
+    HeteroscedasticGaussianLikelihood,
+    MultiLatentSVGP,
+    SoftmaxLikelihood,
+    multi_latent_elbo,
+)
+from .sampling import rff_features, sample_posterior_functions_cg, sample_svgp_functions
+from .svgp_online import (
+    GaussianSiteState,
+    OnlineSVGPState,
+    online_elbo,
+    online_optimal_q,
+    online_state,
+    site_posterior_q,
+    site_state,
+    site_update,
+)
 from .block_vecchia import BlockInvRoot, BlockNearestNeighbors, block_vecchia_factors
 from .svgp import (
+    SVGP,
     Centered,
     NonCentered,
     SparseVariationalApproximation,
     SVGPPosterior,
     elbo,
+    inducing_points,
     prior_kl,
 )
 from .svgp_streaming import streaming_data_term, streaming_elbo

@@ -33,6 +33,7 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.distributions import standard_normals
 from ..core.gp import FiniteGP
 from ..core.kernels import as_points
 from ..ops.gram_matvec import fused_stationary_matvec
@@ -384,10 +385,6 @@ def _generator(generator, device) -> torch.Generator:
     return torch.Generator(device=device or "cpu").manual_seed(int(generator))
 
 
-def _normals(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device).to(device)
-
-
 def sample_prior_msqrt(generator, kernel, x, noise, num_samples: int, lanczos_iters: int = 30,
                        block_size: int | None = None) -> torch.Tensor:
     """``num_samples`` draws (num_samples, N) from N(0, K(x, x) + Σ) by the
@@ -397,7 +394,7 @@ def sample_prior_msqrt(generator, kernel, x, noise, num_samples: int, lanczos_it
     one on x's device); the samples' recurrences run as one (N, S) block,
     so each Lanczos step is one product (row 5 at R = S on the card)."""
     X = as_points(x)
-    Z = _normals(_generator(generator, X.device), (num_samples, X.shape[0]), X.dtype, X.device)
+    Z = standard_normals(_generator(generator, X.device), (num_samples, X.shape[0]), X)
     return msqrt_matvec(kernel_matvec(kernel, X, noise, block_size), Z.T, lanczos_iters).T
 
 
@@ -428,7 +425,7 @@ def sample_posterior_msqrt(generator, fx: FiniteGP, y: torch.Tensor, xs, num_sam
     joint = sample_prior_msqrt(gen, prior.kernel, torch.cat([X, Xs]), eps_j, num_samples,
                                lanczos_iters, block_size)
     fX, fS = joint[:, :N], joint[:, N:]
-    eps = torch.sqrt(noise) * _normals(gen, fX.shape, X.dtype, X.device)
+    eps = torch.sqrt(noise) * standard_normals(gen, fX.shape, X)
     resid = y[None, :] - fX - eps  # (S, N)
     mv = kernel_matvec(prior.kernel, X, noise, block_size)
     M_inv = None

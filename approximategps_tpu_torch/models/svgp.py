@@ -42,6 +42,8 @@ __all__ = [
     "NonCentered",
     "SparseVariationalApproximation",
     "SVGPPosterior",
+    "SVGP",
+    "inducing_points",
     "elbo",
     "prior_kl",
 ]
@@ -74,6 +76,16 @@ class SparseVariationalApproximation:
     fz: FiniteGP
     q: MultivariateNormal
     parametrization: _Parametrization = dataclasses.field(default_factory=NonCentered)
+
+
+def SVGP(fz: FiniteGP, q: MultivariateNormal) -> SparseVariationalApproximation:
+    """Deprecated alias (the reference's ``deprecations.jl``): a Centered
+    SVGP."""
+    import warnings
+
+    warnings.warn("SVGP(fz, q) is deprecated; use SparseVariationalApproximation(fz, q, "
+                  "Centered())", DeprecationWarning, stacklevel=2)
+    return SparseVariationalApproximation(fz, q, Centered())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -175,6 +187,11 @@ class SVGPPosterior(AbstractGP):
             mus.append(mu)
             variances.append(var)
         return torch.cat(mus), torch.cat(variances)
+
+
+def inducing_points(f_post: SVGPPosterior) -> torch.Tensor:
+    """The reference's ``inducing_points`` accessor."""
+    return f_post.inducing_points()
 
 
 def _s_corr(J, B):

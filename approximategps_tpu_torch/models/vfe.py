@@ -60,10 +60,17 @@ def optimal_variational_posterior(fu: FiniteGP, fx: FiniteGP,
     # σ² = 0.05, where this form stays within 7e-6 of the f64 truth).
     Lk = fu.scale_tril()  # with fz's jitter
     V = linalg.solve_lower_triangular(Lk, Kuf)
-    C = linalg.symmetrize(torch.eye(Lk.shape[0], dtype=Lk.dtype, device=Lk.device)
-                          + (V @ V.T) / s2)
+    C = torch.eye(Lk.shape[0], dtype=Lk.dtype, device=Lk.device) + (V @ V.T) / s2
+    return whitened_q(Lk, C, V @ y / s2)
+
+
+def whitened_q(Lk: torch.Tensor, C: torch.Tensor, rhs: torch.Tensor) -> MultivariateNormal:
+    """q with S = Lk C⁻¹ Lkᵀ and m = Lk C⁻¹ rhs (C symmetrized by the
+    factorization); S is not triangular, so it is factored once at M × M.
+    The optimal q's of the batch and the online bounds
+    (``svgp_online.py``) in the whitened basis."""
     C_L = linalg.safe_cholesky(C)
-    m = Lk @ linalg.cholesky_solve(C_L, V @ y) / s2
+    m = Lk @ linalg.cholesky_solve(C_L, rhs)
     W = linalg.solve_lower_triangular(C_L, Lk.T).T  # S = W Wᵀ
     return MultivariateNormal(m, linalg.safe_cholesky(W @ W.T))
 

@@ -327,9 +327,10 @@ def _has_tangent(*ts) -> bool:
                for t in ts)
 
 
-def fused_stationary_matvec(kernel, X: torch.Tensor):
-    """``fused(v) -> K(X, X)·v | None``, or None where the kernel, the
-    inputs or the config do not qualify.
+def fused_stationary_matvec(kernel, X: torch.Tensor, Xq: torch.Tensor | None = None):
+    """``fused(v) -> K(X, X)·v | None`` (``K(Xq, X)·v`` with ``Xq``, the
+    cross product through :func:`gram_matvec`), or None where the kernel,
+    the inputs or the config do not qualify.
 
     Qualifies when ``config.matvec_mode`` is "fused" (any device: the CPU
     runs the Function with its plain pass, as the JAX package's tests run
@@ -346,15 +347,18 @@ def fused_stationary_matvec(kernel, X: torch.Tensor):
         raise ValueError(f"unknown matvec_mode {mode!r}")
     if X.ndim != 2 or not 1 <= X.shape[1] <= _MAX_D:
         return None
+    if Xq is not None and (Xq.ndim != 2 or Xq.shape[1] != X.shape[1]):
+        return None
     if mode == "auto" and not kernel_device(X):
         return None
     uw = unwrap_stationary(kernel)
     if uw is None:
         return None
     kmap, scale, variance = uw
-    if _has_tangent(X, scale, variance):
+    if _has_tangent(X, Xq, scale, variance):
         return None
     Xs = X if scale is None else X * _param(scale, X)
+    Xqs = None if Xq is None else (Xq if scale is None else Xq * _param(scale, Xq))
     max_rhs = int(config.matvec_fused_max_rhs)
 
     def fused(v):
@@ -362,7 +366,7 @@ def fused_stationary_matvec(kernel, X: torch.Tensor):
             return None
         if v.ndim == 2 and v.shape[1] > max_rhs:
             return None
-        out = gram_matvec_self(Xs, v, kmap)
+        out = gram_matvec_self(Xs, v, kmap) if Xqs is None else gram_matvec(Xqs, Xs, v, kmap)
         return out if variance is None else _param(variance, out) * out
 
     return fused

@@ -8,7 +8,10 @@ import torch
 __all__ = [
     "softplus",
     "invsoftplus",
+    "positive",
     "fill_triangular",
+    "fill_triangular_inverse",
+    "tril_from_flat",
     "flat_from_tril",
     "cholesky_parameter",
 ]
@@ -27,6 +30,9 @@ def invsoftplus(y) -> torch.Tensor:
     return y + torch.log(-torch.expm1(-y))
 
 
+positive = softplus
+
+
 def fill_triangular(flat: torch.Tensor, n: int) -> torch.Tensor:
     """Pack a length n(n+1)/2 vector into a lower-triangular (n, n) matrix,
     row-major over the lower triangle."""
@@ -36,10 +42,16 @@ def fill_triangular(flat: torch.Tensor, n: int) -> torch.Tensor:
     return L
 
 
-def flat_from_tril(L: torch.Tensor) -> torch.Tensor:
+def fill_triangular_inverse(L: torch.Tensor) -> torch.Tensor:
+    """The lower triangle of L as a length n(n+1)/2 vector, row-major: the
+    inverse of :func:`fill_triangular`."""
     n = L.shape[-1]
     rows, cols = torch.tril_indices(n, n, device=L.device)
     return L[rows, cols]
+
+
+tril_from_flat = fill_triangular
+flat_from_tril = fill_triangular_inverse
 
 
 def cholesky_parameter(flat: torch.Tensor, n: int) -> torch.Tensor:

@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port's SVGP serving and training paths, its
 matrix-free exact GP, its Vecchia serving and training paths, the Vecchia
 tier on prebuilt Grams, the fused Gram, the natural-gradient and Poisson
-SVGP steps, block-Vecchia and the Laplace approximation (dense and
-matrix-free) on one CUDA GPU.
+SVGP steps, block-Vecchia, the Laplace approximation (dense and
+matrix-free), pathwise sampling, the multi-latent and online SVGPs and
+leave-one-out cross-validation on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -211,8 +212,36 @@ Phases (a failing phase raises, and the script exits non-zero):
     route with the same normals; (e) row 5's self-Gram pullback at R = 1,
     N = 10^5, against its plain version, timed beside its bound.
 
+16. Pathwise sampling: (a) ``sample_posterior_functions_cg`` at phase 7's
+    data model and size (N = 10^5 on [0, 10]^2, 1.5·SE(ℓ = 1.2), noise
+    0.1), 16 samples, 2048 features, rank 512, CG tol 1e-6 (converged in
+    fewer than 1000 iterations), at 4096 query points: every product on
+    row 5's wide pass at R = 16 (the CG iterations and the update
+    K(x, X)·V), counted by pass, both routes timed; at
+    N = 2·10^4 the same draws on row 5, on the plain route and in f64, and
+    the 16-sample mean against ``posterior_cg``'s in posterior standard
+    deviations; (b) ``sample_svgp_functions`` on phase 4's posterior, 16
+    samples, 1024 features, over 10^6 points in blocks of 16384 under
+    ``gram_mode="fused"`` (row 1 once, row 11 once a block) and the default
+    route, both timed; 256 samples at 2048 points against ``mean_and_var``
+    within 6 standard errors.
+17. The heteroscedastic two-latent SVGP step (``convert.heteroscedastic_loss``):
+    phase 5's N, D, B and Adam rate, M = 2048 a latent, Gauss–Hermite with
+    10 points a latent: row 1 twice a step, step 1's value and gradients
+    against the plain path and the f64 plain path, 10 steps with no NaN,
+    ms a step of both paths.
+18. Online SVGP: (a) ``site_update`` over phase 6's 2^20 points in 64
+    blocks of 16384 (M = 2048), then ``site_posterior_q``, timed (no
+    kernel); (b) at 2^16 points the stream against the batch optimum
+    (``optimal_variational_posterior``) in f32, and both against f64; (c)
+    ``online_elbo``'s value and gradient after that round (B = 8192): row 1
+    once, against the plain path, timed.
+19. Leave-one-out: ``loo_logpdf``'s value and θ-gradient at N = 5000
+    (``laplace_n5k``'s points, softplus-SE, noise 0.1), f32 against f64 on
+    the card, timed; no kernel.
+
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-15 (each run with the counts
+source, launches in the path runs of phases 4-19 (each run with the counts
 set to 0 just before it), error, times and bound (the least time the card
 could take for the work: operations over the peak rate of their unit or
 bytes over the memory rate, whichever is larger); the last line is
@@ -235,7 +264,7 @@ import torch
 import approximategps_tpu_torch as tgp
 from approximategps_tpu_torch import convert
 from approximategps_tpu_torch.core import kernels as tk
-from approximategps_tpu_torch.models import iterative, laplace_cg, vecchia
+from approximategps_tpu_torch.models import iterative, laplace_cg, sampling, vecchia
 from approximategps_tpu_torch.ops import _build, batched_chol, gram, gram_matvec, knn, \
     panel_chol, svgp_epilogue
 from approximategps_tpu_torch.utils.bijectors import softplus
@@ -468,6 +497,53 @@ LAP_SAMPLES, LAP_SAMPLE_NOISE, LAP_SUBSET = 16, 0.01, 256
 LAP5K_RTOL32, LAP_MODE_RTOL32, LAP_STEP_RTOL32, LAP_LML_RTOL32 = 1e-4, 1e-3, 3e-3, 1e-6
 LAP_LOGDET_RTOL32, LAP_GRAD_RTOL32, LAP_GRAD_BIG_RTOL32 = 5e-5, 2e-3, 1e-4
 LAP_SAMPLE_RTOL32, LAP_POST_RTOL32 = 2e-4, 2e-4
+# Phase 16, pathwise sampling.  (a) sample_posterior_functions_cg at laplace_cg_lml's exact-GP
+# size (phase 7's data model: N = 10^5 on [0, 10]^2, y = sin(x_0) + 0.1·N(0, 1), noise 0.1),
+# 1.5·SE(ℓ = 1.2) (convert.LAPLACE_CG_THETA), 16 samples, 2048 features, a rank-512
+# preconditioner, CG tol 1e-6 in at most 1000 iterations, blocks of 8192 on the plain route,
+# 4096 query points.  At noise 0.01 (phase 15's prior sampler's) the f32 block CG of both routes
+# ran its 1000 iterations without converging, and their samples lay 1.9 times their scale apart
+# (an NVIDIA H100 80GB HBM3, 700 W): ε's white noise reaches K's eigenvalues near σ², which the
+# rank-512 factor leaves, so the sampler holds phase 7's noise and checks convergence; the same
+# draws at N = 2·10^4 on row 5, on the plain route and in f64, the 16-sample mean against
+# posterior_cg's (f64) at 256 of the query points.  (b) sample_svgp_functions on phase 4's
+# posterior, 16 samples, 1024 features, over 10^6 points in blocks of 16384 on the default and
+# the fused Gram route; 256 samples at 2048 points against mean_and_var
+N_PS, N_PS_MID, PS_SAMPLES, PS_FEATURES, PS_RANK, PS_TOL = 100_000, 20_000, 16, 2048, 512, 1e-6
+PS_NOISE, PS_MAXITER, PS_N_TEST, PS_N_MOMENT, SVGP_PS_FEATURES = 0.1, 1000, 4096, 256, 1024
+SVGP_PS_MOMENT_N, SVGP_PS_MOMENT_S = 2048, 256
+# f32 limits of phase 16 (a), relative to the samples' largest entry, each a few times what an
+# NVIDIA H100 80GB HBM3 (700 W) read: row 5 against the plain route (1.3e-3 at 10^5, 6.9e-4 at
+# 2·10^4: CG stops at 1e-6 at another iterate on each), each against the f64 run at 2·10^4
+# (row 5 1.9e-4, plain 6.3e-4); statistical: the RMS over 256 points of the 16-sample mean's
+# distance from the posterior mean in posterior standard deviations (1/√16 = 0.25 expected;
+# read 0.238)
+PS_ROUTE_RTOL32, PS_F64_RTOL32, PS_MEAN_Z_RMS = 5e-3, 3e-3, 1.0
+# (b): the fused Gram route against the default route on one block, relative to the samples'
+# largest entry (read 2.7e-6); statistical: the moments' largest distance in standard errors
+# over 2048 correlated points (read 3.84 for the mean, 4.34 for the variance, whose statistic
+# is skewed and carries the 1024 features' bias of about a quarter of a standard error)
+SVGP_PS_ROUTE_RTOL32, SVGP_PS_Z = 1e-5, 6.0
+# Phase 17, the heteroscedastic two-latent SVGP step (convert.heteroscedastic_loss): phase 5's
+# N, D, B and Adam rate, M = 2048 a latent, Gauss–Hermite with 10 points a latent (100 nodes),
+# y = sin(x_0) + 0.1·exp(0.3·x_1)·N(0, 1), both latents' q non-trivial, 10 steps
+ML_STEPS, ML_GH = 10, 10
+# f32 limits, relative to each gradient's largest entry: kernels against the plain path
+# (GRAD_RTOL) and against the f64 plain path (read at most 4.2e-5 on an NVIDIA H100 80GB HBM3,
+# 700 W, in A's and z's gradients)
+ML_F64_RTOL32 = 2e-4
+# Phase 18, online SVGP: (a) site_update over phase 6's 2^20 points in 64 blocks of 16384
+# (M = 2048, phase 4's inducing points and kernel, noise 0.1), then site_posterior_q; (b) at
+# 2^16 points the stream against the batch optimum (f32), each against the f64 batch optimum;
+# (c) online_elbo's value and gradient (B = 8192, num_data 2^20) of a NonCentered approximation
+# at new inducing points after the first 2^16 points' round
+# (b)'s f32 limit, relative to the largest entry of the batch optimum's mean and covariance (read
+# 5.4e-5 on an NVIDIA H100 80GB HBM3, 700 W; each lay 2e-5–7e-5 from the f64 optimum)
+N_ONLINE_CHECK, ONLINE_Q_RTOL32 = 1 << 16, 3e-4
+# Phase 19, LOO: loo_logpdf at laplace_n5k's N = 5000 sorted on [0, 10], softplus-SE from raw
+# θ = (1, 1), noise 0.1, y = sin(x) + 0.1·N(0, 1) (numpy); f32 against f64 on the card (read:
+# value 2.2e-6, θ-gradient 9.4e-5 of its largest entry, an NVIDIA H100 80GB HBM3, 700 W)
+N_LOO, LOO_NOISE, LOO_VALUE_RTOL32, LOO_GRAD_RTOL32 = 5000, 0.1, 1e-5, 5e-4
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
 # paper) × 132 SMs × 1.98 GHz boost; TF32 on the tensor cores (dense)
@@ -2943,6 +3019,357 @@ def phase_laplace(dev) -> tuple[dict, dict]:
     return launches, r1
 
 
+# -- phase 16: pathwise sampling -------------------------------------------------------------
+
+
+def scale_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a − b| over the samples' scale max|b|."""
+    return max_abs(a, b) / b.double().abs().max().item()
+
+
+def ps_data(dev, N: int):
+    """Phase 16 (a)'s data (phase 7's model), its kernel and query points."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    x = 10.0 * torch.rand((N, D_GP), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + 0.1 * torch.randn((N,), generator=gen, device=dev)
+    xq = 10.0 * torch.rand((PS_N_TEST, D_GP), generator=gen, device=dev)
+    theta = torch.tensor(convert.LAPLACE_CG_THETA, dtype=torch.float32, device=dev)
+    return gen, x, y, xq, theta
+
+
+def ps_fx(theta, x):
+    return tgp.GP(convert.laplace_kernel(theta))(x, PS_NOISE)
+
+
+def ps_sampler(fx, y, draws):
+    return sampling.cg_pathwise(fx, y, *draws, tol=PS_TOL, maxiter=PS_MAXITER,
+                                block_size=LAP_BLOCK, precond_rank=PS_RANK)
+
+
+def phase_sampling_cg(dev) -> dict:
+    """Phase 16 (a): Matheron CG samples of the exact GP.  Returns the path
+    run's launches."""
+    gen, x, y, xq, theta = ps_data(dev, N_PS)
+    fx = ps_fx(theta, x)
+    draws = sampling.draw_cg(gen, fx, PS_SAMPLES, PS_FEATURES)
+    torch.cuda.synchronize()
+    reset_counts()
+    tally = {}
+    with row5_by_pass(tally):
+        fs, build_ms = timed(lambda: ps_sampler(fx, y, draws))
+        s, eval_ms = timed(lambda: fs(xq))
+    launches, st = read_counts(), dict(iterative.stats)
+    print(f"pathwise CG launches: {launches}; row 5 by pass: {by_pass(tally)}; {cg_counts(st)}")
+    check(st["cg_iterations"] < PS_MAXITER,
+          f"the CG sampler's block solve converged to {PS_TOL:g} in {st['cg_iterations']} "
+          f"iterations (< {PS_MAXITER})")
+    check(launches == only(gram_matvec=st["cg_iterations"] + 1)
+          and tally == {("wide", PS_SAMPLES): st["cg_iterations"] + 1},
+          f"every product of the CG sampler on row 5's wide pass at R = {PS_SAMPLES}: "
+          f"{st['cg_iterations']} CG iterations + the update = {launches['gram_matvec']}")
+    check(s.shape == (PS_SAMPLES, PS_N_TEST) and bool(torch.isfinite(s).all()),
+          f"{PS_SAMPLES} samples finite at {PS_N_TEST} points (N={N_PS}), range "
+          f"[{s.min().item():.4g}, {s.max().item():.4g}]")
+    (_, b2), (_, e2) = timed(lambda: ps_sampler(fx, y, draws)), timed(lambda: fs(xq))
+    print(f"time pathwise CG (kernels): build {build_ms:.3f} ms (rank-{PS_RANK} factor, "
+          f"{st['cg_iterations']} CG iterations), evaluation at {PS_N_TEST} points "
+          f"{eval_ms:.3f} ms; again {b2:.3f} + {e2:.3f} ms")
+    with tgp.config_context(use_kernels=False):
+        iterative.reset_stats()
+        fsp, pbuild_ms = timed(lambda: ps_sampler(fx, y, draws))
+        sp, peval_ms = timed(lambda: fsp(xq))
+    check(iterative.stats["cg_iterations"] < PS_MAXITER, "the plain route's CG converged too")
+    e = scale_rel(s, sp)
+    print(f"time pathwise CG (plain, once): build {pbuild_ms:.3f} ms "
+          f"({iterative.stats['cg_iterations']} CG iterations, Gram blocks of {LAP_BLOCK}), "
+          f"evaluation {peval_ms:.3f} ms; samples kernels vs plain at N={N_PS}: {e:.3e} of "
+          "their scale")
+    check(e <= PS_ROUTE_RTOL32, f"pathwise CG N={N_PS}, kernels vs plain route: {e:.3e} <= "
+          f"{PS_ROUTE_RTOL32:g} of the samples' scale")
+
+    # at 2·10^4: the same draws on row 5, on the plain route and in f64
+    xm, ym = x[:N_PS_MID], y[:N_PS_MID]
+    fxm = ps_fx(theta, xm)
+    dm = sampling.draw_cg(gen, fxm, PS_SAMPLES, PS_FEATURES)
+    sk = ps_sampler(fxm, ym, dm)(xq)
+    sp = _plain(lambda: ps_sampler(fxm, ym, dm)(xq))
+    d64 = (sampling.RFFDraws(*(t.double() for t in dm[0])), dm[1].double(), dm[2].double())
+    s64 = ps_sampler(ps_fx(theta.double(), xm.double()), ym.double(), d64)(xq.double())
+    ekp, ek64, ep64 = scale_rel(sk, sp), scale_rel(sk, s64), scale_rel(sp, s64)
+    check(ekp <= PS_ROUTE_RTOL32 and max(ek64, ep64) <= PS_F64_RTOL32,
+          f"pathwise CG N={N_PS_MID}, the same draws, of the samples' scale: row 5 vs plain "
+          f"{ekp:.3e} <= {PS_ROUTE_RTOL32:g}; vs f64: row 5 {ek64:.3e}, plain {ep64:.3e} <= "
+          f"{PS_F64_RTOL32:g}")
+    with torch.no_grad():
+        xs = xq[:PS_N_MOMENT].double()
+        mu, var = tgp.posterior_cg(ps_fx(theta.double(), xm.double()), ym.double(), tol=1e-8,
+                                   block_size=LAP_BLOCK, precond_rank=PS_RANK).mean_and_var(xs)
+    z = (sk[:, :PS_N_MOMENT].double().mean(0) - mu) / var.clamp(min=1e-30).sqrt()
+    rms, zmax = z.pow(2).mean().sqrt().item(), z.abs().max().item()
+    check(rms <= PS_MEAN_Z_RMS,
+          f"pathwise CG N={N_PS_MID}: the {PS_SAMPLES}-sample mean against posterior_cg's (f64) "
+          f"at {PS_N_MOMENT} points: RMS {rms:.3f} posterior s.d. (max {zmax:.3f}; "
+          f"1/sqrt({PS_SAMPLES}) = {1 / math.sqrt(PS_SAMPLES):.3f} expected) <= {PS_MEAN_Z_RMS:g}")
+    return launches
+
+
+def phase_sampling_svgp(dev) -> dict:
+    """Phase 16 (b): SVGP pathwise samples over 10^6 points.  Returns the
+    path run's launches (the posterior build and the sweep under
+    ``gram_mode="fused"``)."""
+    tparams = convert.from_jax_params(slice_params(), device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    xs = torch.randn((N_TEST, D), generator=gen, device=dev)
+    n_blocks = -(-N_TEST // BLOCK)
+
+    def sweep(fs):
+        with torch.no_grad():
+            return [fs(xs[i:i + BLOCK]) for i in range(0, N_TEST, BLOCK)]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad(), tgp.config_context(gram_mode="fused"):
+        post = build_posterior(tparams)
+        fs = tgp.sample_svgp_functions(gen, post, PS_SAMPLES, SVGP_PS_FEATURES)
+        out = sweep(fs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"pathwise SVGP launches (fused Gram): {launches}")
+    check(launches == only(gram_chol_inv=1, stationary_gram=n_blocks),
+          f"row 1 once for the posterior build, row 11 once a block ({n_blocks})")
+    check(all(bool(torch.isfinite(o).all()) and o.shape[0] == PS_SAMPLES for o in out),
+          f"{PS_SAMPLES} samples finite at {N_TEST} points")
+    with torch.no_grad():
+        ref = fs(xs[:BLOCK])
+        with tgp.config_context(gram_mode="fused"):
+            got = fs(xs[:BLOCK])
+    e = scale_rel(got, ref)
+    check(e <= SVGP_PS_ROUTE_RTOL32, f"pathwise SVGP, one block, the fused Gram vs the default "
+          f"route: {e:.3e} <= {SVGP_PS_ROUTE_RTOL32:g} of the samples' scale")
+    for mode in ("auto", "fused"):
+        with tgp.config_context(gram_mode=mode):
+            ms = cuda_ms(lambda: sweep(fs), 3)
+        print(f"time pathwise SVGP sweep (gram_mode={mode}): {ms:.3f} ms ({PS_SAMPLES} samples, "
+              f"{SVGP_PS_FEATURES} features, {N_TEST} points in blocks of {BLOCK}, M={M})")
+    with tgp.config_context(use_kernels=False):
+        pp = build_posterior(tparams)
+        fsp = tgp.sample_svgp_functions(torch.Generator(device=dev).manual_seed(SEED + 41), pp,
+                                        PS_SAMPLES, SVGP_PS_FEATURES)
+        ms = cuda_ms(lambda: sweep(fsp), 3)
+    print(f"time pathwise SVGP sweep (plain path): {ms:.3f} ms")
+
+    # moments: 256 samples at 2048 points against mean_and_var
+    with torch.no_grad():
+        xm = xs[:SVGP_PS_MOMENT_N]
+        s = tgp.sample_svgp_functions(gen, post, SVGP_PS_MOMENT_S, SVGP_PS_FEATURES)(xm).double()
+        mu, var = (t.double() for t in post.mean_and_var(xm))
+    n = SVGP_PS_MOMENT_S
+    zm = ((s.mean(0) - mu) / (var / n).sqrt()).abs().max().item()
+    zv = ((s.var(0) - var) / (var * math.sqrt(2.0 / (n - 1)))).abs().max().item()
+    check(max(zm, zv) <= SVGP_PS_Z,
+          f"pathwise SVGP, {n} samples at {SVGP_PS_MOMENT_N} points against mean_and_var: "
+          f"largest distance of the mean {zm:.3f} and of the variance {zv:.3f} standard errors "
+          f"<= {SVGP_PS_Z:g}")
+    return launches
+
+
+# -- phase 17: the multi-latent step ----------------------------------------------------------
+
+
+def ml_params(dev, dtype) -> dict:
+    """Both latents' raw parameters as one flat dict of leaves ("mean.k",
+    ...): k = (0.5, 0.5), z ~ N(0, 1), phase 4's kind of non-trivial q."""
+    rng = np.random.default_rng(SEED + 50)
+    flat = {}
+    for tag, m0 in (("mean", 0.0), ("logvar", -2.0)):
+        p = {"k": np.array(RAW_K), "z": rng.standard_normal((M, D)),
+             "m": m0 / 10 + 0.3 * rng.standard_normal(M),
+             "A": 0.6 * np.eye(M) + 0.01 * np.tril(rng.standard_normal((M, M)))}
+        for k, v in convert.from_jax_params(p, device=dev, dtype=dtype).items():
+            flat[f"{tag}.{k}"] = v.requires_grad_()
+    return flat
+
+
+def ml_loss(p: dict, xb, yb):
+    nested = {"mean": {}, "logvar": {}}
+    for key, v in p.items():
+        tag, k = key.split(".")
+        nested[tag][k] = v
+    return convert.heteroscedastic_loss(nested, xb, yb, num_data=N_DATA, n_gh=ML_GH,
+                                        jitter=JITTER)
+
+
+def phase_multi_latent(dev) -> dict:
+    """Phase 17: the heteroscedastic two-latent SVGP step.  Returns the path
+    run's launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    x = torch.randn((N_DATA, D), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + 0.1 * torch.exp(0.3 * x[:, 1]) * torch.randn(
+        (N_DATA,), generator=gen, device=dev)
+
+    def batches(n):
+        for _ in range(n):
+            idx = torch.randint(0, N_DATA, (BATCH,), generator=gen, device=dev)
+            yield x[idx], y[idx]
+
+    xb, yb = next(batches(1))
+    reset_counts()
+    v, g = value_and_grad(ml_loss, ml_params(dev, torch.float32), xb, yb)
+    torch.cuda.synchronize()
+    one = read_counts()
+    check(one == only(gram_chol_inv=2), f"one value and gradient: row 1 once a latent ({one})")
+    with tgp.config_context(use_kernels=False):
+        vp, gp = value_and_grad(ml_loss, ml_params(dev, torch.float32), xb, yb)
+        v64, g64 = value_and_grad(ml_loss, ml_params(dev, torch.float64), xb.double(),
+                                  yb.double())
+    check_grads("multi-latent step 1, kernels vs plain path f32", v, g, vp, gp, GRAD_RTOL)
+    check_grads("multi-latent step 1, kernels vs f64 plain path", v, g, v64, g64, ML_F64_RTOL32)
+    print("multi-latent step 1, plain path f32 vs f64: "
+          + ", ".join(f"d{k} {rel_err(gp[k], g64[k]):.3e}" for k in gp))
+
+    p = {k: t.detach() for k, t in ml_params(dev, torch.float32).items()}
+    reset_counts()
+    p, losses = tgp.adam_fit(ml_loss, p, batches(ML_STEPS), learning_rate=LR)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"multi-latent launches over {ML_STEPS} steps: {launches}")
+    check(launches == only(gram_chol_inv=2 * ML_STEPS),
+          f"row 1 twice a step ({ML_STEPS} steps), nothing else")
+    losses = torch.stack(losses)
+    check(bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all())
+                                                     for t in p.values()),
+          f"{ML_STEPS} Adam steps: no NaN (loss {losses[0].item():.6g} -> "
+          f"{losses[-1].item():.6g})")
+    for label, use in (("kernels", True), ("plain", False)):
+        with tgp.config_context(use_kernels=use):
+            q = {k: t.detach() for k, t in ml_params(dev, torch.float32).items()}
+            ms = cuda_ms(lambda: tgp.adam_fit(ml_loss, q, batches(10), LR), 3) / 10
+        print(f"time multi-latent step ({label}): {ms:.3f} ms a step (Adam, B={BATCH}, M={M} a "
+              f"latent, {ML_GH ** 2} Gauss-Hermite nodes)")
+    return launches
+
+
+# -- phase 18: online SVGP --------------------------------------------------------------------
+
+
+def online_prior(dev, dtype):
+    """Phase 4's kernel and inducing points: (f, fz)."""
+    tp = convert.from_jax_params(slice_params(), device=dev, dtype=dtype)
+    _, f = bench_sva(tp)
+    return f, f(tp["z"], JITTER)
+
+
+def site_stream(f, fz, x, y):
+    st = tgp.site_state(fz)
+    for i in range(0, x.shape[0], BLOCK):
+        st = tgp.site_update(st, f(x[i:i + BLOCK], NOISE), y[i:i + BLOCK])
+    return tgp.site_posterior_q(st)
+
+
+def phase_online(dev) -> dict:
+    """Phase 18: the fixed-site stream, its agreement with the batch
+    optimum, and one online_elbo value and gradient.  Returns the launches of
+    the stream and the bound's run."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn((N_STREAM, D), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + math.sqrt(NOISE) * torch.randn((N_STREAM,), generator=gen,
+                                                            device=dev)
+    f, fz = online_prior(dev, torch.float32)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        q, stream_ms = timed(lambda: site_stream(f, fz, x, y))
+    stream = read_counts()
+    check(stream == only() and bool(torch.isfinite(q.mean).all()
+                                    and torch.isfinite(q.scale_tril).all()),
+          f"site stream over {N_STREAM} points in {N_STREAM // BLOCK} blocks: q finite, "
+          "no kernel")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: site_stream(f, fz, x, y), 2)
+    print(f"time online site stream: {stream_ms:.3f} ms (first), {ms:.3f} ms (median of 2; "
+          f"{N_STREAM} points, {N_STREAM // BLOCK} blocks of {BLOCK}, M={M}, then "
+          "site_posterior_q)")
+
+    # the stream against the batch optimum at 2^16 points
+    n = N_ONLINE_CHECK
+    with torch.no_grad():
+        qs = site_stream(f, fz, x[:n], y[:n])
+        qb = tgp.optimal_variational_posterior(fz, f(x[:n], NOISE), y[:n])
+        f64, fz64 = online_prior(dev, torch.float64)
+        q64 = tgp.optimal_variational_posterior(fz64, f64(x[:n].double(), NOISE), y[:n].double())
+    em, ec = rel_err(qs.mean, qb.mean), rel_err(qs.cov(), qb.cov())
+    print(f"online stream vs batch optimum (f32) at {n} points: mean {em:.3e}, cov {ec:.3e}; "
+          f"against the f64 batch optimum: stream mean {rel_err(qs.mean, q64.mean):.3e}, cov "
+          f"{rel_err(qs.cov(), q64.cov()):.3e}; batch mean {rel_err(qb.mean, q64.mean):.3e}, cov "
+          f"{rel_err(qb.cov(), q64.cov()):.3e}")
+    check(max(em, ec) <= ONLINE_Q_RTOL32,
+          f"online stream vs batch optimum f32: {max(em, ec):.3e} <= {ONLINE_Q_RTOL32:g}")
+
+    # online_elbo after the first round: a NonCentered approximation at new points
+    state = tgp.OnlineSVGPState(fz, qs)
+    rng = np.random.default_rng(SEED + 60)
+    params = slice_params()
+    params["z"] = params["z"] + 0.1 * rng.standard_normal((M, D))
+    xb, yb = x[n:n + BATCH], y[n:n + BATCH]
+
+    def loss_fn(p):
+        sva, ff = bench_sva(p)
+        return -tgp.online_elbo(sva, state, ff(xb, NOISE), yb, num_data=N_STREAM)
+
+    reset_counts()
+    v, g = value_and_grad(loss_fn, leaf_params(params, dev, torch.float32))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches == only(gram_chol_inv=1), f"online_elbo value and gradient: row 1 once "
+          f"({launches})")
+    check(bool(torch.isfinite(v)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
+          "online_elbo value and gradients finite")
+    with tgp.config_context(use_kernels=False):
+        vp, gp = value_and_grad(loss_fn, leaf_params(params, dev, torch.float32))
+    check_grads("online_elbo, kernels vs plain path f32", v, g, vp, gp, GRAD_RTOL)
+    for label, use in (("kernels", True), ("plain", False)):
+        with tgp.config_context(use_kernels=use):
+            q_ = leaf_params(params, dev, torch.float32)
+            ms = cuda_ms(lambda: value_and_grad(loss_fn, q_), 5)
+        print(f"time online_elbo value and gradient ({label}): {ms:.3f} ms (B={BATCH}, M={M}, "
+              f"old sites M={M})")
+    return {k: stream[k] + launches[k] for k in launches}
+
+
+# -- phase 19: leave-one-out ------------------------------------------------------------------
+
+
+def phase_loo(dev) -> dict:
+    """Phase 19: loo_logpdf's value and θ-gradient, f32 against f64.  No
+    kernel; returns the (zero) launches of the run."""
+    rng = np.random.default_rng(SEED + 70)
+    xn = np.sort(10.0 * rng.uniform(size=N_LOO))
+    yn = np.sin(xn) + 0.1 * rng.standard_normal(N_LOO)
+
+    def run(dtype, grad=True):
+        th = torch.ones(2, dtype=dtype, device=dev, requires_grad=grad)
+        x, yy = torch.tensor(xn, dtype=dtype, device=dev), torch.tensor(yn, dtype=dtype, device=dev)
+        with torch.set_grad_enabled(grad):
+            v = tgp.loo_logpdf(tgp.GP(convert.laplace_kernel(th))(x, LOO_NOISE), yy)
+        return (v.detach(), torch.autograd.grad(v, th)[0]) if grad else v
+
+    reset_counts()
+    v, g = run(torch.float32)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    v64, g64 = run(torch.float64)
+    ev, eg = abs(v.double().item() - v64.item()) / abs(v64.item()), rel_err(g, g64)
+    check(launches == only() and ev <= LOO_VALUE_RTOL32 and eg <= LOO_GRAD_RTOL32,
+          f"loo_logpdf N={N_LOO}, f32 vs f64: value {v.item():.8g} vs {v64.item():.8g}, rel err "
+          f"{ev:.3e} <= {LOO_VALUE_RTOL32:g}; dθ {eg:.3e} <= {LOO_GRAD_RTOL32:g}; no kernel")
+    for dtype in (torch.float32, torch.float64):
+        ms_v = cuda_ms(lambda: run(dtype, grad=False), 5)
+        ms_g = cuda_ms(lambda: run(dtype), 5)
+        print(f"time loo_logpdf ({str(dtype)[6:]}): value {ms_v:.3f} ms, value and gradient "
+              f"{ms_g:.3f} ms (N={N_LOO})")
+    return launches
+
+
 def _plain(fn, *args):
     with tgp.config_context(use_kernels=False):
         return fn(*args)
@@ -2968,6 +3395,11 @@ def main() -> None:
     by_path["block_vecchia"] = phase_block_vecchia(dev)
     by_path["laplace"], r1 = phase_laplace(dev)
     numbers["gram_matvec"].update(r1)
+    by_path["pathwise_cg"] = phase_sampling_cg(dev)
+    by_path["pathwise_svgp"] = phase_sampling_svgp(dev)
+    by_path["multi_latent"] = phase_multi_latent(dev)
+    by_path["online"] = phase_online(dev)
+    by_path["loo"] = phase_loo(dev)
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv_mma.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),

@@ -1207,3 +1207,155 @@ def test_torch_cuda_probes_and_samples_are_made_on_the_card(cuda):
     s = tgp.sample_prior_msqrt(3, kern, x, 1e-3, 16, lanczos_iters=20)
     assert s.is_cuda and s.shape == (16, 3000) and bool(torch.isfinite(s).all())
     assert gram_matvec.gram_matvec.launches == before + 20
+
+
+# -- pathwise sampling, the multi-latent and online SVGPs, LOO: rows 1, 5 and 11 on their
+# new paths, the kernel route against the plain route at a small size ---------------------
+
+
+def _rel_dev(a, b):
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+
+def _hetero_params(dev, dtype, M=512, D=2, seed=0):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for tag, k in (("mean", [0.5, 0.5]), ("logvar", [0.3, 1.2])):
+        out[tag] = {"k": _t(k, dev, dtype), "z": _t(rng.standard_normal((M, D)), dev, dtype),
+                    "m": _t(0.3 * rng.standard_normal(M), dev, dtype),
+                    "A": _t(0.6 * np.eye(M) + 0.01 * np.tril(rng.standard_normal((M, M))), dev,
+                            dtype)}
+    return out
+
+
+def _hetero_value_and_grad(params, x, y):
+    leaves = [v.detach().clone().requires_grad_() for d in params.values() for v in d.values()]
+    it = iter(leaves)
+    p = {tag: {k: next(it) for k in d} for tag, d in params.items()}
+    loss = tgp.convert.heteroscedastic_loss(p, x, y, num_data=10_000, n_gh=10)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def test_torch_cuda_multi_latent_step_reaches_row_1_twice(cuda):
+    """The heteroscedastic two-latent ELBO (M = 512 a latent, f64): row 1
+    once a latent, the value against the plain route to 1e-8 and the
+    gradients to 1e-7 (each latent's Kuu, 512 points of N(0, 1) in 2-D at
+    jitter 1e-6, has cond(Kuu) about 2e8, so two f64 factorizations differ
+    by eps·cond ≈ 2.5e-8)."""
+    rng = np.random.default_rng(1)
+    x = _t(rng.standard_normal((1024, 2)), cuda)
+    y = torch.sin(x[:, 0]) + 0.2 * _t(rng.standard_normal(1024), cuda)
+    params = _hetero_params(cuda, torch.float64)
+    before = panel_chol.gram_chol_inv.launches
+    v, g = _hetero_value_and_grad(params, x, y)
+    assert panel_chol.gram_chol_inv.launches == before + 2
+    with tgp.config_context(use_kernels=False):
+        vp, gp = _hetero_value_and_grad(params, x, y)
+    assert abs(v.item() - vp.item()) <= 1e-8 * abs(vp.item())
+    for a, b in zip(g, gp):
+        assert _rel_dev(a, b) <= 1e-7
+
+
+def test_torch_cuda_online_elbo_reaches_row_1_once(cuda):
+    """``online_elbo`` of a NonCentered approximation (M = 512, f64) after a
+    first round: row 1 once, value and gradients against the plain route to
+    1e-8."""
+    rng = np.random.default_rng(2)
+    x = _t(rng.standard_normal((2048, 2)), cuda)
+    y = torch.sin(x[:, 0]) + 0.1 * _t(rng.standard_normal(2048), cuda)
+    f = tgp.GP(tgp.with_lengthscale(tgp.SqExponentialKernel(), 0.9))
+    fz_old = f(x[:256], 1e-6)
+    state = tgp.OnlineSVGPState(fz_old, tgp.online_optimal_q(
+        tgp.OnlineSVGPState(fz_old, fz_old.to_mvn()), fz_old, f(x[:1024], 0.1), y[:1024]))
+    z = _t(rng.standard_normal((512, 2)), cuda)
+    m0 = _t(0.2 * rng.standard_normal(512), cuda)
+    L0 = _t(0.7 * np.eye(512) + 0.01 * np.tril(rng.standard_normal((512, 512))), cuda)
+
+    def run():
+        m, L, zz = (t.clone().requires_grad_() for t in (m0, L0, z))
+        sva = tgp.SparseVariationalApproximation(f(zz, 1e-6), tgp.MultivariateNormal(m, L))
+        v = tgp.online_elbo(sva, state, f(x[1024:], 0.1), y[1024:])
+        return v.detach(), torch.autograd.grad(v, (m, L, zz))
+
+    before = panel_chol.gram_chol_inv.launches
+    v, g = run()
+    assert panel_chol.gram_chol_inv.launches == before + 1
+    with tgp.config_context(use_kernels=False):
+        vp, gp = run()
+    assert abs(v.item() - vp.item()) <= 1e-8 * abs(vp.item())
+    for a, b in zip(g, gp):
+        assert _rel_dev(a, b) <= 1e-8
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_torch_cuda_cg_sampler_reaches_row_5(dtype, cuda):
+    """Matheron CG samples at N = 3000, 16 samples: the solve and the update
+    on row 5 (f32: the wide pass at R = 16), against the plain route with
+    the same draws, relative to the samples' scale (f64 1e-8 at CG tol
+    1e-10; f32 1e-3 at tol 1e-6)."""
+    from approximategps_tpu_torch.models import sampling
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = 10.0 * torch.rand((3000, 2), generator=gen, device=cuda, dtype=dtype)
+    y = torch.sin(x[:, 0])
+    fx = tgp.GP(1.5 * tgp.with_lengthscale(tgp.SqExponentialKernel(), 1.2))(x, 0.01)
+    draws = sampling.draw_cg(gen, fx, 16, 512)
+    xq = 10.0 * torch.rand((256, 2), generator=gen, device=cuda, dtype=dtype)
+    tol, lim = (1e-10, 1e-8) if dtype == torch.float64 else (1e-6, 1e-3)
+    before = dict(gram_matvec.launches_by_pass)
+    s = sampling.cg_pathwise(fx, y, *draws, tol=tol, precond_rank=64)(xq)
+    grew = {k: n - before.get(k, 0) for k, n in gram_matvec.launches_by_pass.items()
+            if n > before.get(k, 0)}
+    kind = "wide" if dtype == torch.float32 else "narrow"
+    assert grew.get((kind, 16), 0) >= 2, grew
+    with tgp.config_context(use_kernels=False):
+        sp = sampling.cg_pathwise(fx, y, *draws, tol=tol, precond_rank=64)(xq)
+    assert s.shape == (16, 256) and _rel_dev(s, sp) <= lim
+
+
+def test_torch_cuda_fused_svgp_sampler_reaches_row_11(cuda):
+    """``sample_svgp_functions`` under ``gram_mode="fused"`` (M = 300,
+    D = 3, f64): row 11 once an evaluation, the samples equal the default
+    route's to 1e-10."""
+    from approximategps_tpu_torch.ops import gram
+
+    rng = np.random.default_rng(6)
+    f = tgp.GP(0.8 * tgp.with_lengthscale(tgp.Matern32Kernel(), 1.1))
+    q = tgp.MultivariateNormal(_t(0.2 * rng.standard_normal(300), cuda),
+                               _t(0.7 * np.eye(300), cuda))
+    post = tgp.posterior(tgp.SparseVariationalApproximation(
+        f(_t(rng.standard_normal((300, 3)), cuda), 1e-6), q))
+    xs = _t(rng.standard_normal((4000, 3)), cuda)
+    fs = tgp.sample_svgp_functions(torch.Generator(device=cuda).manual_seed(0), post, 8, 256)
+    ref = fs(xs)
+    with tgp.config_context(gram_mode="fused"):
+        before = gram.stationary_gram.launches
+        got = fs(xs)
+        assert gram.stationary_gram.launches == before + 1
+    assert _rel_dev(got, ref) <= 1e-10
+
+
+def test_torch_cuda_loo_and_site_stream_match_cpu(cuda):
+    """No kernel: ``loo_logpdf`` (value and θ-gradient) and the fixed-site
+    stream on the card against the same calls on the CPU, f64, 1e-10."""
+    rng = np.random.default_rng(8)
+    xn, yn = rng.uniform(0, 10, 300), rng.standard_normal(300)
+
+    def loo(dev):
+        ls = torch.tensor(0.7, dtype=torch.float64, device=dev, requires_grad=True)
+        f = tgp.GP(tgp.with_lengthscale(tgp.SqExponentialKernel(), ls))
+        v = tgp.loo_logpdf(f(_t(xn, dev), 0.1), _t(yn, dev))
+        return v.item(), torch.autograd.grad(v, ls)[0].item()
+
+    def stream(dev):
+        f = tgp.GP(tgp.with_lengthscale(tgp.SqExponentialKernel(), 0.7))
+        st = tgp.site_state(f(_t(np.linspace(0, 10, 40), dev), 1e-8))
+        for i in range(3):
+            st = tgp.site_update(st, f(_t(xn[i * 100:(i + 1) * 100], dev), 0.1),
+                                 _t(yn[i * 100:(i + 1) * 100], dev))
+        return tgp.site_posterior_q(st).mean.cpu()
+
+    (v, g), (vc, gc) = loo(cuda), loo("cpu")
+    assert abs(v - vc) <= 1e-10 * abs(vc) and abs(g - gc) <= 1e-10 * abs(gc)
+    assert _rel_dev(stream(cuda), stream("cpu")) <= 1e-10

@@ -52,6 +52,17 @@ def test_torch_port_imports_no_jax():
         "t.convert.laplace_neg_lml, t.convert.laplace_kernel, t.convert.LAPLACE_CG_THETA, t.convert.laplace_data\n"
         "t.core.linalg.cholesky_or_nan, t.core.distributions.mvnormal_from_cov\n"
         "t.config.cg_dense_threshold\n"
+        "t.rff_features, t.sample_svgp_functions, t.sample_posterior_functions_cg\n"
+        "t.models.sampling.draw_rff, t.models.sampling.cg_pathwise, t.core.unwrap_spectral\n"
+        "t.HeteroscedasticGaussianLikelihood, t.SoftmaxLikelihood, t.MultiLatentSVGP\n"
+        "t.multi_latent_elbo, t.OnlineSVGPState, t.GaussianSiteState, t.online_elbo\n"
+        "t.online_optimal_q, t.online_state, t.site_state, t.site_update, t.site_posterior_q\n"
+        "t.loo_logpdf, t.loo_mean_and_var, t.DiagNormal, t.ScaleTransform, t.SVGP\n"
+        "t.inducing_points, t.utils.positive, t.utils.fill_triangular_inverse\n"
+        "t.utils.normal_prior, t.utils.map_objective, t.utils.save_checkpoint\n"
+        "t.utils.AsyncCheckpointer, t.utils.minibatch_iterator, t.utils.StepTimer, t.utils.trace\n"
+        "t.test_utils.generate_data, t.convert.heteroscedastic_svgp\n"
+        "t.convert.heteroscedastic_loss\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'approximategps_tpu' not in sys.modules\n"
     )
