@@ -1,8 +1,10 @@
-"""Dense linear-algebra helpers (port of the parts of
-``approximategps_tpu/core/linalg.py`` the ported paths read): triangular
-solves, log-determinants, ``diag_quad_sym``, ``blocked_tril_inv`` and
-``chol_with_inv``, the last three as ``torch.autograd.Function``s with the
-JAX package's closed-form, matmul-only pullbacks."""
+"""Dense linear-algebra helpers (port of
+``approximategps_tpu/core/linalg.py``): triangular solves,
+log-determinants, the AbstractGPs helpers (``At_A``, ``diag_At_A``,
+``Xt_invA_X``, ``diag_Xt_invA_X``), ``diag_quad_sym``, ``blocked_tril_inv``,
+``blocked_cholesky``, ``chol_with_inv`` and ``tri_project``, the last five
+as ``torch.autograd.Function``s with the JAX package's closed-form
+pullbacks."""
 
 from __future__ import annotations
 
@@ -20,10 +22,16 @@ __all__ = [
     "cholesky_solve",
     "tril_logdet",
     "chol_logdet",
+    "At_A",
+    "diag_At_A",
+    "Xt_invA_X",
+    "diag_Xt_invA_X",
     "diag_quad_sym",
     "blocked_tril_inv",
+    "blocked_cholesky",
     "chol_with_inv",
     "chol_with_inv_plain",
+    "tri_project",
 ]
 
 
@@ -78,6 +86,29 @@ def tril_logdet(L: torch.Tensor) -> torch.Tensor:
 def chol_logdet(L: torch.Tensor) -> torch.Tensor:
     """logdet of A = L Lᵀ given its Cholesky factor."""
     return 2.0 * tril_logdet(L)
+
+
+def At_A(A: torch.Tensor) -> torch.Tensor:
+    """AᵀA (AbstractGPs.At_A)."""
+    return A.transpose(-1, -2) @ A
+
+
+def diag_At_A(A: torch.Tensor) -> torch.Tensor:
+    """diag(AᵀA) without forming the product (AbstractGPs.diag_At_A),
+    accumulated in at least f32 and returned in that type."""
+    acc = torch.promote_types(A.dtype, torch.float32)
+    A = A.to(acc)
+    return torch.sum(A * A, dim=-2)
+
+
+def Xt_invA_X(L: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """XᵀA⁻¹X given A's lower Cholesky factor L."""
+    return At_A(solve_lower_triangular(L, X))
+
+
+def diag_Xt_invA_X(L: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """diag(XᵀA⁻¹X) given A's lower Cholesky factor L."""
+    return diag_At_A(solve_lower_triangular(L, X))
 
 
 def _phi(X: torch.Tensor) -> torch.Tensor:
@@ -140,6 +171,76 @@ def blocked_tril_inv(L: torch.Tensor) -> torch.Tensor:
     matrix unit does the work; here one ``torch.linalg.solve_triangular``
     against the identity does (cuBLAS's triangular solve on the card)."""
     return _BlockedTrilInv.apply(L)
+
+
+def _blocked_cholesky_impl(A: torch.Tensor, base: int) -> torch.Tensor:
+    n = A.shape[-1]
+    if n <= base:
+        return torch.linalg.cholesky(A)
+    half = n // 2
+    if half % base:
+        half = max(base, (half // base) * base)
+    L11 = _blocked_cholesky_impl(A[..., :half, :half], base)
+    eye = torch.eye(half, dtype=A.dtype, device=A.device)
+    L11_inv = torch.linalg.solve_triangular(L11, eye, upper=False)
+    L21 = A[..., half:, :half] @ L11_inv.transpose(-1, -2)
+    L22 = _blocked_cholesky_impl(A[..., half:, half:] - L21 @ L21.transpose(-1, -2), base)
+    top = torch.cat([L11, torch.zeros_like(A[..., :half, half:])], dim=-1)
+    return torch.cat([top, torch.cat([L21, L22], dim=-1)], dim=-2)
+
+
+class _BlockedCholesky(torch.autograd.Function):
+    """L = chol(A) by recursive 2×2 blocking, with the Cholesky pullback
+    Ā = sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹) by two triangular solves (not autograd
+    through the recursion)."""
+
+    @staticmethod
+    def forward(ctx, A, base):
+        L = _blocked_cholesky_impl(A, base)
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, L_bar):
+        (L,) = ctx.saved_tensors
+        P = _phi(L.transpose(-1, -2) @ torch.tril(L_bar))
+        X = torch.linalg.solve_triangular(L.transpose(-1, -2), P, upper=True)  # L⁻ᵀ P
+        A_bar = torch.linalg.solve_triangular(L, X, upper=False, left=False)  # X L⁻¹
+        return symmetrize(A_bar), None
+
+
+def blocked_cholesky(A: torch.Tensor, base: int = 256) -> torch.Tensor:
+    """Lower Cholesky factor by recursive 2×2 blocking (right-looking):
+    L11 = chol(A11), L21 = A21 L11⁻ᵀ, L22 = chol(A22 − L21 L21ᵀ), diagonal
+    blocks of at most ``base`` by ``torch.linalg.cholesky``; the pullback is
+    the closed form by two triangular solves."""
+    return _BlockedCholesky.apply(A, int(base))
+
+
+class _TriProject(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, T, X, transpose_t):
+        T = torch.tril(T)
+        ctx.transpose_t = transpose_t
+        ctx.save_for_backward(T, X)
+        return (T.transpose(-1, -2) if transpose_t else T) @ X
+
+    @staticmethod
+    def backward(ctx, Y_bar):
+        T, X = ctx.saved_tensors
+        if ctx.transpose_t:  # Y = Tᵀ X: T̄ = tril(X Ȳᵀ), X̄ = T Ȳ
+            return torch.tril(X @ Y_bar.transpose(-1, -2)), T @ Y_bar, None
+        # Y = T X: T̄ = tril(Ȳ Xᵀ), X̄ = Tᵀ Ȳ
+        return torch.tril(Y_bar @ X.transpose(-1, -2)), T.transpose(-1, -2) @ Y_bar, None
+
+
+def tri_project(T: torch.Tensor, X: torch.Tensor, transpose_t: bool = False) -> torch.Tensor:
+    """Y = T X (Tᵀ X with ``transpose_t``) for a lower-triangular (M, M) T,
+    whose strictly upper entries are not read, and an (M, B) X; the T
+    cotangent is lower triangular (T̄ = tril(Ȳ Xᵀ), or tril(X Ȳᵀ)).  The
+    JAX package skips T's zero blocks for the TPU's matrix unit; here one
+    product of tril(T) does the work."""
+    return _TriProject.apply(T, X, bool(transpose_t))
 
 
 def _chol_bwd_from_inv(L, Linv, L_bar):

@@ -114,6 +114,20 @@ __device__ __forceinline__ float fast_map_scaled(float r2s) {
   }
 }
 
+// The passes' entry for MODE = 4 m + map: g (m = 0), g' (m = 1) or r^2 g'(r^2)
+// (m = 2, the lengthscale's cotangent), of r'^2 = coord_scale<map>()^2 r^2.
+template <int MODE>
+__device__ __forceinline__ float fast_entry_scaled(float r2s) {
+  constexpr int MAP = MODE & 3;
+  const float h = fast_map_scaled<MAP, (MODE >= 4)>(r2s);
+  if constexpr (MODE >= 8) {
+    constexpr float cs = coord_scale<MAP>();
+    return h * (r2s * (1.f / (cs * cs)));
+  } else {
+    return h;
+  }
+}
+
 // fast_map_both of r'^2 = coord_scale<MAP>()^2 r^2.
 template <int MAP>
 __device__ __forceinline__ void fast_map_both_scaled(float r2s, float& g, float& dg) {

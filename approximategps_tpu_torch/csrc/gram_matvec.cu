@@ -7,7 +7,7 @@
 // pass) and gram_matvec_self_bwd.cu (the self-Gram's one-pass pullback):
 //
 //     out[i, r] = sum_j h(|xq_i - zk_j|^2) V[j, r],   h = g, or g' in
-//     derivative mode,
+//     derivative mode, or r^2 g'(r^2) in the lengthscale's mode,
 //
 // for Xq (N, D), Zk (M, D), V (M, R), out (N, R), any N and M, 1 <= D <= 8,
 // 1 <= R <= 128, f32 or f64 (accumulated in the input type), and the four
@@ -71,16 +71,19 @@ __host__ __device__ constexpr T coord_scale() {
   return T(1);
 }
 
-// MAP < 4: the map g; MAP >= 4: its derivative g'; of r^2 from scaled
-// coordinates.
+// MAP < 4: the map g; 4 <= MAP < 8: its derivative g'; MAP >= 8: r^2 g'(r^2)
+// (the lengthscale's cotangent, formed from r^2 itself and not from the
+// coordinates' cotangents, which cancel); of r^2 from scaled coordinates.
 template <typename T, int MAP>
 __device__ __forceinline__ T entry(T r2) {
   if constexpr (std::is_same_v<T, float>) {
-    return agp::fast_map_scaled<MAP & 3, (MAP >= 4)>(r2);
+    return agp::fast_entry_scaled<MAP>(r2);
   } else if constexpr (MAP < 4) {
     return agp::kernel_map<T>(MAP, r2);
-  } else {
+  } else if constexpr (MAP < 8) {
     return agp::kernel_map_dr2<T>(MAP - 4, r2);
+  } else {
+    return agp::kernel_map_dr2<T>(MAP - 8, r2) * r2;
   }
 }
 
@@ -270,6 +273,10 @@ cudaError_t by_map(int map, const T* xq, const T* zk, const T* v, T* out, int N,
     case 5: return by_columns<T, DP, 5>(xq, zk, v, out, N, M, D, R, s);
     case 6: return by_columns<T, DP, 6>(xq, zk, v, out, N, M, D, R, s);
     case 7: return by_columns<T, DP, 7>(xq, zk, v, out, N, M, D, R, s);
+    case 8: return by_columns<T, DP, 8>(xq, zk, v, out, N, M, D, R, s);
+    case 9: return by_columns<T, DP, 9>(xq, zk, v, out, N, M, D, R, s);
+    case 10: return by_columns<T, DP, 10>(xq, zk, v, out, N, M, D, R, s);
+    case 11: return by_columns<T, DP, 11>(xq, zk, v, out, N, M, D, R, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -277,14 +284,15 @@ cudaError_t by_map(int map, const T* xq, const T* zk, const T* v, T* out, int N,
 template <typename T>
 int gram_matvec(const void* xq_, const void* zk_, const void* v_, void* out_, int N, int M,
                 int D, int R, int kmap, int deriv, void* stream) {
-  if (N < 1 || M < 1 || D < 1 || D > 8 || R < 1 || R > 128 || !agp::valid_kernel_map(kmap))
+  if (N < 1 || M < 1 || D < 1 || D > 8 || R < 1 || R > 128 || !agp::valid_kernel_map(kmap) ||
+      deriv < 0 || deriv > 2)
     return cudaErrorInvalidValue;
   const T* xq = static_cast<const T*>(xq_);
   const T* zk = static_cast<const T*>(zk_);
   const T* v = static_cast<const T*>(v_);
   T* out = static_cast<T*>(out_);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int map = kmap + (deriv ? 4 : 0);
+  const int map = kmap + 4 * deriv;
   if (D == 1) return by_map<T, 1>(map, xq, zk, v, out, N, M, D, R, s);
   if (D == 2) return by_map<T, 2>(map, xq, zk, v, out, N, M, D, R, s);
   if (D <= 4) return by_map<T, 4>(map, xq, zk, v, out, N, M, D, R, s);
@@ -304,7 +312,8 @@ int gram_matvec(const void* xq_, const void* zk_, const void* v_, void* out_, in
 extern "C" {
 
 // xq: (N, D), zk: (M, D), v: (M, R), out: (N, R); all row-major, one dtype.
-// deriv != 0 takes g' in place of g.  Returns a cudaError_t.
+// deriv = 1 takes g' in place of g, deriv = 2 r^2 g'(r^2).  Returns a
+// cudaError_t.
 int AGP_GRAM_MATVEC_ENTRY(const void* xq, const void* zk, const void* v, void* out, int N,
                           int M, int D, int R, int kmap, int deriv, void* stream) {
   return gram_matvec<AGP_GRAM_MATVEC_T>(xq, zk, v, out, N, M, D, R, kmap, deriv, stream);

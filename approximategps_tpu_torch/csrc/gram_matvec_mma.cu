@@ -5,7 +5,7 @@
 // contract), approximategps_tpu/ops/gram_matvec.py::pallas_gram_matvec
 // (_forward_multi, _gmv_kernel) for f32 and R from the crossover that
 // ops/gram_matvec.py::pass_part holds up to 128.  Same contract: exact-
-// difference r^2, g or g', the fast maps of fast_maps.cuh, each block writes
+// difference r^2; g, g' or r^2 g'; the fast maps of fast_maps.cuh; each block writes
 // its rows once in a fixed order of summation.
 //
 // The tile of h(r^2) a warp computes in registers is the A operand of a
@@ -144,8 +144,8 @@ __global__ void __launch_bounds__(32 * block_warps<NTMAX>())
             r2a = fmaf(da, da, r2a);
             r2b = fmaf(db, db, r2b);
           }
-          h[2 * q] = agp::fast_map_scaled<MAP & 3, (MAP >= 4)>(r2a);
-          h[2 * q + 1] = agp::fast_map_scaled<MAP & 3, (MAP >= 4)>(r2b);
+          h[2 * q] = agp::fast_entry_scaled<MAP>(r2a);
+          h[2 * q + 1] = agp::fast_entry_scaled<MAP>(r2b);
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -216,6 +216,10 @@ cudaError_t by_map(int map, const float* xq, const float* zk, const float* v, fl
     case 5: return by_columns<DP, 5>(xq, zk, v, out, N, M, D, R, s);
     case 6: return by_columns<DP, 6>(xq, zk, v, out, N, M, D, R, s);
     case 7: return by_columns<DP, 7>(xq, zk, v, out, N, M, D, R, s);
+    case 8: return by_columns<DP, 8>(xq, zk, v, out, N, M, D, R, s);
+    case 9: return by_columns<DP, 9>(xq, zk, v, out, N, M, D, R, s);
+    case 10: return by_columns<DP, 10>(xq, zk, v, out, N, M, D, R, s);
+    case 11: return by_columns<DP, 11>(xq, zk, v, out, N, M, D, R, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -225,17 +229,19 @@ cudaError_t by_map(int map, const float* xq, const float* zk, const float* v, fl
 extern "C" {
 
 // xq: (N, D), zk: (M, D), v: (M, R), out: (N, R); all row-major f32.
-// deriv != 0 takes g' in place of g.  Returns a cudaError_t.
+// deriv = 1 takes g' in place of g, deriv = 2 r^2 g'(r^2).  Returns a
+// cudaError_t.
 int agp_gram_matvec_mma_f32(const void* xq_, const void* zk_, const void* v_, void* out_, int N,
                             int M, int D, int R, int kmap, int deriv, void* stream) {
-  if (N < 1 || M < 1 || D < 1 || D > 8 || R < 1 || R > 128 || !agp::valid_kernel_map(kmap))
+  if (N < 1 || M < 1 || D < 1 || D > 8 || R < 1 || R > 128 || !agp::valid_kernel_map(kmap) ||
+      deriv < 0 || deriv > 2)
     return cudaErrorInvalidValue;
   const float* xq = static_cast<const float*>(xq_);
   const float* zk = static_cast<const float*>(zk_);
   const float* v = static_cast<const float*>(v_);
   float* out = static_cast<float*>(out_);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int map = kmap + (deriv ? 4 : 0);
+  const int map = kmap + 4 * deriv;
   if (D == 1) return by_map<1>(map, xq, zk, v, out, N, M, D, R, s);
   if (D == 2) return by_map<2>(map, xq, zk, v, out, N, M, D, R, s);
   if (D <= 4) return by_map<4>(map, xq, zk, v, out, N, M, D, R, s);

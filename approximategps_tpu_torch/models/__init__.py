@@ -36,7 +36,7 @@ from .svgp import (
     inducing_points,
     prior_kl,
 )
-from .svgp_streaming import streaming_data_term, streaming_elbo
+from .svgp_streaming import dp_streaming_elbo, streaming_data_term, streaming_elbo
 from .iterative import (
     CGPosterior,
     cg_solve,

@@ -21,7 +21,14 @@ loops; CG tests its residuals on the host once an iteration (one sync,
 counted in ``stats``); CG runs without autograd (the JAX loop is not
 reverse-differentiable either), and :func:`logpdf_slq` brings its own
 gradient; random draws come from a ``torch.Generator`` (or an int seed).
-The ``mesh=`` paths are not ported yet.
+
+``mesh=`` (a :class:`~approximategps_tpu_torch.parallel.DataMesh`) splits
+every product's rows over the ranks: each rank computes its band
+K(X_band, X)·V (row 5's cross pass on the card, or Gram row blocks where it
+declines) and the bands are all-gathered, so the vectors of CG and Lanczos
+stay bitwise equal on every rank and every rank takes the same branch.
+Gradients through the bands are summed over the ranks once
+(``parallel/_comm.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from ..core.distributions import standard_normals
 from ..core.gp import FiniteGP
 from ..core.kernels import as_points
 from ..ops.gram_matvec import fused_stationary_matvec
+from ..parallel import _comm
+from ..parallel.data_parallel import shard_batch
 
 __all__ = [
     "cg_solve",
@@ -176,12 +185,17 @@ def woodbury_preconditioner(Lk: torch.Tensor, noise) -> Callable:
     return apply
 
 
-def kernel_matvec(kernel, x, noise, block_size: int | None = None):
+def kernel_matvec(kernel, x, noise, block_size: int | None = None, mesh=None):
     """``matvec(V) = (K(x, x) + Σ)·V`` for V (N,) or (N, R), without storing
     K: the fused ``gram_matvec`` where :func:`~approximategps_tpu_torch.ops.
     gram_matvec.fused_stationary_matvec` qualifies (R ≤
     ``config.matvec_fused_max_rhs``), else Gram row blocks of ``block_size``
-    (all of K when None).  Σ is scalar, (N,) or (N, N) noise."""
+    (all of K when None).  Σ is scalar, (N,) or (N, N) noise.
+
+    ``mesh``: a :class:`~approximategps_tpu_torch.parallel.DataMesh`; each
+    rank then computes the band of ceil(N / size) rows K(X_band, X)·V (the
+    fused cross pass, or Gram row blocks of ``block_size`` for that call
+    where it declines) and the bands are all-gathered."""
     X = as_points(x)
     N = X.shape[0]
     nz = torch.as_tensor(noise, dtype=X.dtype, device=X.device)
@@ -192,6 +206,9 @@ def kernel_matvec(kernel, x, noise, block_size: int | None = None):
         if nz.ndim == 1:
             return nz[:, None] * V2
         return nz @ V2
+
+    if mesh is not None:
+        return _dp_kernel_matvec(kernel, X, noise_apply, block_size, mesh)
 
     fused = fused_stationary_matvec(kernel, X)
     bs = N if block_size is None else block_size
@@ -224,6 +241,54 @@ def kernel_matvec(kernel, x, noise, block_size: int | None = None):
     return matvec
 
 
+def _band(mesh, X: torch.Tensor) -> torch.Tensor:
+    """This rank's ceil(N / size) rows of X (``shard_batch``), padded with
+    zero rows (their products are computed and dropped)."""
+    N = X.shape[0]
+    sl = shard_batch(mesh, N)
+    Xb = X[sl]
+    rows = sl.stop - sl.start
+    if Xb.shape[0] < rows:
+        Xb = torch.cat([Xb, Xb.new_zeros((rows - Xb.shape[0], X.shape[1]))])
+    return Xb
+
+
+def _dp_kernel_matvec(kernel, X, noise_apply, block_size, mesh):
+    """(K + Σ)·V by row bands over the ranks of ``mesh``: the band
+    K(X_band, X)·V on each rank, all-gathered; Σ·V on every rank.  The
+    kernel's tensors, X and V enter the band through ``replicate``, so their
+    gradients are the sum of the ranks' bands."""
+    N = X.shape[0]
+    kern = _comm.replicate_tree(mesh, kernel)
+    Xr = _comm.replicate(mesh, X)
+    Xb = _band(mesh, Xr)
+    fused = fused_stationary_matvec(kern, Xr, Xb)
+    rows = Xb.shape[0]
+    bs = rows if block_size is None else block_size
+
+    def block(xb, V2):
+        return kern.gram(xb, Xr) @ V2
+
+    def matvec(V):
+        vec = V.ndim == 1
+        V2 = V[:, None] if vec else V
+        Vr = _comm.replicate(mesh, V2)
+        band = fused(Vr) if fused is not None else None
+        if band is not None:
+            stats["matvec_fused"] += 1
+        else:
+            stats["matvec_plain"] += 1
+            if torch.is_grad_enabled() and bs < rows:
+                band = torch.cat([checkpoint(block, Xb[i:i + bs], Vr, use_reentrant=False)
+                                  for i in range(0, rows, bs)])
+            else:
+                band = torch.cat([block(Xb[i:i + bs], Vr) for i in range(0, rows, bs)])
+        out = _comm.gather_rows(mesh, band)[:N] + noise_apply(V2)
+        return out[:, 0] if vec else out
+
+    return matvec
+
+
 class CGPosterior:
     """Exact posterior through CG solves: α = (K + Σ)⁻¹(y − m) at build,
     and one block solve against K(x, x*) for each variance or covariance.
@@ -231,14 +296,15 @@ class CGPosterior:
     With more than ``config.matvec_fused_max_rhs`` test points a solve takes
     the Gram block path even on the card (the JAX package's design: there
     one Gram serves every column); 32 test points or fewer go through the
-    fused kernel."""
+    fused kernel.  ``mesh`` splits every solve's products over its ranks
+    (:func:`kernel_matvec`)."""
 
     def __init__(self, fx: FiniteGP, y, tol=1e-6, maxiter=1000, block_size=None,
-                 precond_rank: int = 0):
+                 precond_rank: int = 0, mesh=None):
         self.fx = fx
         self.prior = fx.f
         self.x = as_points(fx.x)
-        self._matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, block_size)
+        self._matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, block_size, mesh=mesh)
         self._tol = tol
         self._maxiter = maxiter
         if precond_rank > 0:
@@ -279,12 +345,13 @@ class CGPosterior:
 
 
 def posterior_cg(fx: FiniteGP, y, tol=1e-8, maxiter=1000, block_size=None,
-                 precond_rank: int = 0) -> CGPosterior:
+                 precond_rank: int = 0, mesh=None) -> CGPosterior:
     """Exact GP regression posterior through conjugate gradients;
     ``precond_rank > 0`` preconditions every solve with the
-    pivoted-Cholesky/Woodbury P (Gardner et al. 2018 §3.2)."""
+    pivoted-Cholesky/Woodbury P (Gardner et al. 2018 §3.2); ``mesh`` splits
+    every product's rows over its ranks (:func:`kernel_matvec`)."""
     return CGPosterior(fx, y, tol=tol, maxiter=maxiter, block_size=block_size,
-                       precond_rank=precond_rank)
+                       precond_rank=precond_rank, mesh=mesh)
 
 
 def _lanczos_block(matvec, V0, num_iters):
@@ -485,32 +552,25 @@ class _SLQOptions:
     reorth: bool
     precond_logdet: bool
     precond_fresh: bool
+    mesh: object = None
 
 
 def _tree(obj):
     """The floating tensors in a tree of dataclasses, and a function that
     rebuilds the tree with other tensors in their places."""
     leaves = []
+    _comm.map_tensors(lambda t: leaves.append(t) if t.is_floating_point() else None, obj)
 
-    def walk(o):
-        if isinstance(o, torch.Tensor):
-            if not o.is_floating_point():
-                return lambda new: o
-            leaves.append(o)
-            k = len(leaves) - 1
-            return lambda new: new[k]
-        if dataclasses.is_dataclass(o) and not isinstance(o, type):
-            fields = [(f.name, walk(getattr(o, f.name))) for f in dataclasses.fields(o) if f.init]
-            return lambda new: dataclasses.replace(o, **{n: b(new) for n, b in fields})
-        return lambda new: o
+    def build(new):
+        it = iter(new)
+        return _comm.map_tensors(lambda t: next(it) if t.is_floating_point() else t, obj)
 
-    build = walk(obj)
     return leaves, build
 
 
 def _slq_value(opts: _SLQOptions, fx, y, probes, Lk):
     n = len(fx)
-    matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size)
+    matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size, opts.mesh)
     delta = y - fx.mean()
     alpha = cg_solve(matvec, delta, opts.cg_tol, opts.cg_maxiter, M_inv=_slq_minv(Lk, fx.noise))
     quad = delta @ alpha
@@ -540,7 +600,7 @@ def _surrogate(opts: _SLQOptions, fx, y, probes, alpha, W):
     """Equal to the log marginal likelihood in value at the evaluation
     point, with the stochastic-trace gradient (α and W = K̂⁻¹Z frozen):
     2αᵀδ(θ) − αᵀK̂(θ)α and mean_p w_pᵀK̂(θ)z_p."""
-    mv = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size)
+    mv = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size, opts.mesh)
     delta = y - fx.mean()
     quad_sur = 2.0 * (alpha @ delta) - alpha @ mv(alpha)
     trace_sur = torch.mean(torch.sum(W * mv(probes.T), dim=0))
@@ -566,7 +626,7 @@ class _LogpdfSLQ(torch.autograd.Function):
         need_y, need_p, need_Lk = ctx.needs_input_grad[2:5]
         with torch.no_grad():
             fx = build(leaves)
-            matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size)
+            matvec = kernel_matvec(fx.f.kernel, fx.x, fx.noise, opts.block_size, opts.mesh)
             M_inv = _slq_minv(Lk, fx.noise)
             alpha = cg_solve(matvec, y - fx.mean(), opts.cg_tol, opts.cg_maxiter, M_inv=M_inv)
             W = cg_solve(matvec, probes.T, opts.cg_tol, opts.cg_maxiter, M_inv=M_inv)
@@ -598,6 +658,7 @@ def logpdf_slq(
     precond_Lk: torch.Tensor | None = None,
     precond_logdet: bool = True,
     probes: torch.Tensor | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Exact log marginal likelihood with the logdet by stochastic Lanczos
     quadrature over Rademacher probes, differentiable in the kernel's
@@ -610,13 +671,19 @@ def logpdf_slq(
     preconditions the CG solves with a fresh pivoted-Cholesky/Woodbury P
     and, with ``precond_logdet``, runs SLQ on P^{−1/2} K̂ P^{−1/2} and adds
     logdet P in closed form; ``precond_Lk`` passes a carried factor
-    instead, whose Ritz floor is eps rather than 1 (it may be stale)."""
+    instead, whose Ritz floor is eps rather than 1 (it may be stale).
+
+    ``mesh`` splits every product's rows over its ranks
+    (:func:`kernel_matvec`); probes drawn here are rank 0's on every rank,
+    and the gradient is the same on every rank."""
     n = len(fx)
     dtype = torch.promote_types(y.dtype, torch.float32)
     if probes is None:
         if generator is None:
             raise ValueError("logpdf_slq needs a generator (or seed) or the probes")
         probes = rademacher_probes(generator, num_probes, n, dtype, y.device)
+        if mesh is not None:
+            probes = _comm.broadcast(mesh, probes)
     probes = probes.to(dtype=dtype, device=y.device)
     Lk = precond_Lk
     precond_fresh = precond_Lk is None
@@ -625,6 +692,6 @@ def logpdf_slq(
     if Lk is not None:
         Lk = Lk.detach()
     opts = _SLQOptions(lanczos_iters, cg_tol, cg_maxiter, block_size, bool(reorth),
-                       bool(precond_logdet), precond_fresh)
+                       bool(precond_logdet), precond_fresh, mesh)
     leaves, build = _tree(fx)
     return _LogpdfSLQ.apply(opts, build, y, probes, Lk, *leaves)

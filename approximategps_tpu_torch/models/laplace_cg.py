@@ -19,7 +19,15 @@ preconditioned CG (SPD for log-concave likelihoods; wrap others in
 
 Differences from the JAX package: the loops are Python loops (CG one host
 sync an iteration, Newton one); the probes come from a ``torch.Generator``
-(or an int seed) or are given; the ``mesh=`` paths are not ported.
+(or an int seed) or are given.
+
+``mesh=`` (a :class:`~approximategps_tpu_torch.parallel.DataMesh`) splits
+every product with K over the ranks by row bands: the chunked storage
+through ``kernel_matvec(mesh=)`` (row 5's cross pass on the card), the
+resident one with only this rank's (ceil(N / size), N) band of K stored.
+The bands are all-gathered, so every rank holds the same vectors and takes
+the same branches, and the IFT and SLQ pullbacks give every rank the same
+gradient.
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ from ..core.gp import AbstractGP, LatentFiniteGP
 from ..core.kernels import as_points
 from ..core.likelihoods import as_likelihood
 from ..ops.gram_matvec import fused_stationary_matvec
+from ..parallel import _comm
 from .api import approx_lml, posterior
 from .iterative import (
+    _band,
     _lanczos_block,
     _slq_quadrature,
     _tree,
@@ -57,7 +67,7 @@ __all__ = [
 _STORAGE = ("auto", "chunked", "dense")
 
 
-def _k_matvec(kern, x, block_size, noise=0.0, storage: str = "auto"):
+def _k_matvec(kern, x, block_size, noise=0.0, storage: str = "auto", mesh=None):
     """``mv(V) = (K(x, x) + noise·I)·V`` (noise: the LatentGP jitter, which
     the dense path's K = fx.cov() holds too).  "chunked" returns
     ``kernel_matvec`` (O(N·block) memory; row 5 on the card), "dense"
@@ -66,18 +76,38 @@ def _k_matvec(kern, x, block_size, noise=0.0, storage: str = "auto"):
     costs less than one with a stored Gram; blocks wider than
     ``config.matvec_fused_max_rhs`` take its Gram blocks), and elsewhere
     the Gram for N ≤ ``config.cg_dense_threshold`` (a Newton solve runs
-    hundreds of products)."""
+    hundreds of products).  With ``mesh`` each rank stores (dense) or
+    computes (chunked) its row band of K, and the bands are all-gathered."""
     if storage not in _STORAGE:
         raise ValueError(f"unknown storage {storage!r}; expected one of {_STORAGE}")
     X = as_points(x)
     if storage == "auto":
         small = X.shape[0] <= config.cg_dense_threshold
         storage = "dense" if small and fused_stationary_matvec(kern, X) is None else "chunked"
+    if storage == "dense" and mesh is not None:
+        return _dp_dense_matvec(kern, X, noise, mesh)
     if storage == "dense":
         K = kern.gram(X)
         nz = torch.as_tensor(noise, dtype=K.dtype, device=K.device)
         return lambda v: K @ v + nz * v
-    return kernel_matvec(kern, X, noise, block_size)
+    return kernel_matvec(kern, X, noise, block_size, mesh=mesh)
+
+
+def _dp_dense_matvec(kern, X, noise, mesh):
+    """The resident Gram's rows split over the ranks: this rank keeps its
+    (ceil(N / size), N) band of K, multiplies it and all-gathers."""
+    N = X.shape[0]
+    Xr = _comm.replicate(mesh, X)
+    Kb = _comm.replicate_tree(mesh, kern).gram(_band(mesh, Xr), Xr)
+    nz = torch.as_tensor(noise, dtype=Kb.dtype, device=Kb.device)
+
+    def mv(v):
+        vec = v.ndim == 1
+        V = v[:, None] if vec else v
+        out = _comm.gather_rows(mesh, Kb @ _comm.replicate(mesh, V))[:N] + nz * V
+        return out[:, 0] if vec else out
+
+    return mv
 
 
 def _b_precond(kern, x, rank: int):
@@ -154,6 +184,7 @@ class _CGOptions:
     block_size: int | None
     precond_rank: int
     storage: str
+    mesh: object = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -181,7 +212,7 @@ class _NewtonSolveCG(torch.autograd.Function):
     @staticmethod
     def forward(ctx, opts, build, info, f_init, *leaves):
         p = build(leaves)
-        kmv = _k_matvec(p.kern, p.x, opts.block_size, p.noise, opts.storage)
+        kmv = _k_matvec(p.kern, p.x, opts.block_size, p.noise, opts.storage, opts.mesh)
         Lr = _b_precond(p.kern, p.x, opts.precond_rank)
         f_opt, info["n_iter"] = _newton_loop_cg(p.lik, p.ys, kmv, f_init, opts.maxiter,
                                                 opts.tol, opts.cg_tol, opts.cg_maxiter,
@@ -199,7 +230,7 @@ class _NewtonSolveCG(torch.autograd.Function):
             return (None,) * (4 + len(leaves))
         with torch.no_grad():
             p = build(leaves)
-            kmv = _k_matvec(p.kern, p.x, opts.block_size, p.noise, opts.storage)
+            kmv = _k_matvec(p.kern, p.x, opts.block_size, p.noise, opts.storage, opts.mesh)
             Lr = _b_precond(p.kern, p.x, opts.precond_rank)
             _ll, _d_ll, d2_ll = p.lik.log_prob_d1_d2(f_opt, p.ys)
             Wsqrt = torch.sqrt(-d2_ll)
@@ -208,8 +239,11 @@ class _NewtonSolveCG(torch.autograd.Function):
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(bool(n)) for t, n in zip(leaves, needs)]
             q = build(ins)
-            _, d1, _ = q.lik.log_prob_d1_d2(f_opt, q.ys)
-            s = lam @ _k_matvec(q.kern, q.x, opts.block_size, q.noise, opts.storage)(d1)
+            # f̂ held fixed (detached: the saved output would carry this
+            # Function's graph, and the product would form a V̄ nobody reads)
+            _, d1, _ = q.lik.log_prob_d1_d2(f_opt.detach(), q.ys)
+            s = lam @ _k_matvec(q.kern, q.x, opts.block_size, q.noise, opts.storage,
+                                opts.mesh)(d1)
             wanted = [t for t in ins if t.requires_grad]
             grads = iter(torch.autograd.grad(s, wanted, allow_unused=True))
         return (None, None, None, None, *(next(grads) if t.requires_grad else None for t in ins))
@@ -231,6 +265,7 @@ def newton_inner_loop_cg(
     precond_rank: int = 128,
     storage: str = "auto",
     return_niter: bool = False,
+    mesh=None,
 ):
     """The mode f̂ with K(x, x) reached only through products,
     IFT-differentiable in the kernel's hyperparameters, the inputs, the
@@ -241,7 +276,7 @@ def newton_inner_loop_cg(
     answer): ``precond_rank``, the rank of the pivoted-Cholesky Woodbury
     preconditioner (0: none); ``storage`` ("auto", "chunked" or "dense", see
     :func:`_k_matvec`); and each Newton step's CG starts from the previous
-    step's solution."""
+    step's solution.  ``mesh`` splits every product over its ranks."""
     lik = as_likelihood(lik)
     X = as_points(x)
     if f_init is None:
@@ -252,7 +287,7 @@ def newton_inner_loop_cg(
     noise = torch.as_tensor(noise, dtype=X.dtype, device=X.device)
     leaves, build = _tree(_Problem(lik, ys, kern, X, noise))
     opts = _CGOptions(int(maxiter), float(tol), float(cg_tol), int(cg_maxiter), float(damping),
-                      block_size, int(precond_rank), storage)
+                      block_size, int(precond_rank), storage, mesh)
     info = {}
     f_opt = _NewtonSolveCG.apply(opts, build, info, f_init, *leaves)
     return (f_opt, info["n_iter"]) if return_niter else f_opt
@@ -266,6 +301,7 @@ class _SLQOptions:
     block_size: int | None
     precond_rank: int
     storage: str
+    mesh: object = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -292,7 +328,8 @@ class _LogdetBSLQ(torch.autograd.Function):
     @staticmethod
     def forward(ctx, opts, build, *leaves):
         p = build(leaves)
-        bmv = _b_matvec(_k_matvec(p.kern, p.x, opts.block_size, p.noise, opts.storage), p.Wsqrt)
+        bmv = _b_matvec(_k_matvec(p.kern, p.x, opts.block_size, p.noise, opts.storage,
+                                  opts.mesh), p.Wsqrt)
         alphas, betas = _lanczos_block(bmv, p.probes.T, opts.lanczos_iters)
         ctx.opts, ctx.build = opts, build
         ctx.save_for_backward(*leaves)
@@ -307,15 +344,15 @@ class _LogdetBSLQ(torch.autograd.Function):
             return (None,) * (2 + len(leaves))
         with torch.no_grad():
             p = build(leaves)
-            bmv = _b_matvec(_k_matvec(p.kern, p.x, opts.block_size, p.noise, opts.storage),
-                            p.Wsqrt)
+            bmv = _b_matvec(_k_matvec(p.kern, p.x, opts.block_size, p.noise, opts.storage,
+                                      opts.mesh), p.Wsqrt)
             Lr = _b_precond(p.kern, p.x, opts.precond_rank)
             W_solves = cg_solve(bmv, p.probes.T, tol=opts.cg_tol, maxiter=opts.cg_maxiter,
                                 M_inv=_b_minv(Lr, p.Wsqrt))  # (n, P)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(bool(n)) for t, n in zip(leaves, needs)]
             q = build(ins)
-            mv = _k_matvec(q.kern, q.x, opts.block_size, q.noise, opts.storage)
+            mv = _k_matvec(q.kern, q.x, opts.block_size, q.noise, opts.storage, opts.mesh)
             w = q.Wsqrt[:, None]
             bz = q.probes.T + w * mv(w * q.probes.T)
             sur = torch.mean(torch.sum(W_solves * bz, dim=0))
@@ -340,6 +377,7 @@ def laplace_lml_cg(
     precond_rank: int = 128,
     storage: str = "auto",
     probes: torch.Tensor | None = None,
+    mesh=None,
     **newton_kwargs,
 ):
     """The Laplace lml with ½ logdet(B), B = I + √W K √W, by stochastic
@@ -350,14 +388,16 @@ def laplace_lml_cg(
     implicit terms, as in the dense module), the log determinant through
     :class:`_LogdetBSLQ`.  The Rademacher probes come from ``generator``
     (a ``torch.Generator`` or an int seed) or are given as ``probes``
-    (num_probes, N); fixed probes give a deterministic objective."""
+    (num_probes, N); fixed probes give a deterministic objective.  ``mesh``
+    splits every product over its ranks; probes drawn here are rank 0's on
+    every rank."""
     lik = as_likelihood(lik)
     X = as_points(x)
     noise = torch.as_tensor(noise, dtype=X.dtype, device=X.device)
     if f_opt is None:
         f_opt = newton_inner_loop_cg(lik, ys, kern, X, block_size=block_size, cg_tol=cg_tol,
                                      cg_maxiter=cg_maxiter, noise=noise,
-                                     precond_rank=precond_rank, storage=storage,
+                                     precond_rank=precond_rank, storage=storage, mesh=mesh,
                                      **newton_kwargs)
     ll, d_ll, d2_ll = lik.log_prob_d1_d2(f_opt, ys)
     Wsqrt = torch.sqrt(-d2_ll)
@@ -366,10 +406,12 @@ def laplace_lml_cg(
         if generator is None:
             raise ValueError("laplace_lml_cg needs a generator (or seed) or the probes")
         probes = rademacher_probes(generator, num_probes, n, f_opt.dtype, f_opt.device)
+        if mesh is not None:
+            probes = _comm.broadcast(mesh, probes)
     probes = probes.to(dtype=f_opt.dtype, device=f_opt.device)
     leaves, build = _tree(_LogdetInputs(Wsqrt, kern, X, noise, probes))
     opts = _SLQOptions(int(lanczos_iters), float(cg_tol), int(cg_maxiter), block_size,
-                       int(precond_rank), storage)
+                       int(precond_rank), storage, mesh)
     logdet_B = _LogdetBSLQ.apply(opts, build, *leaves)
     # a = K⁻¹f̂ = ∇ll at the fixed point (f̂ = K ∇ll)
     return -0.5 * (d_ll @ f_opt) + ll - 0.5 * logdet_B
@@ -394,6 +436,8 @@ class LaplaceCG:
     # solution-invariant: the preconditioner's rank and the Gram's storage
     precond_rank: int = 128
     storage: str = "auto"
+    # a parallel.DataMesh: every product with K split over its ranks
+    mesh: Any = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -425,7 +469,8 @@ class LaplaceCGPosterior(AbstractGP):
         xt = self._train_x()
         la = self.approx
         Kxs = self.prior.cov(xt, x)  # (N, N*)
-        kmv = _k_matvec(self.prior.kernel, xt, la.block_size, self.lfx.fx.noise, la.storage)
+        kmv = _k_matvec(self.prior.kernel, xt, la.block_size, self.lfx.fx.noise, la.storage,
+                        la.mesh)
         Lr = _b_precond(self.prior.kernel, xt, la.precond_rank)
         V = cg_solve(_b_matvec(kmv, self.Wsqrt), self.Wsqrt[:, None] * Kxs, tol=la.cg_tol,
                      maxiter=la.cg_maxiter, M_inv=_b_minv(Lr, self.Wsqrt))
@@ -460,9 +505,10 @@ def _posterior_laplace_cg(la: LaplaceCG, lfx: LatentFiniteGP, ys, **_):
     f_opt = newton_inner_loop_cg(lik, ys, kern, x, f_init=la.f_init, maxiter=la.maxiter,
                                  tol=la.tol, cg_tol=la.cg_tol, cg_maxiter=la.cg_maxiter,
                                  damping=la.damping, block_size=la.block_size, noise=noise,
-                                 precond_rank=la.precond_rank, storage=la.storage)
+                                 precond_rank=la.precond_rank, storage=la.storage,
+                                 mesh=la.mesh)
     # one more Newton step at the mode, for the solved representer weight
-    kmv = _k_matvec(kern, x, la.block_size, noise, la.storage)
+    kmv = _k_matvec(kern, x, la.block_size, noise, la.storage, la.mesh)
     _fnew, a, _s = _newton_body_cg(lik, ys, kmv, f_opt, la.cg_tol, la.cg_maxiter, 1.0,
                                    Lr=_b_precond(kern, x, la.precond_rank))
     _ll, _d_ll, d2_ll = lik.log_prob_d1_d2(f_opt, ys)
@@ -483,5 +529,5 @@ def _approx_lml_laplace_cg(la: LaplaceCG, lfx: LatentFiniteGP, ys, *, generator=
         num_probes=la.num_probes, lanczos_iters=la.lanczos_iters, block_size=la.block_size,
         f_init=la.f_init, maxiter=la.maxiter, tol=la.tol, cg_tol=la.cg_tol,
         cg_maxiter=la.cg_maxiter, damping=la.damping, noise=lfx.fx.noise,
-        precond_rank=la.precond_rank, storage=la.storage,
+        precond_rank=la.precond_rank, storage=la.storage, mesh=la.mesh,
     )

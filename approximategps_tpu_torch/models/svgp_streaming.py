@@ -1,6 +1,6 @@
 """Streaming SVGP ELBO over a full data set (port of
-``approximategps_tpu/models/svgp_streaming.py``: ``streaming_data_term`` and
-``streaming_elbo``).
+``approximategps_tpu/models/svgp_streaming.py``: ``streaming_data_term``,
+``streaming_elbo`` and ``dp_streaming_elbo``).
 
 The data term is summed block by block, so the (M, N) cross-covariance is
 never formed.  The posterior cache comes from ``chol_with_inv`` (the (L, L⁻¹)
@@ -11,6 +11,7 @@ backward kernel rebuilds K0 on the card, where it serves (``prefer=remat``),
 and otherwise through the plain Gram and ``diag_quad_sym`` under
 ``torch.utils.checkpoint``, which recomputes the block's (M, B) Gram in the
 backward instead of keeping it (the port of ``jax.checkpoint``).
+:func:`dp_streaming_elbo` splits the points over the ranks of a data mesh.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core import linalg
 from ..core.kernels import as_points
 from ..core.quadrature import DefaultExpectationMethod, expected_loglikelihood
+from ..parallel import _comm
+from ..parallel.data_parallel import shard_batch
 from .svgp import (
     Centered,
     SparseVariationalApproximation,
@@ -29,7 +32,7 @@ from .svgp import (
     prior_kl,
 )
 
-__all__ = ["streaming_elbo", "streaming_data_term"]
+__all__ = ["streaming_elbo", "streaming_data_term", "dp_streaming_elbo"]
 
 
 def _pad_leading(a: torch.Tensor, pad: int) -> torch.Tensor:
@@ -112,5 +115,40 @@ def streaming_elbo(sva: SparseVariationalApproximation, lik, x: torch.Tensor, y:
     total_ell = streaming_data_term(sva, lik, x, y, block_size=block_size,
                                     quadrature=quadrature, remat=remat)
     n = y.shape[0]
+    scale = 1.0 if num_data is None else num_data / n
+    return total_ell * scale - prior_kl(sva)
+
+
+def dp_streaming_elbo(sva: SparseVariationalApproximation, lik, x: torch.Tensor,
+                      y: torch.Tensor, mesh, block_size: int = 8192,
+                      num_data: int | None = None, quadrature=None,
+                      remat: bool = True) -> torch.Tensor:
+    """:func:`streaming_elbo` with the points split over the ranks of
+    ``mesh`` (a :class:`~approximategps_tpu_torch.parallel.DataMesh`): each
+    rank streams its share of (x, y), the same on every rank, the shares'
+    data terms are summed over the ranks and the KL is subtracted once.
+    Differentiable: every rank gets the same gradient, the data term's
+    summed over the ranks once.
+
+    N need not divide the mesh size: the points are padded to a multiple
+    of it with copies of the first point, which the mask takes out of the
+    sum."""
+    n = y.shape[0]
+    pad = (-n) % mesh.size
+    w = torch.ones((n,), dtype=sva.q.mean.dtype, device=y.device)
+    x = as_points(x)
+    if pad:
+        x = _pad_leading(x, pad)
+        y = _pad_leading(y, pad)
+        w = torch.cat([w, torch.zeros((pad,), dtype=w.dtype, device=w.device)])
+    sl = shard_batch(mesh, n)
+    # the data term is this rank's share: its inputs' gradients are summed
+    # over the ranks; the KL below is computed once on every rank
+    ell = streaming_data_term(
+        _comm.replicate_tree(mesh, sva), _comm.replicate_tree(mesh, lik),
+        _comm.replicate(mesh, x)[sl], _comm.replicate(mesh, y)[sl],
+        block_size=min(block_size, sl.stop - sl.start), quadrature=quadrature, remat=remat,
+        mask=w[sl])
+    total_ell = _comm.sum_over_ranks(mesh, ell)
     scale = 1.0 if num_data is None else num_data / n
     return total_ell * scale - prior_kl(sva)

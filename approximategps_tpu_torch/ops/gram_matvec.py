@@ -17,10 +17,13 @@ The pass has two kernels, chosen by :func:`pass_part` from R alone: the
 narrow one on the SIMT units (``csrc/gram_matvec.cu``; f32 below
 ``MMA_FROM_R`` columns, and f64 always) and the wide one with the product on
 the tensor cores in 3xTF32 (``csrc/gram_matvec_mma.cu``; f32 from
-``MMA_FROM_R`` on).  :func:`gram_matvec_self` is the self-Gram K(X, X)·V as
-its own Function: its pullback is one pass (``csrc/gram_matvec_self_bwd.cu``
-in f32; :func:`gram_matvec_self_bwd_plain` on the CPU) that returns V̄ = K·Ō
-and X̄ = X̄q + Z̄k together, with r² and the map computed once a pair.
+``MMA_FROM_R`` on).  :func:`gram_matvec_self` is the self-Gram K(X, X)·V,
+the same Function without key points: its pullback is one pass
+(``csrc/gram_matvec_self_bwd.cu`` in f32; :func:`gram_matvec_self_bwd_plain`
+on the CPU) that returns V̄ = K·Ō and X̄ = X̄q + Z̄k together, with r² and the
+map computed once a pair.  The Function also takes the scalar scale of an
+isotropic lengthscale, whose cotangent is one pass of a third map,
+r²·g′(r²) (``deriv=2``), formed from r² itself.
 
 What bounds the kernels on the H100 is operations (an exp an entry, and R
 FMAs on the SIMT units or 3·R on the tensor cores), not bytes; the notes in
@@ -81,11 +84,19 @@ def _count_launch(kind: str, R: int) -> None:
     launches_by_pass[kind, R] = launches_by_pass.get((kind, R), 0) + 1
 
 
+def _entry(kmap: KernelMap, deriv: int):
+    """h of a pass: g (deriv 0), g′ (1) or r²·g′(r²) (2)."""
+    if deriv == 2:
+        return lambda r2: kmap.dk_of_r2(r2) * r2
+    return kmap.dk_of_r2 if deriv else kmap.k_of_r2
+
+
 def gram_matvec_plain(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: KernelMap,
-                      deriv: bool = False) -> torch.Tensor:
+                      deriv: int = 0) -> torch.Tensor:
     """The plain PyTorch version of one pass: exact-difference r², the map
-    (g, or g′ with ``deriv``), and the product, in row chunks."""
-    fn = kmap.dk_of_r2 if deriv else kmap.k_of_r2
+    (g; g′ with ``deriv`` 1 or True; r²·g′(r²) with ``deriv`` 2), and the
+    product, in row chunks."""
+    fn = _entry(kmap, int(deriv))
     vec = V.ndim == 1
     V2 = V[:, None] if vec else V
     N, D = Xq.shape
@@ -106,8 +117,9 @@ def pass_part(R: int, dtype: torch.dtype = torch.float32) -> str:
 
 
 def gram_matvec_pass(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: KernelMap,
-                     deriv: bool = False, part: str | None = None) -> torch.Tensor:
-    """One pass out = h(r²(Xq, Zk))·V, h = g (or g′ with ``deriv``); Xq
+                     deriv: int = 0, part: str | None = None) -> torch.Tensor:
+    """One pass out = h(r²(Xq, Zk))·V, h = g (g′ with ``deriv`` 1 or True,
+    r²·g′(r²) with ``deriv`` 2: the lengthscale's cotangent); Xq
     (N, D ≤ 8), Zk (M, D), V (M,) or (M, R ≤ 128).  A CPU tensor takes
     :func:`gram_matvec_plain`; a CUDA tensor launches the kernel that
     :func:`pass_part` names (or ``part``: "simt", or "mma" in f32) or
@@ -123,6 +135,7 @@ def gram_matvec_pass(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor, kmap: 
         or Xq.ndim != 2 or Zk.ndim != 2 or V2.ndim != 2
         or not 1 <= Xq.shape[1] <= _MAX_D or Zk.shape[1] != Xq.shape[1]
         or V2.shape[0] != Zk.shape[0] or not 1 <= V2.shape[1] <= _MAX_R
+        or int(deriv) not in (0, 1, 2)
     ):
         raise ValueError(
             f"gram_matvec: needs Xq (N, D <= {_MAX_D}), Zk (M, D), V (M,) or (M, R <= {_MAX_R}) "
@@ -200,18 +213,49 @@ def gram_matvec_bwd(Xq, Zk, V, obar, kmap: KernelMap, needs=(True, True, True)):
 
 
 class _GramMatvec(torch.autograd.Function):
+    """K(Xq·s, Zk·s)·V, the one Function of the three products: the cross
+    product (``Zk`` given) with the general pullback's passes, the
+    self-Gram K(Xq·s, Xq·s)·V (``Zk`` None) with its one-pass pullback, and
+    ``s`` an optional scalar input scale (the inverse of an isotropic
+    lengthscale).  The points' cotangents are s times the scaled points';
+    s's own is formed from r² itself,
+
+        s̄ = (2/s) Σᵢ Ōᵢ·[H V]ᵢ,   H = r²·g′(r²),
+
+    one more pass, where Σᵢ x̄ᵢ·xᵢ of the points' cotangents would cancel
+    (translation invariance makes their sum 0) and lose digits in f32.  A
+    pullback of s alone is that one pass; of s and V with the points fixed
+    (the logdet surrogate's V = w∘Zᵀ), that pass and V̄ = K·Ō."""
+
     @staticmethod
-    def forward(ctx, Xq, Zk, V, kmap):
-        ctx.kmap = kmap
-        ctx.save_for_backward(Xq, Zk, V)
-        return gram_matvec_pass(Xq, Zk, V, kmap)
+    def forward(ctx, Xq, Zk, V, s, kmap):
+        Xqs = Xq if s is None else Xq * s
+        Zks = Xqs if Zk is None else (Zk if s is None else Zk * s)
+        ctx.kmap, ctx.self_gram = kmap, Zk is None
+        ctx.save_for_backward(Xqs, Zks, V, s)
+        return gram_matvec_pass(Xqs, Zks, V, kmap)
 
     @staticmethod
     def backward(ctx, obar):
-        Xq, Zk, V = ctx.saved_tensors
-        grads = gram_matvec_bwd(Xq, Zk, V, obar.to(Xq.dtype).contiguous(), ctx.kmap,
-                                ctx.needs_input_grad[:3])
-        return (*grads, None)
+        Xqs, Zks, V, s = ctx.saved_tensors
+        kmap = ctx.kmap
+        need_xq, need_zk, need_v, need_s = ctx.needs_input_grad[:4]
+        O = obar.to(Xqs.dtype).contiguous()
+        Xq_bar = Zk_bar = V_bar = s_bar = None
+        if ctx.self_gram and need_xq:
+            Xq_bar, V_bar = gram_matvec_self_bwd(Xqs, V, O, kmap)
+        elif need_xq or need_zk or need_v:
+            # a self-Gram with its points fixed wants V̄ = K·Ō alone: one pass
+            Xq_bar, Zk_bar, V_bar = gram_matvec_bwd(Xqs, Zks, V, O, kmap,
+                                                    (need_xq, need_zk, need_v))
+        if s is not None:
+            Xq_bar = None if Xq_bar is None else s * Xq_bar
+            Zk_bar = None if Zk_bar is None else s * Zk_bar
+        if need_s:
+            H = gram_matvec_pass(Xqs, Zks, V, kmap, deriv=2)
+            pullback_passes["passes"] += 1
+            s_bar = (2.0 / s) * torch.sum(O * H)
+        return (Xq_bar if need_xq else None, Zk_bar, V_bar if need_v else None, s_bar, None)
 
 
 def gram_matvec(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor,
@@ -221,7 +265,7 @@ def gram_matvec(Xq: torch.Tensor, Zk: torch.Tensor, V: torch.Tensor,
     three through the pass itself (see the module note); no forward-mode
     rule.  Fold lengthscales into the inputs and the variance onto the
     output."""
-    return _GramMatvec.apply(Xq, Zk, V, kmap)
+    return _GramMatvec.apply(Xq, Zk, V, None, kmap)
 
 
 gram_matvec.launches = 0
@@ -284,7 +328,9 @@ def _self_bwd_kernel(X, V2, O2, kmap: KernelMap):
     N, D = X.shape
     R = V2.shape[1]
     chunks = -(-R // _SELF_BWD_CHUNK)
-    V_bar = torch.empty_like(V2)
+    # row-major as the kernel writes it, whatever V's strides (empty_like
+    # would copy a column-major V's, as w∘Zᵀ has them)
+    V_bar = torch.empty((N, R), dtype=X.dtype, device=X.device)
     X_bar = torch.empty((chunks, N, D), dtype=X.dtype, device=X.device)
     if N > 0:
         X, V2, O2 = X.contiguous(), V2.contiguous(), O2.contiguous()
@@ -299,27 +345,12 @@ def _self_bwd_kernel(X, V2, O2, kmap: KernelMap):
     return (X_bar[0] if chunks == 1 else X_bar.sum(dim=0)), V_bar
 
 
-class _GramMatvecSelf(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, X, V, kmap):
-        ctx.kmap = kmap
-        ctx.save_for_backward(X, V)
-        return gram_matvec_pass(X, X, V, kmap)
-
-    @staticmethod
-    def backward(ctx, obar):
-        X, V = ctx.saved_tensors
-        X_bar, V_bar = gram_matvec_self_bwd(X, V, obar.to(X.dtype).contiguous(), ctx.kmap)
-        return (X_bar if ctx.needs_input_grad[0] else None,
-                V_bar if ctx.needs_input_grad[1] else None, None)
-
-
 def gram_matvec_self(X: torch.Tensor, V: torch.Tensor, kmap: KernelMap) -> torch.Tensor:
     """K(X, X)·V without K: X (N, D ≤ 8), V (N,) or (N, R ≤ 128) → (N,) or
     (N, R), the forward one pass of :func:`gram_matvec_pass`.  Reverse-mode
     differentiable in X and V through :func:`gram_matvec_self_bwd` (one
     pass for both); no forward-mode rule."""
-    return _GramMatvecSelf.apply(X, V, kmap)
+    return _GramMatvec.apply(X, None, V, None, kmap)
 
 
 def _has_tangent(*ts) -> bool:
@@ -357,16 +388,23 @@ def fused_stationary_matvec(kernel, X: torch.Tensor, Xq: torch.Tensor | None = N
     kmap, scale, variance = uw
     if _has_tangent(X, Xq, scale, variance):
         return None
-    Xs = X if scale is None else X * _param(scale, X)
-    Xqs = None if Xq is None else (Xq if scale is None else Xq * _param(scale, Xq))
     max_rhs = int(config.matvec_fused_max_rhs)
+    s = None if scale is None else _param(scale, X)
+    if s is not None and s.numel() == 1:
+        # an isotropic lengthscale, whose cotangent the Function forms from r²
+        s = s.reshape(())
+    elif s is not None:
+        X, Xq, s = X * s, None if Xq is None else Xq * s, None
+
+    def product(v):
+        return _GramMatvec.apply(X if Xq is None else Xq, None if Xq is None else X, v, s, kmap)
 
     def fused(v):
         if v.ndim not in (1, 2) or _has_tangent(v):
             return None
         if v.ndim == 2 and v.shape[1] > max_rhs:
             return None
-        out = gram_matvec_self(Xs, v, kmap) if Xqs is None else gram_matvec(Xqs, Xs, v, kmap)
+        out = product(v)
         return out if variance is None else _param(variance, out) * out
 
     return fused

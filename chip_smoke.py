@@ -239,9 +239,27 @@ Phases (a failing phase raises, and the script exits non-zero):
 19. Leave-one-out: ``loo_logpdf``'s value and θ-gradient at N = 5000
     (``laplace_n5k``'s points, softplus-SE, noise 0.1), f32 against f64 on
     the card, timed; no kernel.
+20. The data-parallel layer (``parallel/``, ``dp_streaming_elbo``, the
+    ``mesh=`` paths) over a ``torch.distributed`` world of this one process
+    on NCCL (one card takes one rank; no other backend is tried), each path
+    run with the counts set to 0 and held against its single-card
+    counterpart on the same inputs, both timed (the difference is the
+    layer's cost at a world of one): (a) ``dp_predict_blocks`` over phase
+    4's 10^6 points (row 1 once, row 2 62 times); (b) ``make_dp_train_step``
+    on phase 5's minibatch cell, 30 Adam steps over the same batches as
+    ``adam_fit`` from the same start (row 1 once a step); (c)
+    ``dp_streaming_elbo`` at phase 6's 2^20 points (row 4 once, rows 2 and
+    3 64 times); (d) the matrix-free tier on row bands: ``logpdf_slq``'s
+    value and θ-gradient at phase 7's exact GP, a ``posterior_cg`` serve,
+    ``newton_inner_loop_cg`` at 10^5 (chunked, the cross pass) and at
+    2·10^4 (``storage="dense"``: the rank's 1.6 GB band of K stored), and
+    ``laplace_lml_cg``'s θ-gradient at 2·10^4 against the f64 run on the
+    band route and the single-card one (row 5's cross pass at R = 1 and
+    16, the general pullback's transposed pass and the lengthscale's
+    r²·g′ pass), row 5's launches counted by pass.
 
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-19 (each run with the counts
+source, launches in the path runs of phases 4-20 (each run with the counts
 set to 0 just before it), error, times and bound (the least time the card
 could take for the work: operations over the peak rate of their unit or
 bytes over the memory rate, whichever is larger); the last line is
@@ -253,10 +271,12 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import socket
 import statistics
 import subprocess
 import sys
 import time
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -488,14 +508,15 @@ LAP_SAMPLES, LAP_SAMPLE_NOISE, LAP_SUBSET = 16, 0.01, 256
 # plain route (1.55e-5) and, no further than max(LAP_LOGDET_RTOL32, twice the plain route's
 # distance), the f64 run (1.41e-4, plain 1.57e-4: f32 Lanczos); the θ-gradient against the
 # f64 run, row 5 no further than max(LAP_GRAD_RTOL32, twice the plain route's distance): at
-# 2·10^4 row 5 read 1.04e-3 and the plain route 1.25e-5, because row 5 reaches the
-# lengthscale through the points' cotangents (the Function takes X·scale), whose sum cancels
-# (translation invariance), so f32 leaves about 1e-3 of that entry, as in phases 7 and 9; at
-# 10^5 (rank 512) row 5 alone (2.5e-5); the prior sampler with the same normals, row 5
+# 2·10^4 row 5 read 1.39e-5 and the plain route 1.25e-5 (row 5 read 1.04e-3 while the
+# self-Gram pullback wrote V̄ row-major into a tensor with the column-major strides of the
+# logdet surrogate's V = w∘Zᵀ, which scrambled it; see scripts/profile_exact_gp_torch.py
+# lengthscale); at 10^5 (rank 512) row 5 alone (2.5e-5); the prior sampler with the same
+# normals, row 5
 # against the plain route (6.3e-5); the serve against the f64 dense posterior (the mean
 # 4.0e-5, and the variance's largest error over the prior variance 8.7e-7)
 LAP5K_RTOL32, LAP_MODE_RTOL32, LAP_STEP_RTOL32, LAP_LML_RTOL32 = 1e-4, 1e-3, 3e-3, 1e-6
-LAP_LOGDET_RTOL32, LAP_GRAD_RTOL32, LAP_GRAD_BIG_RTOL32 = 5e-5, 2e-3, 1e-4
+LAP_LOGDET_RTOL32, LAP_GRAD_RTOL32, LAP_GRAD_BIG_RTOL32 = 5e-5, 5e-5, 1e-4
 LAP_SAMPLE_RTOL32, LAP_POST_RTOL32 = 2e-4, 2e-4
 # Phase 16, pathwise sampling.  (a) sample_posterior_functions_cg at laplace_cg_lml's exact-GP
 # size (phase 7's data model: N = 10^5 on [0, 10]^2, y = sin(x_0) + 0.1·N(0, 1), noise 0.1),
@@ -544,6 +565,15 @@ N_ONLINE_CHECK, ONLINE_Q_RTOL32 = 1 << 16, 3e-4
 # θ = (1, 1), noise 0.1, y = sin(x) + 0.1·N(0, 1) (numpy); f32 against f64 on the card (read:
 # value 2.2e-6, θ-gradient 9.4e-5 of its largest entry, an NVIDIA H100 80GB HBM3, 700 W)
 N_LOO, LOO_NOISE, LOO_VALUE_RTOL32, LOO_GRAD_RTOL32 = 5000, 0.1, 1e-5, 5e-4
+# Phase 20, the data-parallel layer over an NCCL world of one: each path against its single-card
+# counterpart in f32, relative to the largest entry.  At a world of one the band is all of K and
+# the cross pass is the self-Gram's forward pass, so the serve, the steps, the stream, the SLQ
+# value and gradient and the chunked Newton mode repeat the single-card bits unless the layer
+# adds rounding (DP_RTOL32: an NVIDIA H100 80GB HBM3, 700 W, read every one bitwise equal but
+# the SLQ θ-gradient, 7.1e-8, and the stream's dA, 5.9e-8, where autograd adds the cotangents
+# in another order); the stored band is the cross Gram K(X, X), built by another route than the
+# symmetric Gram (DP_DENSE_RTOL32; read 1.7e-4: Newton stops at a relative step of 1e-4)
+DP_RTOL32, DP_DENSE_RTOL32 = 1e-6, 1e-3
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
 # paper) × 132 SMs × 1.98 GHz boost; TF32 on the tensor cores (dense)
@@ -953,10 +983,11 @@ def bound(flops: float, nbytes: float, exps: float = 0.0, tc_flops: float = 0.0)
 
 
 def parity_gram_matvec(dev, maps: dict) -> dict:
-    """Kernel 5 against its plain version: f64 at N = 8192 (every map, g
-    and g′, the pullback on the self-Gram), then f32 at the path's shape,
-    N = M = 10^5 and D = 2 on the SE map, with the times of R = 1, R = 16
-    and one pullback at R = 16."""
+    """Kernel 5 against its plain version: f64 at N = 8192 (every map, g,
+    g′ and r²·g′, the pullback on the self-Gram), then f32 at the path's
+    shape, N = M = 10^5 and D = 2 on the SE map (g at every width, r²·g′ at
+    R = 1 and 16), with the times of R = 1, R = 16 and one pullback at
+    R = 16."""
     rng = np.random.default_rng(SEED + 6)
     t = lambda a, dtype=torch.float64: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
     X64 = t(rng.uniform(0.0, 10.0, (N_GP64, D_GP)))
@@ -965,12 +996,12 @@ def parity_gram_matvec(dev, maps: dict) -> dict:
         worst = 0.0
         for R in (1, 16):
             V = t(rng.standard_normal((Z64.shape[0], R) if R > 1 else Z64.shape[0]))
-            for deriv in (False, True):
+            for deriv in (0, 1, 2):
                 got = gram_matvec.gram_matvec_pass(X64, Z64, V, kmap, deriv)
                 worst = max(worst, rel_err(got, gram_matvec.gram_matvec_plain(X64, Z64, V, kmap,
                                                                                deriv)))
         check(worst <= 1e-12, f"gram_matvec f64 N={N_GP64} M={Z64.shape[0]} D={D_GP} {name}, "
-              f"g and g', R = 1 and 16: rel err {worst:.3e} <= 1e-12")
+              f"g, g' and r2*g', R = 1 and 16: rel err {worst:.3e} <= 1e-12")
     names = ("Xq_bar", "Zk_bar", "V_bar")
     V64, W64 = t(rng.standard_normal((N_GP64, 16))), t(rng.standard_normal((N_GP64, 16)))
     for name in ("se", "matern12", "matern52"):
@@ -1028,6 +1059,15 @@ def parity_gram_matvec(dev, maps: dict) -> dict:
             out[f"r{R}"] = {"max_abs_err": max_abs(results[part], ref),
                             "part": part, "ms": times[part, R], "plain_ms": plain_ms,
                             "bound_ms": b_ms, "bound_by": b_by, "bound_ms_simt": s_ms}
+    # the r²·g′ pass (the lengthscale's cotangent of every θ-only pullback) on
+    # the kernel each width takes
+    for R in (1, 16):
+        V = t(rng.standard_normal((N_GP, R) if R > 1 else N_GP), torch.float32)
+        part = gram_matvec.pass_part(R)
+        got = gram_matvec.gram_matvec_pass(X, X, V, se, deriv=2, part=part)
+        e = rel_err(got, gram_matvec.gram_matvec_plain(X, X, V, se, deriv=2))
+        check(e <= 1e-5, f"gram_matvec {part} f32 N=M={N_GP} D={D_GP} R={R} se, r2*g' map: "
+              f"rel err {e:.3e} <= 1e-5")
     faster = [R for R in GMV_CROSSOVER_R if times["mma", R] < times["simt", R]]
     print(f"crossover: the mma pass is faster at R = {faster}; "
           f"pass_part takes it from R = {gram_matvec.MMA_FROM_R}")
@@ -2870,8 +2910,10 @@ def phase_laplace(dev) -> tuple[dict, dict]:
         (gv, gg), got_g = counted(lambda: lap_lml(theta, x, y, probes, True, **big), launches)
     passes = dict(gram_matvec.pullback_passes)
     st = dict(iterative.stats)
-    need = (("narrow", 1), ("wide", LAP_PROBES), ("self pullback", 1),
-            ("self pullback", LAP_PROBES))
+    # the IFT pullback at R = 1 (neither the points nor ∇ll carry a gradient) is the
+    # lengthscale's r²·g′ pass; the logdet surrogate's (V̄ wanted, the points fixed) that pass
+    # and V̄ = K·Ō at R = 16
+    need = (("narrow", 1), ("wide", LAP_PROBES))
     check(got_v == only(gram_matvec=st_v["matvec_fused"])
           and got_g == only(gram_matvec=st["matvec_fused"] + passes["passes"])
           and st_v["matvec_plain"] == st["matvec_plain"] == 0
@@ -2997,7 +3039,8 @@ def phase_laplace(dev) -> tuple[dict, dict]:
           "deviations of ⟨W, emp − C⟩: "
           + ", ".join(f"{k} {t:.4g} (sd {sd:.4g})" for k, (t, sd) in stats.items()))
 
-    # (e) row 5's self-Gram pullback at R = 1, the Newton IFT's shape
+    # (e) row 5's self-Gram pullback at R = 1, the Newton IFT's shape where the points carry a
+    # gradient
     rng = np.random.default_rng(SEED + 53)
     X = torch.tensor(rng.uniform(0.0, 10.0, (N_LAP, D_LAP)), **f32)
     V, Wb = (torch.tensor(rng.standard_normal((N_LAP, 1)), **f32) for _ in range(2))
@@ -3370,6 +3413,254 @@ def phase_loo(dev) -> dict:
     return launches
 
 
+def same(a: torch.Tensor, b: torch.Tensor) -> str:
+    """"bitwise equal" or the relative error, for the prints."""
+    return "bitwise equal" if torch.equal(a, b) else f"rel err {rel_err(a, b):.3e}"
+
+
+def phase_dp(dev) -> dict:
+    """Phase 20: the data-parallel layer over an NCCL world of one; returns
+    each path run's launches."""
+    by_path = {}
+    with world_of_one(dev) as mesh:
+        print(f"data mesh: rank {mesh.rank} of {mesh.size} on {mesh.device}, backend "
+              f"{torch.distributed.get_backend(mesh.group)}")
+        by_path["dp_serving"] = dp_serving(dev, mesh)
+        by_path["dp_minibatch"] = dp_minibatch(dev, mesh)
+        by_path["dp_streaming"] = dp_streaming(dev, mesh)
+        by_path["dp_matrix_free"] = dp_matrix_free(dev, mesh)
+    return by_path
+
+
+def dp_serving(dev, mesh) -> dict:
+    """(a) ``dp_predict_blocks`` over phase 4's 10^6 points."""
+    tparams = convert.from_jax_params(slice_params(), device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = torch.randn((N_TEST, D), generator=gen, device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        reset_counts()
+        post = build_posterior(tparams)
+        mu, var = tgp.parallel.dp_predict_blocks(post, xs, mesh, block_size=BLOCK)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        n_blocks = -(-N_TEST // BLOCK)
+        mu0, var0 = post.predict_blocks(xs, block_size=BLOCK)
+        e = max(rel_err(mu, mu0), rel_err(var, var0))
+        check(launches == only(gram_chol_inv=1, svgp_data_epilogue=n_blocks)
+              and mu.shape == var.shape == (N_TEST,) and e <= DP_RTOL32,
+              f"dp_predict_blocks over {N_TEST} points: row 1 once, row 2 {n_blocks} times "
+              f"({launches}); against predict_blocks: mean {same(mu, mu0)}, variance "
+              f"{same(var, var0)} (<= {DP_RTOL32:g})")
+        dp_ms = cuda_ms(lambda: tgp.parallel.dp_predict_blocks(post, xs, mesh, BLOCK), 3)
+        one_ms = cuda_ms(lambda: post.predict_blocks(xs, block_size=BLOCK), 3)
+    print(f"time dp_predict_blocks {dp_ms:.3f} ms, predict_blocks {one_ms:.3f} ms over {N_TEST} "
+          f"points (the layer at a world of one: {dp_ms - one_ms:.3f} ms; {CARD})")
+    return launches
+
+
+def dp_minibatch(dev, mesh) -> dict:
+    """(b) ``make_dp_train_step`` on phase 5's cell against ``adam_fit``
+    over the same batches from the same start."""
+    rng = np.random.default_rng(SEED + 2)
+    params = {"k": np.array(RAW_K), "z": rng.standard_normal((M, D)), "m": np.zeros(M),
+              "A": np.eye(M)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn((N_DATA, D), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + NOISE * torch.randn((N_DATA,), generator=gen, device=dev)
+    idx = [torch.randint(0, N_DATA, (BATCH,), generator=gen, device=dev) for _ in range(STEPS)]
+    batches = [(x[i], y[i]) for i in idx]
+
+    def start():
+        return {k: t.detach() for k, t in leaf_params(params, dev, torch.float32).items()}
+
+    p = start()
+    reset_counts()
+    step = tgp.parallel.make_dp_train_step(
+        minibatch_loss, lambda ls: torch.optim.Adam(ls, lr=LR), mesh)
+    losses = [step(p, xb, yb)[1] for xb, yb in batches]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    q, losses0 = tgp.adam_fit(minibatch_loss, start(), batches, learning_rate=LR)
+    el = rel_err(torch.stack(losses), torch.stack(losses0))
+    ep = {k: rel_err(p[k], q[k]) for k in p}
+    check(launches == only(gram_chol_inv=STEPS) and el <= DP_RTOL32
+          and max(ep.values()) <= DP_RTOL32,
+          f"make_dp_train_step, {STEPS} Adam steps: row 1 once a step "
+          f"({launches['gram_chol_inv']}); against adam_fit on the same batches: losses "
+          f"{same(torch.stack(losses), torch.stack(losses0))}, parameters "
+          + ", ".join(f"{k} {same(p[k], q[k])}" for k in p)
+          + f" (<= {DP_RTOL32:g})")
+    reps = 10
+    dp_ms = cuda_ms(lambda: [step(p, xb, yb) for xb, yb in batches[:reps]], 3) / reps
+    one_ms = cuda_ms(lambda: tgp.adam_fit(minibatch_loss, q, batches[:reps], LR), 3) / reps
+    print(f"time minibatch step: make_dp_train_step {dp_ms:.3f} ms, adam_fit {one_ms:.3f} ms a "
+          f"step (the layer: {dp_ms - one_ms:.3f} ms; {CARD})")
+    return launches
+
+
+def dp_streaming(dev, mesh) -> dict:
+    """(c) ``dp_streaming_elbo`` at phase 6's 2^20 points."""
+    params = slice_params()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn((N_STREAM, D), generator=gen, device=dev)
+    y = torch.sin(x[:, 0])
+    lik = tgp.GaussianLikelihood(NOISE)
+
+    def loss_dp(p):
+        sva, _ = bench_sva(p)
+        return -tgp.dp_streaming_elbo(sva, lik, x, y, mesh, block_size=BLOCK)
+
+    def loss_one(p):
+        sva, _ = bench_sva(p)
+        return -tgp.streaming_elbo(sva, lik, x, y, block_size=BLOCK)
+
+    n_blocks = N_STREAM // BLOCK
+    reset_counts()
+    v, g = value_and_grad(loss_dp, leaf_params(params, dev, torch.float32))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    v0, g0 = value_and_grad(loss_one, leaf_params(params, dev, torch.float32))
+    e = max([rel_err(v, v0)] + [rel_err(g[k], g0[k]) for k in g])
+    check(launches == only(svgp_data_epilogue=n_blocks, svgp_data_epilogue_bwd=n_blocks,
+                           chol_inv=1) and e <= DP_RTOL32,
+          f"dp_streaming_elbo N={N_STREAM}: row 4 once, rows 2 and 3 {n_blocks} times each "
+          f"({launches}); against streaming_elbo: value {same(v, v0)}, gradients "
+          + ", ".join(f"d{k} {same(g[k], g0[k])}" for k in g) + f" (<= {DP_RTOL32:g})")
+    q = leaf_params(params, dev, torch.float32)
+    dp_ms = cuda_ms(lambda: value_and_grad(loss_dp, q), 3)
+    one_ms = cuda_ms(lambda: value_and_grad(loss_one, q), 3)
+    print(f"time streaming value and gradient: dp_streaming_elbo {dp_ms:.3f} ms, streaming_elbo "
+          f"{one_ms:.3f} ms (the layer: {dp_ms - one_ms:.3f} ms; {CARD})")
+    return launches
+
+
+def dp_matrix_free(dev, mesh) -> dict:
+    """(d) the matrix-free tier on row bands against the single-card
+    routes."""
+    launches = {k: 0 for k in COUNTERS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = 10.0 * torch.rand((N_GP, D_GP), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + 0.1 * torch.randn((N_GP,), generator=gen, device=dev)
+    xs = 10.0 * torch.rand((GP_N_TEST, D_GP), generator=gen, device=dev)
+    probes = iterative.rademacher_probes(gen, GP_PROBES, N_GP, torch.float32, dev)
+    theta0 = convert.from_jax_params(GP_THETA, device=dev, dtype=torch.float32)
+    Lk = iterative.pivoted_cholesky(convert.build_exact_fx(theta0, x).f.kernel, x, GP_RANK)
+
+    def slq(m):
+        th = theta0.clone().requires_grad_()
+        v = -tgp.logpdf_slq(convert.build_exact_fx(th, x), y, probes=probes, precond_Lk=Lk,
+                            mesh=m, **GP_SLQ)
+        return v.detach(), torch.autograd.grad(v, th)[0]
+
+    def serve(m):
+        with torch.no_grad():
+            post = tgp.posterior_cg(convert.build_exact_fx(theta0, x), y, tol=GP_SLQ["cg_tol"],
+                                    precond_rank=GP_RANK, block_size=GP_SLQ["block_size"], mesh=m)
+            return post.mean_and_var(xs)
+
+    tally = {}
+    with row5_by_pass(tally):
+        (v, g), got = counted(lambda: slq(mesh), launches)
+    st, passes = dict(iterative.stats), dict(gram_matvec.pullback_passes)
+    v0, g0 = slq(None)
+    check(got == only(gram_matvec=st["matvec_fused"] + passes["passes"])
+          and st["matvec_plain"] == 0 and rel_err(v, v0) <= DP_RTOL32
+          and rel_err(g, g0) <= DP_RTOL32,
+          f"logpdf_slq(mesh) N={N_GP}: {got['gram_matvec']} row-5 launches = {st['matvec_fused']} "
+          f"band matvecs + {passes['passes']} pullback passes ({by_pass(tally)}), none plain; "
+          f"against the single card: value {same(v, v0)}, θ-gradient {same(g, g0)} "
+          f"(<= {DP_RTOL32:g})")
+    slq_ms, slq0_ms = cuda_ms(lambda: slq(mesh), 2), cuda_ms(lambda: slq(None), 2)
+    tally = {}
+    with row5_by_pass(tally):
+        (mu, var), got = counted(lambda: serve(mesh), launches)
+    mu0, var0 = serve(None)
+    check(got["gram_matvec"] > 0 and rel_err(mu, mu0) <= DP_RTOL32
+          and rel_err(var, var0) <= DP_RTOL32,
+          f"posterior_cg(mesh) at {GP_N_TEST} points: {got['gram_matvec']} row-5 launches "
+          f"({by_pass(tally)}); against the single card: mean {same(mu, mu0)}, variance "
+          f"{same(var, var0)} (<= {DP_RTOL32:g})")
+    serve_ms, serve0_ms = cuda_ms(lambda: serve(mesh), 2), cuda_ms(lambda: serve(None), 2)
+    print(f"time exact GP on the band route (medians of 2 after a warm-up): logpdf_slq value and "
+          f"θ-gradient {slq_ms:.3f} ms (single card {slq0_ms:.3f}), posterior_cg serve "
+          f"{serve_ms:.3f} ms (single card {serve0_ms:.3f}) ({CARD})")
+
+    # CG-Newton at 10^5 (chunked: the cross pass) and 2·10^4 (the stored band)
+    xl, yl = convert.laplace_data(N_LAP, D_LAP, seed=SEED + 51, device=dev)
+    theta = torch.tensor(convert.LAPLACE_CG_THETA, dtype=torch.float32, device=dev)
+    big = dict(precond_rank=LAP_RANK, block_size=LAP_BLOCK)
+    tally = {}
+    with row5_by_pass(tally):
+        (f, n), got = counted(lambda: lap_mode(theta, xl, yl, mesh=mesh, **big), launches)
+    st = dict(iterative.stats)
+    f0, n0 = lap_mode(theta, xl, yl, **big)
+    check(got == only(gram_matvec=st["matvec_fused"]) and st["matvec_plain"] == 0
+          and n == n0 and rel_err(f, f0) <= DP_RTOL32,
+          f"newton_inner_loop_cg(mesh) N={N_LAP} chunked: {n} Newton steps (single card {n0}), "
+          f"{got['gram_matvec']} row-5 launches ({by_pass(tally)}); the mode against the single "
+          f"card {same(f, f0)} (<= {DP_RTOL32:g})")
+    mode_ms = cuda_ms(lambda: lap_mode(theta, xl, yl, mesh=mesh, **big), 2)
+    mode0_ms = cuda_ms(lambda: lap_mode(theta, xl, yl, **big), 2)
+    xm, ym = xl[:N_LAP_MID], yl[:N_LAP_MID]
+    dense = dict(precond_rank=LAP_RANK_MID, storage="dense")
+    torch.cuda.reset_peak_memory_stats()
+    (fd, nd), got = counted(lambda: lap_mode(theta, xm, ym, mesh=mesh, **dense), launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fd0, nd0 = lap_mode(theta, xm, ym, **dense)
+    ed = rel_err(fd, fd0)
+    check(got == only() and ed <= DP_DENSE_RTOL32,
+          f"newton_inner_loop_cg(mesh) N={N_LAP_MID} dense: {nd} Newton steps (single card "
+          f"{nd0}), no kernel launched, peak {peak:.2f} GiB (the band {N_LAP_MID}² f32 "
+          f"{4 * N_LAP_MID ** 2 / 2**30:.2f} GiB); the mode against the single card's resident "
+          f"Gram rel err {ed:.3e} <= {DP_DENSE_RTOL32:g}")
+    dense_ms = cuda_ms(lambda: lap_mode(theta, xm, ym, mesh=mesh, **dense), 2)
+    dense0_ms = cuda_ms(lambda: lap_mode(theta, xm, ym, **dense), 2)
+    # the lml's θ-gradient at 2·10^4 on the band route (the general pullback's
+    # transposed pass, the lengthscale's r²·g′ pass) against the f64 run
+    pm = iterative.rademacher_probes(torch.Generator(device=dev).manual_seed(SEED + 52),
+                                     LAP_PROBES, N_LAP, torch.float32, dev)[:, :N_LAP_MID]
+    chunked = dict(precond_rank=LAP_RANK_MID, storage="chunked", block_size=LAP_BLOCK)
+    tally = {}
+    with row5_by_pass(tally):
+        (vb, gb), got = counted(lambda: lap_lml(theta, xm, ym, pm, True, mesh=mesh, **chunked),
+                                launches)
+    vs, gs = lap_lml(theta, xm, ym, pm, True, **chunked)
+    _, g64 = lap_lml(theta.double(), xm.double(), ym, pm.double(), True, **chunked)
+    eb, es = rel_err(gb, g64), rel_err(gs, g64)
+    check(got["gram_matvec"] > 0 and rel_err(vb, vs) <= DP_RTOL32
+          and eb <= max(LAP_GRAD_RTOL32, 2 * es),
+          f"laplace_cg_lml(mesh) N={N_LAP_MID}: {got['gram_matvec']} row-5 launches "
+          f"({by_pass(tally)}); value against the single card {same(vb, vs)}; θ-gradient against "
+          f"the f64 run: band route {eb:.3e}, single card {es:.3e}, <= max({LAP_GRAD_RTOL32:g}, "
+          f"2 × the single card's) (band {gb.tolist()}, f64 {g64.tolist()})")
+    lml_ms = cuda_ms(lambda: lap_lml(theta, xm, ym, pm, True, mesh=mesh, **chunked), 2)
+    lml0_ms = cuda_ms(lambda: lap_lml(theta, xm, ym, pm, True, **chunked), 2)
+    print(f"time Laplace on the band route (medians of 2 after a warm-up): newton_inner_loop_cg "
+          f"N={N_LAP} {mode_ms:.3f} ms (single card {mode0_ms:.3f}), N={N_LAP_MID} dense "
+          f"{dense_ms:.3f} ms (single card {dense0_ms:.3f}), laplace_cg_lml with θ-gradient "
+          f"N={N_LAP_MID} {lml_ms:.3f} ms (single card {lml0_ms:.3f}) ({CARD})")
+    return launches
+
+
+@contextlib.contextmanager
+def world_of_one(dev):
+    """A ``torch.distributed`` world of this one process on a free port of
+    127.0.0.1 (NCCL on the card, gloo for a rehearsal on the CPU), and its
+    data mesh; the group is destroyed on the way out."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                            timeout=timedelta(seconds=300))
+    try:
+        yield tgp.parallel.data_mesh(device=dev)
+    finally:
+        dist.destroy_process_group()
+
+
 def _plain(fn, *args):
     with tgp.config_context(use_kernels=False):
         return fn(*args)
@@ -3400,6 +3691,7 @@ def main() -> None:
     by_path["multi_latent"] = phase_multi_latent(dev)
     by_path["online"] = phase_online(dev)
     by_path["loo"] = phase_loo(dev)
+    by_path.update(phase_dp(dev))
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv_mma.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),

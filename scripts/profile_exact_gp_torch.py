@@ -2,7 +2,7 @@
 """Where the time of the PyTorch port's matrix-free exact GP and
 matrix-free Laplace lml goes, on one CUDA GPU.
 
-    python3 scripts/profile_exact_gp_torch.py [gp] [laplace]
+    python3 scripts/profile_exact_gp_torch.py [gp] [laplace] [lengthscale]
 
 ``gp`` (the default runs both parts) builds ``chip_smoke.py``'s phase-7
 configuration (N = 10^5 points in
@@ -17,8 +17,19 @@ probes, 30 Lanczos steps, rank 512, blocks of 8192), times the rank-512
 factor apart, runs one value-and-gradient call to warm up and profiles the
 next: the device time by kernel, the pivoted Cholesky's share (the kernels
 inside its profiler range), the CG and Newton host syncs, and the idle time by the host operation begun
-inside each gap.  Prints the card's name and power limit first.  Needs a
-CUDA device (it exits non-zero without one).
+inside each gap.  ``lengthscale`` (not in the default) measures row 5's
+θ-cotangent of s = Σ a∘(K b) (K the Laplace rows' 1.5·SE(ℓ = 1.2) Gram,
+the points of phase 15 at N = 2·10⁴ and 10⁵, a and b fixed normals of R = 1
+and 16 columns) on three routes, the self-Gram Function with its one-pass
+pullback, the band route of a data mesh of one rank (the cross pass and
+the general pullback) and the plain Gram blocks, in f32 and in f64, each
+f32 entry against the f64 run of its route; beside them the lengthscale's
+cancellation C = Σᵢ|x̄ᵢ·xᵢ| / |Σᵢ x̄ᵢ·xᵢ| (x̄ the points' cotangent, f64),
+the f32 error of x̄ itself, and the f32 error of the lengthscale's term
+Σᵢⱼ aᵢ g′(r²ᵢⱼ) r²ᵢⱼ bⱼ formed directly from exact differences; then the
+θ-gradient of ``laplace_lml_cg`` at 2·10⁴ (phase 15's) on the three routes
+against the f64 run.  Prints the card's name and power limit first.  Needs
+a CUDA device (it exits non-zero without one).
 """
 
 from __future__ import annotations
@@ -35,9 +46,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import approximategps_tpu_torch as tgp  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from approximategps_tpu_torch import convert  # noqa: E402
+from approximategps_tpu_torch.core.kernels import unwrap_stationary  # noqa: E402
 from approximategps_tpu_torch.models import iterative  # noqa: E402
+from approximategps_tpu_torch.ops import gram_matvec  # noqa: E402
 
-PARTS = ("gp", "laplace")
+PARTS = ("gp", "laplace", "lengthscale")
+DEFAULT_PARTS = ("gp", "laplace")
 
 
 def profile(label: str, fn, top: int = 10, gaps: int = 0, sequence: str | None = None) -> None:
@@ -89,6 +103,8 @@ def main(parts) -> None:
         exact_gp(dev)
     if "laplace" in parts:
         laplace(dev)
+    if "lengthscale" in parts:
+        lengthscale(dev)
 
 
 def exact_gp(dev) -> None:
@@ -234,8 +250,120 @@ def laplace(dev) -> None:
     idle_by_host_op(prof)
 
 
+LS_SIZES, LS_WIDTHS, LS_BLOCK = (20_000, 100_000), (1, 16), 4096
+ROUTES = ("self", "band", "plain")
+
+
+def ls_cotangent(route: str, x, a, b, mesh) -> torch.Tensor:
+    """∂/∂θ of Σ a∘(K b) on ``route``, θ the raw (variance, lengthscale)."""
+    th = torch.tensor(convert.LAPLACE_CG_THETA, dtype=x.dtype, device=x.device,
+                      requires_grad=True)
+    with tgp.config_context(matvec_mode="plain" if route == "plain" else "fused"):
+        mv = iterative.kernel_matvec(convert.laplace_kernel(th), x, 0.0, block_size=LS_BLOCK,
+                                     mesh=mesh if route == "band" else None)
+        return torch.autograd.grad(torch.sum(a * mv(b)), th)[0].detach()
+
+
+def ls_points(x, a, b, general: bool = False):
+    """(x̄, the scaled points' cotangent: of the self-Gram Function, or with
+    ``general`` x̄q + z̄k of the general one; the scale; the map)."""
+    kmap, scale, _ = unwrap_stationary(convert.laplace_kernel(
+        torch.tensor(convert.LAPLACE_CG_THETA, dtype=x.dtype, device=x.device)))
+    sc = scale.detach().to(x.dtype)
+    xs = (x * sc).requires_grad_()
+    if general:
+        xk = (x * sc).requires_grad_()
+        out = gram_matvec.gram_matvec(xs, xk, b, kmap)
+        gq, gk = torch.autograd.grad(torch.sum(a * out), (xs, xk))
+        return gq + gk, sc, kmap
+    out = gram_matvec.gram_matvec_self(xs, b, kmap)
+    return torch.autograd.grad(torch.sum(a * out), xs)[0], sc, kmap
+
+
+def ls_direct(x, a, b, sc, kmap, rows: int = 1024) -> float:
+    """Σᵢⱼ aᵢ·g′(r²ᵢⱼ) r²ᵢⱼ·bⱼ (summed over the columns) from exact
+    differences of the scaled points, in x's type."""
+    xs = x * sc
+    total = torch.zeros((), dtype=x.dtype, device=x.device)
+    for i0 in range(0, x.shape[0], rows):
+        d = xs[i0:i0 + rows, None, :] - xs[None, :, :]
+        r2 = torch.sum(d * d, dim=-1)
+        total = total + torch.sum(a[i0:i0 + rows] * ((kmap.dk_of_r2(r2) * r2) @ b))
+    return total.item()
+
+
+def lengthscale(dev) -> None:
+    """Row 5's lengthscale cotangent in f32 on each route (see the module
+    note)."""
+    f32, f64 = torch.float32, torch.float64
+    with cs.world_of_one(dev) as mesh:
+        for N in LS_SIZES:
+            x, _ = convert.laplace_data(N, cs.D_LAP, seed=cs.SEED + 51, device=dev, dtype=f64)
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED + 60)
+            for R in LS_WIDTHS:
+                a, b = torch.randn((2, N, R), generator=gen, device=dev, dtype=f64)
+                got = {(r, dt): ls_cotangent(r, x.to(dt), a.to(dt), b.to(dt), mesh)
+                       for dt in (f64, f32) for r in ROUTES}
+                ref = got["self", f64]
+                f64_spread = max(cs.rel_err(got[r, f64], ref) for r in ROUTES)
+                print(f"N = {N}, R = {R}: θ-cotangent (f64, self route) {ref.tolist()}; the f64 "
+                      f"routes agree to {f64_spread:.3e}")
+                for r in ROUTES:
+                    e = (got[r, f32].double() - got[r, f64]).abs() / got[r, f64].abs()
+                    print(f"  {r:5s} route f32 against its f64 run: variance entry {e[0]:.3e}, "
+                          f"lengthscale entry {e[1]:.3e}")
+                xb64, sc, kmap = ls_points(x, a, b)
+                xb32, _, _ = ls_points(x.float(), a.float(), b.float())
+                xsum = torch.sum(xb64 * x, dim=1)
+                cancel = (xsum.abs().sum() / xsum.sum().abs()).item()
+                xc = x - x.mean(dim=0)
+                xsum_c = torch.sum(xb64 * xc, dim=1)
+                cancel_c = (xsum_c.abs().sum() / xsum_c.sum().abs()).item()
+                ex = cs.rel_err(xb32, xb64)
+                # the lengthscale's term as the points' cotangents give it (before the
+                # repair: Σᵢ x̄ᵢ·xᵢ, summed in f32), on the self and the general pullback
+                old = {}
+                for general in (False, True):
+                    xg32 = xb32 if not general else ls_points(x.float(), a.float(), b.float(),
+                                                              True)[0]
+                    xg64 = xb64 if not general else ls_points(x, a, b, True)[0]
+                    s32 = torch.sum(xg32 * x.float()).item()
+                    s64 = torch.sum(xg64 * x).item()
+                    old["general" if general else "self"] = abs(s32 - s64) / abs(s64)
+                t64 = ls_direct(x, a, b, sc, kmap)
+                t32 = ls_direct(x.float(), a.float(), b.float(), sc.float(), kmap)
+                print(f"  the lengthscale's cancellation C = Σ|x̄ᵢ·xᵢ| / |Σ x̄ᵢ·xᵢ| = {cancel:.4g} "
+                      f"(about the centroid {cancel_c:.4g}); x̄ f32 (self pullback) against f64 "
+                      f"{ex:.3e} of its largest entry; eps·C = {6e-8 * cancel:.3e}; f32 against "
+                      f"f64 of Σ x̄ᵢ·xᵢ (the term before the repair): self pullback "
+                      f"{old['self']:.3e}, general pullback {old['general']:.3e}; of the direct "
+                      f"term Σ a g′ r² b {abs(t32 - t64) / abs(t64):.3e}")
+        # the lml's θ-gradient at phase 15's 2·10^4 on the three routes
+        N = cs.N_LAP_MID
+        x, y = convert.laplace_data(cs.N_LAP, cs.D_LAP, seed=cs.SEED + 51, device=dev)
+        x, y = x[:N], y[:N]
+        probes = iterative.rademacher_probes(torch.Generator(device=dev).manual_seed(cs.SEED + 52),
+                                             cs.LAP_PROBES, cs.N_LAP, f32, dev)[:, :N]
+        theta = torch.tensor(convert.LAPLACE_CG_THETA, dtype=f32, device=dev)
+        kw = dict(precond_rank=cs.LAP_RANK_MID, storage="chunked", block_size=cs.LAP_BLOCK)
+        res = {}
+        for r in ROUTES:
+            for dt in (f64, f32):
+                mode = "plain" if r == "plain" else "fused"
+                with tgp.config_context(matvec_mode=mode):
+                    res[r, dt] = cs.lap_lml(theta.to(dt), x.to(dt), y, probes.to(dt), True,
+                                            mesh=mesh if r == "band" else None, **kw)[1]
+        ref = res["self", f64]
+        print(f"laplace_cg_lml N = {N} θ-gradient (f64, self route) {ref.tolist()}; the f64 routes "
+              f"agree to {max(cs.rel_err(res[r, f64], ref) for r in ROUTES):.3e}")
+        for r in ROUTES:
+            e = (res[r, f32].double() - ref).abs() / ref.abs()
+            print(f"  {r:5s} route f32 against f64: variance entry {e[0]:.3e}, lengthscale entry "
+                  f"{e[1]:.3e} (rel err of the vector {cs.rel_err(res[r, f32], ref):.3e})")
+
+
 if __name__ == "__main__":
     asked = [a for a in sys.argv[1:] if a in PARTS]
     if len(asked) != len(sys.argv[1:]):
         sys.exit(f"usage: {sys.argv[0]} [{'] ['.join(PARTS)}]")
-    main(asked or PARTS)
+    main(asked or DEFAULT_PARTS)

@@ -387,11 +387,11 @@ PART_IDS = ["dtype0", "dtype1", "simt-f64", "simt-f32", "mma-f32"]
 @pytest.mark.parametrize("part,dtype", PARTS, ids=PART_IDS)
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
 def test_torch_cuda_gram_matvec_matches_plain(cls, part, dtype, R, cuda):
-    """Both maps g and g′, N = 3001 and M = 2500 ragged against the 64-,
-    128- and 256-row blocks and the 32-, 64- and 128-key tiles, D = 3
-    padded to 4; one launch a call at every width (R = 48 and 128
-    included); relative to the largest entry: f64 1e-12, f32 1e-5 (sums over
-    2500 keys in another order)."""
+    """The three maps g, g′ and r²·g′ (the lengthscale's cotangent),
+    N = 3001 and M = 2500 ragged against the 64-, 128- and 256-row blocks
+    and the 32-, 64- and 128-key tiles, D = 3 padded to 4; one launch a call
+    at every width (R = 48 and 128 included); relative to the largest
+    entry: f64 1e-12, f32 1e-5 (sums over 2500 keys in another order)."""
     from approximategps_tpu_torch.ops import gram_matvec
 
     rng = np.random.default_rng(8)
@@ -400,7 +400,7 @@ def test_torch_cuda_gram_matvec_matches_plain(cls, part, dtype, R, cuda):
     V = _t(rng.standard_normal((2500, R) if R > 1 else 2500), cuda, dtype)
     kmap = cls().kernel_map()
     tol = 1e-12 if dtype == torch.float64 else 1e-5
-    for deriv in (False, True):
+    for deriv in (False, True, 2):
         before = gram_matvec.gram_matvec.launches
         out = gram_matvec.gram_matvec_pass(Xq, Zk, V, kmap, deriv, part=part)
         assert gram_matvec.gram_matvec.launches == before + 1
@@ -538,6 +538,164 @@ def test_torch_cuda_logpdf_slq_runs_through_the_kernel(cuda):
         v0, g0 = value_and_grad()
     assert abs((v - v0).item()) <= 1e-8 * abs(v0.item())
     assert ((g - g0).abs().max() / g0.abs().max()).item() <= 1e-7
+
+
+@pytest.mark.parametrize("R", [1, 16, 48])
+def test_torch_cuda_self_pullback_takes_column_major_inputs(R, cuda):
+    """The self-Gram pullback with V and Ō in column-major strides (the
+    logdet surrogate's V = w∘Zᵀ has them): V̄ comes out row by row as the
+    kernel writes it, equal bitwise to the same call on contiguous copies
+    and to the f64 plain version to 1e-5."""
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    rng = np.random.default_rng(14)
+    X = _t(rng.uniform(0.0, 5.0, (3000, 2)), cuda, torch.float32)
+    V, O = (_t(rng.standard_normal((R, 3000)), cuda, torch.float32).T for _ in range(2))
+    assert not V.is_contiguous() or R == 1
+    se = tgp.SqExponentialKernel().kernel_map()
+    got = gram_matvec.gram_matvec_self_bwd(X, V, O, se)
+    want = gram_matvec.gram_matvec_self_bwd(X, V.contiguous(), O.contiguous(), se)
+    ref = gram_matvec.gram_matvec_self_bwd_plain(X.double(), V.double(), O.double(), se)
+    for a, b, r in zip(got, want, ref):
+        assert torch.equal(a, b)
+        assert ((a.double() - r).abs().max() / r.abs().max()).item() <= 1e-5
+
+
+def test_torch_cuda_lengthscale_cotangent_keeps_f32_digits(cuda):
+    """Row 5's isotropic-lengthscale cotangent from the r²·g′ pass on the
+    card: the θ-cotangent of Σ a∘(K b) in f32 against f64 (5e-6 of the
+    lengthscale entry; read 1.5e-6 on an H100) on the self-Gram and the
+    cross route, where the
+    points' cotangents lost 3.3e-5 of it on the CPU
+    (``test_torch_lengthscale_cotangent_keeps_f32_digits``), one pass more
+    a pullback."""
+    from approximategps_tpu_torch.ops import gram_matvec
+    from approximategps_tpu_torch.utils.bijectors import softplus
+
+    rng = np.random.default_rng(38)
+    x = rng.uniform(0.0, 10.0, (1500, 2))
+    a, b = rng.standard_normal((2, 1500, 16))
+    theta = np.log(np.expm1(np.array([1.5, 1.2])))
+
+    def cot(dtype, cross):
+        th = _t(theta, cuda, dtype).requires_grad_()
+        X = _t(x, cuda, dtype)
+        kern = softplus(th[0]) * tgp.with_lengthscale(tgp.SqExponentialKernel(), softplus(th[1]))
+        out = gram_matvec.fused_stationary_matvec(kern, X, X if cross else None)(_t(b, cuda, dtype))
+        passes = gram_matvec.pullback_passes["passes"]
+        g = torch.autograd.grad(torch.sum(_t(a, cuda, dtype) * out), th)[0].double()
+        assert gram_matvec.pullback_passes["passes"] == passes + 1
+        return g
+
+    for cross in (False, True):
+        g32, g64 = cot(torch.float32, cross), cot(torch.float64, cross)
+        assert ((g32 - g64).abs() / g64.abs())[1].item() <= 5e-6
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world of this one process over NCCL on the card, and its mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only there")
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=120))
+    yield tgp.parallel.data_mesh(device="cuda:0")
+    dist.destroy_process_group()
+
+
+def _svgp_elbo_case(dev, N=61, M=8):
+    from approximategps_tpu_torch.utils.bijectors import softplus
+
+    rng = np.random.default_rng(12)
+    x = _t(rng.uniform(0.0, 10.0, N), dev)
+    y = torch.sin(x) + 0.1 * _t(rng.standard_normal(N), dev)
+    p = {"k": _t([0.5, 0.5], dev), "z": _t(np.linspace(0.0, 10.0, M), dev),
+         "m": _t(0.3 * rng.standard_normal(M), dev), "A": _t(np.eye(M), dev)}
+    p = {k: v.requires_grad_() for k, v in p.items()}
+
+    def fn(q, xb, yb):
+        kern = softplus(q["k"][0]) * tgp.with_lengthscale(tgp.SqExponentialKernel(),
+                                                          softplus(q["k"][1]))
+        f = tgp.GP(kern)
+        sva = tgp.SparseVariationalApproximation(
+            f(q["z"], 1e-6), tgp.MultivariateNormal(q["m"], torch.tril(q["A"])))
+        return tgp.elbo(sva, f(xb, 0.1), yb, num_data=N)
+
+    return fn, p, x, y
+
+
+def test_torch_cuda_dp_elbo_world_of_one_matches_single_process(nccl_mesh, cuda):
+    """Items 1–3 of the data-parallel tests on the card: ``make_dp_elbo``'s
+    value and gradients over an NCCL world of one equal ``elbo``'s, f64,
+    1e-12."""
+    fn, p, x, y = _svgp_elbo_case(cuda)
+    v = tgp.parallel.make_dp_elbo(fn, nccl_mesh)(p, x, y)
+    g = torch.autograd.grad(v, list(p.values()))
+    v0 = fn(p, x, y)
+    g0 = torch.autograd.grad(v0, list(p.values()))
+    assert abs((v - v0).item()) <= 1e-12 * abs(v0.item())
+    for a, b in zip(g, g0):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-12
+
+
+def test_torch_cuda_mesh_matrix_free_world_of_one_runs_the_band(nccl_mesh, cuda):
+    """Item 9 on the card, f64, N = 2000 over an NCCL world of one: the band
+    matvec (row 5's cross pass), ``logpdf_slq``'s value and θ-gradient,
+    ``posterior_cg`` and ``newton_inner_loop_cg`` (chunked on the cross
+    pass, dense on the stored band) against the single-process path; every
+    matvec on the kernel."""
+    from approximategps_tpu_torch import convert
+    from approximategps_tpu_torch.models import iterative
+    from approximategps_tpu_torch.ops import gram_matvec
+
+    rng = np.random.default_rng(13)
+    x = _t(rng.uniform(0.0, 10.0, (2000, 2)), cuda)
+    y = torch.sin(x[:, 0]) + 0.1 * _t(rng.standard_normal(2000), cuda)
+    probes = _t(rng.choice([-1.0, 1.0], size=(8, 2000)), cuda)
+    V = _t(rng.standard_normal((2000, 3)), cuda)
+    theta0 = np.log(np.expm1(np.array([1.5, 1.2, 0.1])))
+    fx = convert.build_exact_fx(_t(theta0, cuda), x)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    iterative.reset_stats()
+    before = gram_matvec.gram_matvec.launches
+    mv = iterative.kernel_matvec(fx.f.kernel, x, fx.noise, mesh=nccl_mesh)
+    assert rel(mv(V), iterative.kernel_matvec(fx.f.kernel, x, fx.noise)(V)) <= 1e-12
+    assert iterative.stats["matvec_plain"] == 0
+    assert gram_matvec.gram_matvec.launches - before == iterative.stats["matvec_fused"] == 2
+
+    def slq(mesh):
+        theta = _t(theta0, cuda).requires_grad_()
+        v = tgp.logpdf_slq(convert.build_exact_fx(theta, x), y, probes=probes, lanczos_iters=20,
+                           cg_tol=1e-10, mesh=mesh)
+        return v.detach(), torch.autograd.grad(v, theta)[0]
+
+    (v, g), (v0, g0) = slq(nccl_mesh), slq(None)
+    assert abs((v - v0).item()) <= 1e-9 * abs(v0.item()) and rel(g, g0) <= 1e-7
+    with torch.no_grad():
+        xs = _t(rng.uniform(0.0, 10.0, (23, 2)), cuda)
+        got = tgp.posterior_cg(fx, y, tol=1e-10, mesh=nccl_mesh).mean_and_var(xs)
+        want = tgp.posterior_cg(fx, y, tol=1e-10).mean_and_var(xs)
+    assert rel(got[0], want[0]) <= 1e-8 and rel(got[1], want[1]) <= 1e-6
+    yb = _t((rng.uniform(size=2000) > 0.5).astype(np.float64), cuda)
+    kern = fx.f.kernel
+    for storage in ("chunked", "dense"):
+        f1 = tgp.newton_inner_loop_cg(tgp.BernoulliLikelihood(), yb, kern, x, cg_tol=1e-10,
+                                      tol=1e-10, precond_rank=0, storage=storage,
+                                      mesh=nccl_mesh)
+        f0 = tgp.newton_inner_loop_cg(tgp.BernoulliLikelihood(), yb, kern, x, cg_tol=1e-10,
+                                      tol=1e-10, precond_rank=0, storage=storage)
+        assert rel(f1, f0) <= 1e-7, storage
 
 
 # -- the Vecchia band kernel -------------------------------------------------
@@ -1153,8 +1311,10 @@ def test_torch_cuda_laplace_dense_matches_cpu(cuda):
 
 def test_torch_cuda_laplace_cg_runs_through_the_kernel(cuda):
     """``laplace_lml_cg`` on the chunked route (N = 2000, D = 2, f64): every
-    product on row 5 (launches = counted matvecs + pullback passes; two
-    pullbacks, the Newton IFT's at R = 1 and the probes' at R = 16), value 1e-8 and
+    product on row 5 (launches = counted matvecs + pullback passes; the Newton
+    IFT's pullback is the lengthscale's r²·g′ pass at R = 1 alone, since
+    neither the points nor ∇ll at the held f̂ carry a gradient, and the
+    probes' at R = 16 a general pullback with that pass), value 1e-8 and
     gradient 1e-7 from the CPU's plain route with the same probes; the
     resident route (``storage="dense"``) launches nothing, and ``"auto"``
     takes row 5 on the card, the launches by pass summing to the count."""
@@ -1169,8 +1329,8 @@ def test_torch_cuda_laplace_cg_runs_through_the_kernel(cuda):
     calls = gram_matvec.pullback_passes["calls"]
     v, g = _laplace_value_and_grad(cuda, 2000, 2, "chunked", probes=_t(probes, cuda), **kw)
     assert iterative.stats["matvec_plain"] == 0 and iterative.stats["matvec_fused"] > 0
-    # two pullbacks, at R = 1 and R = 16: in f64 each is the general one, three passes
-    assert gram_matvec.pullback_passes["calls"] - calls == 2
+    # one general pullback (f64 takes it for the self-Gram too), the probes' at R = 16
+    assert gram_matvec.pullback_passes["calls"] - calls == 1
     assert gram_matvec.gram_matvec.launches - before == \
         iterative.stats["matvec_fused"] + gram_matvec.pullback_passes["passes"] - passes
     v0, g0 = _laplace_value_and_grad(torch.device("cpu"), 2000, 2, "chunked",

@@ -37,6 +37,7 @@ from approximategps_tpu_torch import config_context as tconfig_context
 from approximategps_tpu_torch.core import kernels as tk
 from approximategps_tpu_torch.models import iterative as tit
 from approximategps_tpu_torch.ops import gram_matvec as tgm
+from approximategps_tpu_torch.utils.bijectors import softplus as tsoftplus
 
 torch.set_num_threads(1)
 
@@ -282,33 +283,145 @@ def test_torch_gram_matvec_pass_part_picks_by_width(monkeypatch):
 
 
 def test_torch_fused_dispatch_reaches_the_self_gram_function(monkeypatch):
-    """``kernel_matvec``'s fused route computes K(X, X)·v through
-    ``gram_matvec_self``, so its pullback is one pass; the value and the
-    lengthscale and variance gradients equal the general Function's."""
+    """``kernel_matvec``'s fused route computes K(X, X)·v as a self-Gram
+    (the scaled Function with no key points: an isotropic lengthscale takes
+    its cotangent from r² itself), so with the points held fixed its
+    pullback is one pass (r²·g′); the value and the lengthscale and
+    variance gradients equal the general Function's, K(X, X) as a cross
+    product."""
     calls = []
-    real = tgm.gram_matvec_self
+    real = tgm._GramMatvec.apply
 
-    def spy(X, V, kmap):
-        calls.append(tuple(V.shape))
-        return real(X, V, kmap)
+    def spy(Xq, Zk, V, s, kmap):
+        calls.append((Zk is None, tuple(V.shape)))
+        return real(Xq, Zk, V, s, kmap)
 
     rng = np.random.default_rng(21)
     x = torch.tensor(rng.uniform(0.0, 3.0, (33, 2)))
     v = torch.tensor(rng.standard_normal((33, 4)))
 
-    def value_and_grad():
+    def value_and_grad(cross: bool):
         th = torch.tensor([-0.3, 0.5], dtype=torch.float64, requires_grad=True)
         with tconfig_context(matvec_mode="fused"):
-            val = torch.sum(torch.tanh(tit.kernel_matvec(_kern_t(th), x, 0.2)(v)))
+            if cross:
+                out = tgm.fused_stationary_matvec(_kern_t(th), x, x)(v) + 0.2 * v
+            else:
+                out = tit.kernel_matvec(_kern_t(th), x, 0.2)(v)
+            val = torch.sum(torch.tanh(out))
         return val.detach(), torch.autograd.grad(val, th)[0]
 
-    monkeypatch.setattr(tgm, "gram_matvec_self", spy)
+    monkeypatch.setattr(tgm._GramMatvec, "apply", spy)
     before = dict(tgm.pullback_passes)
-    val, grad = value_and_grad()
-    assert calls == [(33, 4)]
+    val, grad = value_and_grad(False)
+    assert calls == [(True, (33, 4))]
     assert tgm.pullback_passes["passes"] == before["passes"] + 1
-    monkeypatch.setattr(tgm, "gram_matvec_self",
-                        lambda X, V, kmap: tgm.gram_matvec(X, X, V, kmap))
-    val0, grad0 = value_and_grad()
+    val0, grad0 = value_and_grad(True)
+    assert calls[1] == (False, (33, 4))
     assert abs(val.item() - val0.item()) <= 1e-12 * abs(val0.item())
     assert _rel(grad, grad0.numpy()) <= 1e-10
+
+
+# -- the lengthscale's cotangent from r² itself ------------------------------
+
+@pytest.mark.parametrize("name", list(MAPS))
+def test_torch_lengthscale_pass_matches_dense(name):
+    """The third map of a pass, h = r²·g′(r²), against the dense product on
+    points with repeats (r² = 0 off the diagonal, where h is 0)."""
+    kmap = MAPS[name][1]().kernel_map()
+    Xq, Zk, V, _ = _inputs(40, 50, 2, 3, seed=31)
+    Zk[:5] = Xq[:5]
+    Xq, Zk, V = (torch.tensor(a) for a in (Xq, Zk, V))
+    r2 = torch.sum((Xq[:, None, :] - Zk[None, :, :]) ** 2, dim=-1)
+    want = (kmap.dk_of_r2(r2) * r2) @ V
+    assert _rel(tgm.gram_matvec_pass(Xq, Zk, V, kmap, deriv=2), want.numpy()) <= 1e-12
+
+
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("name", list(MAPS))
+def test_torch_scaled_function_gradients_match_autograd(name, cross):
+    """The scaled Function (an isotropic lengthscale folded in) against
+    autograd of the dense Gram in f64: the output and the cotangents of the
+    query and key points, V, and the scale, whose cotangent is the r²·g′
+    pass."""
+    kmap = MAPS[name][1]().kernel_map()
+    Xq, Zk, V, W = _inputs(30, 45, 2, 5, seed=32)
+    if not cross:
+        Zk = Xq
+        V, W = V[:30], W
+    Xq, Zk, V = (torch.tensor(a, requires_grad=True) for a in (Xq, Zk, V))
+    s = torch.tensor(0.8, dtype=torch.float64, requires_grad=True)
+    args = (Xq, Zk if cross else None, V, s, kmap)
+    out = tgm._GramMatvec.apply(*args)
+    ins = [t for t in (Xq, Zk, V, s) if cross or t is not Zk]
+    got = torch.autograd.grad(out, ins, torch.tensor(W))
+    d = (Xq * s)[:, None, :] - ((Zk if cross else Xq) * s)[None, :, :]
+    ref_out = kmap.k_of_r2(torch.sum(d * d, dim=-1)) @ V
+    ref = torch.autograd.grad(ref_out, ins, torch.tensor(W))
+    assert _rel(out.detach(), ref_out.detach().numpy()) <= 1e-12
+    for g, r in zip(got, ref):
+        assert _rel(g, r.numpy()) <= 1e-10
+
+
+@pytest.mark.parametrize("name", list(MAPS))
+def test_torch_scaled_self_function_with_fixed_points(name):
+    """The self-Gram with the points fixed and V and the scale carrying
+    gradients (the logdet surrogate's product): V̄ = K·Ō by the transposed
+    pass and s̄ by the r²·g′ pass, two passes and no self pullback, against
+    autograd of the dense Gram in f64."""
+    kmap = MAPS[name][1]().kernel_map()
+    Xq, _, V, W = _inputs(30, 30, 2, 5, seed=33)
+    X = torch.tensor(Xq)
+    V = torch.tensor(V, requires_grad=True)
+    s = torch.tensor(0.8, dtype=torch.float64, requires_grad=True)
+    before = dict(tgm.pullback_passes)
+    got = torch.autograd.grad(tgm._GramMatvec.apply(X, None, V, s, kmap), (V, s), torch.tensor(W))
+    assert tgm.pullback_passes["calls"] == before["calls"] + 1
+    assert tgm.pullback_passes["passes"] == before["passes"] + 2
+    d = (X * s)[:, None, :] - (X * s)[None, :, :]
+    ref = torch.autograd.grad(kmap.k_of_r2(torch.sum(d * d, dim=-1)) @ V, (V, s), torch.tensor(W))
+    for g, r in zip(got, ref):
+        assert _rel(g, r.numpy()) <= 1e-10
+
+
+def test_torch_lengthscale_cotangent_keeps_f32_digits():
+    """The fault this repairs: through the points' cotangents, the
+    lengthscale's cotangent is Σᵢ x̄ᵢ·xᵢ, a sum that cancels (Σᵢ x̄ᵢ = 0),
+    so in f32 it loses digits in proportion to the cancellation C =
+    Σᵢ|x̄ᵢ·xᵢ| / |Σᵢ x̄ᵢ·xᵢ| (here, phase 15's data model at N = 1500,
+    1.5·SE(ℓ = 1.2) on [0, 10]², C ≈ 420 and 3.3e-5 of the entry lost);
+    from r² itself it keeps the f32 rounding of the products (2.5e-8).
+    Held: the fused route's θ-cotangent of Σ a∘(K b) in f32 against f64, on
+    the self-Gram and the cross route, and the entry as the points'
+    cotangents give it, which misses the same bound."""
+    rng = np.random.default_rng(38)
+    x = rng.uniform(0.0, 10.0, (1500, 2))
+    a, b = rng.standard_normal((2, 1500, 16))
+    theta = np.log(np.expm1(np.array([1.5, 1.2])))
+
+    def cot(dtype, cross):
+        th = torch.tensor(theta, dtype=dtype, requires_grad=True)
+        X = torch.tensor(x, dtype=dtype)
+        kern = tsoftplus(th[0]) * tk.with_lengthscale(tk.SqExponentialKernel(),
+                                                      tsoftplus(th[1]))
+        with tconfig_context(matvec_mode="fused"):
+            out = tgm.fused_stationary_matvec(kern, X, X if cross else None)(
+                torch.tensor(b, dtype=dtype))
+        return torch.autograd.grad(torch.sum(torch.tensor(a, dtype=dtype) * out), th)[0].double()
+
+    for cross in (False, True):
+        g32, g64 = cot(torch.float32, cross), cot(torch.float64, cross)
+        err = ((g32 - g64).abs() / g64.abs()).numpy()
+        assert err[1] <= 1e-6, err
+    # the same entry through the points' cotangents, as it was formed before
+    kmap = tk.SqExponentialKernel().kernel_map()
+    sc = 1.0 / np.log1p(np.exp(theta[1]))
+
+    def through_points(dtype):
+        X = torch.tensor(x, dtype=dtype)
+        xs = (X * sc).requires_grad_()
+        out = tgm.gram_matvec_self(xs, torch.tensor(b, dtype=dtype), kmap)
+        xbar = torch.autograd.grad(torch.sum(torch.tensor(a, dtype=dtype) * out), xs)[0]
+        return torch.sum(xbar * X).item()
+
+    old32, old64 = through_points(torch.float32), through_points(torch.float64)
+    assert abs(old32 - old64) / abs(old64) > 1e-5

@@ -63,6 +63,11 @@ def test_torch_port_imports_no_jax():
         "t.utils.AsyncCheckpointer, t.utils.minibatch_iterator, t.utils.StepTimer, t.utils.trace\n"
         "t.test_utils.generate_data, t.convert.heteroscedastic_svgp\n"
         "t.convert.heteroscedastic_loss\n"
+        "t.parallel.data_mesh, t.parallel.shard_batch, t.parallel.replicated\n"
+        "t.parallel.make_dp_elbo, t.parallel.make_dp_train_step, t.parallel.dp_predict_blocks\n"
+        "t.parallel.DataMesh, t.dp_streaming_elbo, t.models.dp_streaming_elbo\n"
+        "t.core.linalg.At_A, t.core.linalg.diag_At_A, t.core.linalg.Xt_invA_X\n"
+        "t.core.linalg.diag_Xt_invA_X, t.core.linalg.blocked_cholesky, t.core.linalg.tri_project\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'approximategps_tpu' not in sys.modules\n"
     )
