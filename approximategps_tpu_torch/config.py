@@ -6,7 +6,10 @@ and Laplace paths read.  Like the JAX package, this holds only
 switches that must agree across a whole computation (solve strategy,
 factorization and data-term routes), never model options.
 
-Value names differ from the JAX package where they named TPU machinery:
+Where the JAX package says "on TPU" (``compute_dtype="auto"``, the
+``"auto"`` routes), the port reads "on the kernel device"
+(:func:`kernel_device`).  Value names differ from the JAX package where
+they named TPU machinery:
 ``use_pallas`` is ``use_kernels``, the ``"pallas"`` / ``"xla"`` routes are
 ``"auto"`` / ``"plain"``, the ``"mxu"`` distance mode is ``"matmul"``, and
 the ``"pallas"`` Gram mode is ``"fused"``.
@@ -66,6 +69,27 @@ class _Config:
     # Largest M for which the posterior build forms the S-correction matrix
     # S = Lk⁻ᵀ(BBᵀ−I)Lk⁻¹ (the cache the fused epilogue consumes).
     s_corr_max_m: int = int(os.environ.get("AGP_S_CORR_MAX_M", "4096"))
+    # Storage dtype of the SVGP's (M, B) projection intermediates (Kuf, A,
+    # BᵀA, S·Kuf; models/svgp.py::_storage_dtype):
+    #   "auto":     bf16 storage for f32 tensors on the kernel device at
+    #               M >= bf16_storage_min_m, f32 otherwise (the CPU never
+    #               downcasts)
+    #   "float32":  full width everywhere
+    #   "bfloat16": bf16 storage for f32 tensors at any M and on any device
+    # bf16 is a storage type only: the products accumulate in f32 (cuBLAS),
+    # every reduction over M or B is taken in f32, and the master
+    # parameters, Kuu's factor, L⁻¹, the KL and the pullbacks' M×M
+    # products stay f32.  f64 is never downcast.
+    compute_dtype: str = os.environ.get("AGP_COMPUTE_DTYPE", "auto")
+    # Smallest M at which compute_dtype="auto" stores the projections in
+    # bf16 on the kernel device; its own knob, apart from tri_matmul_min_m.
+    bf16_storage_min_m: int = int(os.environ.get("AGP_BF16_STORAGE_MIN_M", "4096"))
+    # Smallest M at which the chol/inv pullback's Φ-sandwich, the whitened
+    # cache's pullback and the SVGP projections take the triangular-aware
+    # block products (core/linalg.py::matmul_left_upper and the rest),
+    # which skip the zero half of a triangular factor (about 44 % of the
+    # flops at 8 blocks).
+    tri_matmul_min_m: int = int(os.environ.get("AGP_TRI_MATMUL_MIN_M", "4096"))
     # K·V in the matrix-free tier (models/iterative.py, ops/gram_matvec.py):
     #   "auto":  the fused gram_matvec kernel on the kernel device, the plain
     #            block path (Gram blocks and a matmul) elsewhere

@@ -4,7 +4,8 @@ log-determinants, the AbstractGPs helpers (``At_A``, ``diag_At_A``,
 ``Xt_invA_X``, ``diag_Xt_invA_X``), ``diag_quad_sym``, ``blocked_tril_inv``,
 ``blocked_cholesky``, ``chol_with_inv`` and ``tri_project``, the last five
 as ``torch.autograd.Function``s with the JAX package's closed-form
-pullbacks."""
+pullbacks, and the triangular-aware block products (``matmul_left_lower``
+and the rest) that the large-M pullbacks and projections take."""
 
 from __future__ import annotations
 
@@ -120,17 +121,21 @@ class _DiagQuadSym(torch.autograd.Function):
     """diag(Kᵀ S K) with the pullback, for symmetric S and w = the output's
     cotangent, K̄ = 2 (S K)∘w and S̄ = sym((K∘w) Kᵀ): the backward reuses the
     forward's S K, so it pays one matmul where autograd would keep S K and
-    form it again."""
+    form it again.  S K is stored in K's dtype (bf16 under bf16 storage,
+    the product accumulating in f32) and the column sums are taken in at
+    least f32, the result's dtype; the cotangents come back in K's dtype."""
 
     @staticmethod
     def forward(ctx, S, K):
         SK = S @ K
         ctx.save_for_backward(K, SK)
-        return torch.sum(K * SK, dim=0)
+        acc = torch.promote_types(K.dtype, torch.float32)
+        return torch.sum(K.to(acc) * SK.to(acc), dim=0)
 
     @staticmethod
     def backward(ctx, w):
         K, SK = ctx.saved_tensors
+        w = w.to(K.dtype)
         S_bar = symmetrize((K * w) @ K.T) if ctx.needs_input_grad[0] else None
         K_bar = 2.0 * SK * w if ctx.needs_input_grad[1] else None
         return S_bar, K_bar
@@ -138,7 +143,8 @@ class _DiagQuadSym(torch.autograd.Function):
 
 def diag_quad_sym(S: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """diag(Kᵀ S K) for symmetric S: one (M, M)·(M, B) product and a
-    column reduce, with a closed-form pullback."""
+    column reduce in at least f32, with a closed-form pullback.  S and K
+    share a dtype (bf16 under bf16 storage: an f32 result)."""
     if S.dtype != K.dtype:
         raise ValueError(
             f"diag_quad_sym requires S.dtype == K.dtype, got {S.dtype} vs {K.dtype}"
@@ -217,29 +223,112 @@ def blocked_cholesky(A: torch.Tensor, base: int = 256) -> torch.Tensor:
     return _BlockedCholesky.apply(A, int(base))
 
 
+# -- triangular-aware products -----------------------------------------------
+# A dense product cannot skip a triangular factor's zero half; split the
+# triangular side into nb column (row) blocks and C = A·L becomes nb
+# narrowing dense products that do: (nb + 1)/(2 nb) of the flops, 0.56 at
+# nb = 8.  The same sums as the dense product in another order.  Used at
+# M >= config.tri_matmul_min_m by the chol/inv pullback, the whitened
+# cache's pullback and the SVGP projections (tri_project).
+
+
+def _tri_blocks(M: int, target: int = 1024) -> int:
+    """The largest power of two nb <= 16 that divides M with blocks of at
+    least ``target``; 1 means the dense product."""
+    nb = 1
+    while M % (2 * nb) == 0 and M // (2 * nb) >= target and 2 * nb <= 16:
+        nb *= 2
+    return nb
+
+
+def matmul_right_lower(A: torch.Tensor, L: torch.Tensor, nb: int | None = None) -> torch.Tensor:
+    """A @ L with L lower triangular, its zero upper blocks skipped."""
+    M = L.shape[-1]
+    nb = _tri_blocks(M) if nb is None else nb
+    if nb == 1:
+        return A @ L
+    b = M // nb
+    return torch.cat([A[..., :, j * b:] @ L[j * b:, j * b:(j + 1) * b] for j in range(nb)],
+                     dim=-1)
+
+
+def matmul_right_upper(A: torch.Tensor, U: torch.Tensor, nb: int | None = None) -> torch.Tensor:
+    """A @ U with U upper triangular, its zero lower blocks skipped."""
+    M = U.shape[-1]
+    nb = _tri_blocks(M) if nb is None else nb
+    if nb == 1:
+        return A @ U
+    b = M // nb
+    return torch.cat([A[..., :, :(j + 1) * b] @ U[:(j + 1) * b, j * b:(j + 1) * b]
+                      for j in range(nb)], dim=-1)
+
+
+def matmul_left_upper(U: torch.Tensor, A: torch.Tensor, nb: int | None = None) -> torch.Tensor:
+    """U @ A with U upper triangular, its zero lower blocks skipped."""
+    M = U.shape[-2]
+    nb = _tri_blocks(M) if nb is None else nb
+    if nb == 1:
+        return U @ A
+    b = M // nb
+    return torch.cat([U[i * b:(i + 1) * b, i * b:] @ A[i * b:, ...] for i in range(nb)],
+                     dim=-2)
+
+
+def matmul_left_lower(L: torch.Tensor, A: torch.Tensor, nb: int | None = None) -> torch.Tensor:
+    """L @ A with L lower triangular, its zero upper blocks skipped."""
+    M = L.shape[-2]
+    nb = _tri_blocks(M) if nb is None else nb
+    if nb == 1:
+        return L @ A
+    b = M // nb
+    return torch.cat([L[i * b:(i + 1) * b, :(i + 1) * b] @ A[:(i + 1) * b, ...]
+                      for i in range(nb)], dim=-2)
+
+
+def matmul_tril_out(A: torch.Tensor, B: torch.Tensor, nb: int | None = None) -> torch.Tensor:
+    """tril(A @ B) for a square (M, M) product, only its lower block
+    triangle computed: row block i contracts against B's first (i + 1)·b
+    columns, the strictly upper blocks are zeros, the diagonal blocks are
+    masked exactly."""
+    M = A.shape[-2]
+    nb = _tri_blocks(M) if nb is None else nb
+    if nb == 1:
+        return torch.tril(A @ B)
+    b = M // nb
+    out = A.new_zeros((M, M))
+    for i in range(nb):
+        out[i * b:(i + 1) * b, :(i + 1) * b] = A[i * b:(i + 1) * b, :] @ B[..., :, :(i + 1) * b]
+    return torch.tril(out)
+
+
 class _TriProject(torch.autograd.Function):
     @staticmethod
     def forward(ctx, T, X, transpose_t):
         T = torch.tril(T)
         ctx.transpose_t = transpose_t
         ctx.save_for_backward(T, X)
-        return (T.transpose(-1, -2) if transpose_t else T) @ X
+        if transpose_t:
+            return matmul_left_upper(T.transpose(-1, -2), X)
+        return matmul_left_lower(T, X)
 
     @staticmethod
     def backward(ctx, Y_bar):
         T, X = ctx.saved_tensors
         if ctx.transpose_t:  # Y = Tᵀ X: T̄ = tril(X Ȳᵀ), X̄ = T Ȳ
-            return torch.tril(X @ Y_bar.transpose(-1, -2)), T @ Y_bar, None
+            return (matmul_tril_out(X, Y_bar.transpose(-1, -2)),
+                    matmul_left_lower(T, Y_bar), None)
         # Y = T X: T̄ = tril(Ȳ Xᵀ), X̄ = Tᵀ Ȳ
-        return torch.tril(Y_bar @ X.transpose(-1, -2)), T.transpose(-1, -2) @ Y_bar, None
+        return (matmul_tril_out(Y_bar, X.transpose(-1, -2)),
+                matmul_left_upper(T.transpose(-1, -2), Y_bar), None)
 
 
 def tri_project(T: torch.Tensor, X: torch.Tensor, transpose_t: bool = False) -> torch.Tensor:
     """Y = T X (Tᵀ X with ``transpose_t``) for a lower-triangular (M, M) T,
-    whose strictly upper entries are not read, and an (M, B) X; the T
-    cotangent is lower triangular (T̄ = tril(Ȳ Xᵀ), or tril(X Ȳᵀ)).  The
-    JAX package skips T's zero blocks for the TPU's matrix unit; here one
-    product of tril(T) does the work."""
+    whose strictly upper entries are not read, and an (M, B) X, in their
+    common dtype (bf16 under bf16 storage); the T cotangent is lower
+    triangular (T̄ = tril(Ȳ Xᵀ), or tril(X Ȳᵀ)).  Both directions take the
+    triangular-aware block products (:func:`matmul_left_lower` and the
+    rest), dense where :func:`_tri_blocks` gives one block (M < 2048)."""
     return _TriProject.apply(T, X, bool(transpose_t))
 
 
@@ -250,22 +339,41 @@ def _chol_bwd_from_inv(L, Linv, L_bar):
     return symmetrize(Linv.transpose(-1, -2) @ (P @ Linv))
 
 
+def _tri_gate(T: torch.Tensor) -> bool:
+    """Whether products with the (M, M) triangular factor T take the
+    triangular-aware blocks: unbatched, M >= ``config.tri_matmul_min_m``."""
+    return T.ndim == 2 and T.shape[-1] >= config.tri_matmul_min_m
+
+
+def _phi_sandwich(J: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """sym(Jᵀ P J) for lower-triangular J and P: the last two products of
+    the chol/inv pullbacks, triangular-aware at M >= tri_matmul_min_m."""
+    if _tri_gate(J):
+        return symmetrize(matmul_left_upper(J.T, matmul_right_lower(P, J)))
+    return symmetrize(J.transpose(-1, -2) @ (P @ J))
+
+
 def _inv_chol_bwd_fused(L, J, L_bar, J_bar):
     """Ā for (L, J = L⁻¹) = chol_with_inv(A) in one Φ-sandwich,
 
         Ā = sym(Jᵀ Φ(Lᵀ tril(L̄) − J̄ Jᵀ) J),
 
     3 matmuls with only J̄, 4 with both.  None stands for an absent
-    cotangent.  Plain ``torch.matmul``: the JAX package leaves it to XLA."""
+    cotangent.  Every factor is triangular (Lᵀ and Jᵀ upper, J and Φ(·)
+    lower), so at M >= ``config.tri_matmul_min_m`` the products skip their
+    zero blocks (:func:`matmul_left_upper` and the rest)."""
+    tri = _tri_gate(L)
     inner = None
     if L_bar is not None:
-        inner = L.transpose(-1, -2) @ torch.tril(L_bar)
+        Lt, tl = L.transpose(-1, -2), torch.tril(L_bar)
+        inner = matmul_left_upper(Lt, tl) if tri else Lt @ tl
     if J_bar is not None:
-        t = J_bar @ J.transpose(-1, -2)
+        Jt = J.transpose(-1, -2)
+        t = matmul_right_upper(J_bar, Jt) if tri else J_bar @ Jt
         inner = -t if inner is None else inner - t
     if inner is None:
         return torch.zeros_like(L)
-    return symmetrize(J.transpose(-1, -2) @ (_phi(inner) @ J))
+    return _phi_sandwich(J, _phi(inner))
 
 
 def chol_with_inv_plain(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -463,6 +463,14 @@ class LaplaceObjective:
             self.f = f_opt.detach()
         return -laplace_lml(lik, self.ys, K, f_opt)
 
+    @property
+    def cache(self) -> "LaplaceObjective":
+        """The warm-start cache (the JAX package's ``objective.cache``):
+        ``cache.f`` is the mode of the last call, the ``f_init`` of the next,
+        and seeds a posterior at the optimum
+        (``LaplaceApproximation(f_init=objective.cache.f)``)."""
+        return self
+
     def __call__(self, *args):
         with torch.no_grad():
             return self._value(args)

@@ -10,7 +10,10 @@ gram-fused (L, L⁻¹) kernel ``ops.panel_chol.gram_chol_inv``, and
 :class:`_WhitenedCacheFused` for a given Kuu.  The fused data-term epilogue
 ``ops.svgp_epilogue.svgp_data_epilogue`` serves ``predict_blocks`` and the
 streaming ELBO (``prefer=True``); the minibatch ``elbo`` declines it, as the
-JAX package's ``"auto"`` does.
+JAX package's ``"auto"`` does.  The plain projections follow the JAX
+package's storage and large-M policy: bf16 storage of the (M, B)
+intermediates under ``config.compute_dtype`` (:func:`_storage_dtype`) and
+the triangular-aware block products at M >= ``config.tri_matmul_min_m``.
 """
 
 from __future__ import annotations
@@ -107,6 +110,48 @@ def _scaled(x: torch.Tensor, scale) -> torch.Tensor:
     return x * (s if s.ndim == 0 else s.to(x.device))
 
 
+def _storage_dtype(like: torch.Tensor, M: int | None = None):
+    """bf16 storage for the (M, B) projection intermediates, or None.
+
+    ``config.compute_dtype``: "auto" stores f32 tensors on the kernel
+    device at M >= ``config.bf16_storage_min_m`` in bf16 (where the JAX
+    package says "on TPU"); "bfloat16" stores f32 tensors in bf16 at any M
+    and on any device; "float32" never.  f64 is never downcast, nor is the
+    CPU under "auto".  Products of bf16 operands accumulate in f32 and every
+    reduction is taken in f32; the master parameters, factorizations and
+    KL stay f32."""
+    if like.dtype != torch.float32:
+        return None
+    mode = config.compute_dtype
+    if mode == "bfloat16":
+        return torch.bfloat16
+    if mode == "auto" and kernel_device(like) and M is not None \
+            and M >= config.bf16_storage_min_m:
+        return torch.bfloat16
+    return None
+
+
+def _matvec_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in at least f32, for bf16-stored operands too."""
+    acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+    return a.to(acc) @ b.to(acc)
+
+
+def _quad_corr(S: torch.Tensor, Kuf: torch.Tensor) -> torch.Tensor:
+    """diag(Kufᵀ S Kuf) in at least f32, S and Kuf stored in bf16 where
+    :func:`_storage_dtype` says so."""
+    dt = _storage_dtype(Kuf, Kuf.shape[0])
+    return linalg.diag_quad_sym(S, Kuf) if dt is None else \
+        linalg.diag_quad_sym(S.to(dt), Kuf.to(dt))
+
+
+def _tri_proj(M: int) -> bool:
+    """Whether the projections take the triangular-aware block products
+    (``linalg.tri_project``): at M >= ``config.tri_matmul_min_m``, the
+    gate the chol/inv pullback shares."""
+    return M >= config.tri_matmul_min_m
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class SVGPPosterior(AbstractGP):
     """The SVGP posterior GP with the prediction methods of the reference."""
@@ -122,50 +167,65 @@ class SVGPPosterior(AbstractGP):
         return self.approx.fz.x
 
     def _A_and_Kuf(self, x):
-        """A = Lk⁻¹ Kuf, the projection, and Kuf."""
+        """A = Lk⁻¹ Kuf, the projection, and Kuf; both in bf16 under bf16
+        storage (:func:`_storage_dtype`), A by the triangular-aware products
+        at M >= ``tri_matmul_min_m``."""
         Kuf = self.prior.cov(self.inducing_points(), x)
-        if self.cache.Lk_inv is not None:
-            A = self.cache.Lk_inv @ Kuf
-        else:
-            A = torch.linalg.solve_triangular(self.cache.Kuu_L, Kuf, upper=False)
+        J = self.cache.Lk_inv
+        if J is None:
+            return torch.linalg.solve_triangular(self.cache.Kuu_L, Kuf, upper=False), Kuf
+        M = Kuf.shape[0]
+        dt = _storage_dtype(Kuf, M)
+        if dt is not None:
+            Kuf, J = Kuf.to(dt), J.to(dt)
+        A = linalg.tri_project(J, Kuf) if _tri_proj(M) else J @ Kuf
         return A, Kuf
 
     def _BtA(self, A):
-        return self.cache.B.T @ A
+        """BᵀA, in A's dtype (cache.B is lower triangular: the build trils
+        scale_tril, and the Centered B = Lk⁻¹·tril(Lq) is a product of lower
+        factors)."""
+        B = self.cache.B
+        if _storage_dtype(B, B.shape[0]) == A.dtype:
+            B = B.to(A.dtype)
+        if _tri_proj(A.shape[0]):
+            return linalg.tri_project(B, A, True)
+        return B.T @ A
 
     def mean(self, x):
         Kuf = self.prior.cov(self.inducing_points(), x)
-        return self.prior.mean(x) + Kuf.T @ self.cache.alpha
+        return self.prior.mean(x) + _matvec_f32(Kuf.T, self.cache.alpha)
 
     def cov(self, x, z=None):
         Ax, _ = self._A_and_Kuf(x)
         if z is None:
-            return self.prior.cov(x) - Ax.T @ Ax + self._BtA(Ax).T @ self._BtA(Ax)
+            return self.prior.cov(x) - linalg.At_A(Ax) + linalg.At_A(self._BtA(Ax))
         Az, _ = self._A_and_Kuf(z)
         return self.prior.cov(x, z) - Ax.T @ Az + self._BtA(Ax).T @ self._BtA(Az)
 
     def _var_via_S(self, x, Kuf=None):
-        """prior.var + diag(Kufᵀ S Kuf): the single-projection variance."""
+        """prior.var + diag(Kufᵀ S Kuf): the single-projection variance, S
+        and Kuf in bf16 under bf16 storage (the sum in f32)."""
         if Kuf is None:
             Kuf = self.prior.cov(self.inducing_points(), x)
-        return self.prior.var(x) + linalg.diag_quad_sym(self.cache.S_corr, Kuf), Kuf
+        return (self.prior.var(x) + _quad_corr(self.cache.S_corr, Kuf)).to(Kuf.dtype), Kuf
 
-    def _var_via_A(self, A):
-        return torch.sum(self._BtA(A) ** 2, dim=0) - torch.sum(A * A, dim=0)
+    def _var_via_A(self, x, A):
+        return self.prior.var(x) - linalg.diag_At_A(A) + linalg.diag_At_A(self._BtA(A))
 
     def var(self, x):
         if self.cache.S_corr is not None:
             return self._var_via_S(x)[0]
         A, _ = self._A_and_Kuf(x)
-        return self.prior.var(x) + self._var_via_A(A)
+        return self._var_via_A(x, A)
 
     def mean_and_var(self, x):
         if self.cache.S_corr is not None:
             v, Kuf = self._var_via_S(x)
         else:
             A, Kuf = self._A_and_Kuf(x)
-            v = self.prior.var(x) + self._var_via_A(A)
-        return self.prior.mean(x) + Kuf.T @ self.cache.alpha, v
+            v = self._var_via_A(x, A)
+        return self.prior.mean(x) + _matvec_f32(Kuf.T, self.cache.alpha), v
 
     @torch.no_grad()
     def predict_blocks(self, xs, block_size: int = 16384):
@@ -231,7 +291,8 @@ def _cache_tail_cotangents(J, C0, Lq, m, dJ, dalpha, dS):
 
 def _cache_chol_cotangents(Lk, J, C0, Lq, m, cts):
     """(K̄uu-or-None, L̄q, m̄) for the whitened-cache Functions: the cache
-    tail's cotangents chained into the (L, J) → K̄uu Φ-sandwich.
+    tail's cotangents chained into the (L, J) → K̄uu Φ-sandwich, its
+    products triangular-aware at M >= ``config.tri_matmul_min_m``.
 
     Fast path (the training step: only dα and dS live): the J̄ chain
     collapses, ``−J̄ Jᵀ = −C0 Q − m⊗m̄`` with ``Q = J dSs Jᵀ`` already needed
@@ -246,7 +307,7 @@ def _cache_chol_cotangents(Lk, J, C0, Lq, m, cts):
             inner = inner - m[:, None] * m_bar[None, :]
         else:
             m_bar = torch.zeros_like(m)
-        return linalg.symmetrize(J.T @ (linalg._phi(inner) @ J)), Lq_bar, m_bar
+        return linalg._phi_sandwich(J, linalg._phi(inner)), Lq_bar, m_bar
     J_bar, Lq_bar, m_bar = _cache_tail_cotangents(J, C0, Lq, m, dJ, dalpha, dS)
     if dLk is None and J_bar is None:
         return None, Lq_bar, m_bar

@@ -10,7 +10,11 @@ through the fused epilogue ``ops.svgp_epilogue.svgp_data_epilogue``, whose
 backward kernel rebuilds K0 on the card, where it serves (``prefer=remat``),
 and otherwise through the plain Gram and ``diag_quad_sym`` under
 ``torch.utils.checkpoint``, which recomputes the block's (M, B) Gram in the
-backward instead of keeping it (the port of ``jax.checkpoint``).
+backward instead of keeping it (the port of ``jax.checkpoint``); there S
+and the Gram are stored in bf16 under ``config.compute_dtype`` as in the
+minibatch ELBO.  The epilogue's blocks are f32 whatever the setting: the
+JAX package's epilogue stores bf16 only under its TPU-pass knob
+``matmul_precision``, which the port does not have.
 :func:`dp_streaming_elbo` splits the points over the ranks of a data mesh.
 """
 
@@ -29,6 +33,8 @@ from .svgp import (
     SparseVariationalApproximation,
     _epilogue_mu_var,
     _epilogue_operands,
+    _matvec_f32,
+    _quad_corr,
     prior_kl,
 )
 
@@ -90,8 +96,8 @@ def streaming_data_term(sva: SparseVariationalApproximation, lik, x: torch.Tenso
             mu, var = _epilogue_mu_var(prior, xi, operands)
         else:
             Kuf = prior.cov(z, xi)  # (M, B) Gram
-            mu = prior.mean(xi) + Kuf.T @ alpha
-            var = prior.var(xi) + linalg.diag_quad_sym(S_corr, Kuf)
+            mu = prior.mean(xi) + _matvec_f32(Kuf.T, alpha)
+            var = (prior.var(xi) + _quad_corr(S_corr, Kuf)).to(Kuf.dtype)
         ell = expected_loglikelihood(quadrature, lik, mu, var, yi)
         return torch.sum(ell * wi)
 

@@ -4,9 +4,11 @@ matrix-free exact GP, its Vecchia serving and training paths, the Vecchia
 tier on prebuilt Grams, the fused Gram, the natural-gradient and Poisson
 SVGP steps, block-Vecchia, the Laplace approximation (dense and
 matrix-free), pathwise sampling, the multi-latent and online SVGPs and
-leave-one-out cross-validation on one CUDA GPU.
+leave-one-out cross-validation, bf16 projection storage and the large-M
+SVGP step, and the twins of the ten examples on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # phases 1-23
+    python3 chip_smoke.py --examples-full   # phases 1, 2 and 23 at the twins' own sizes
 
 Phases (a failing phase raises, and the script exits non-zero):
 
@@ -42,7 +44,11 @@ Phases (a failing phase raises, and the script exits non-zero):
    bitwise) and timed, which places the crossover; the pass that
    ``pass_part`` picks at R = 1, 16 and 32 beside the plain version, its
    SIMT bound and its bound; the general pullback (three passes) and the
-   self-Gram's one-pass pullback at R = 16.
+   self-Gram's one-pass pullback at R = 16.  Row 4 again at phase 22's
+   M = 8192 (the SE Gram of 8192 points N(0, 1) in D = 8): f32 against the
+   plain version in f32 and f64 (twice, equal bitwise), f64 on the host loop
+   against the f64 plain version, then timed beside the plain version and
+   both bounds.
 4. The slice: a NonCentered SVGP posterior at the bench configuration
    (M = 2048 inducing points, D = 8, SE kernel with raw hyperparameters
    [0.5, 0.5], jitter 1e-6; parameters from numpy with a fixed seed) built
@@ -257,12 +263,30 @@ Phases (a failing phase raises, and the script exits non-zero):
     band route and the single-card one (row 5's cross pass at R = 1 and
     16, the general pullback's transposed pass and the lengthscale's
     r²·g′ pass), row 5's launches counted by pass.
+21. Phase 5's minibatch cell under ``compute_dtype="bfloat16"`` (the (M, B)
+    projection intermediates stored in bf16, sums in f32): step 1's value
+    within 2e-2 of the f32 step and its gradients against it (the bench's q
+    and a non-trivial one), 30 finite Adam steps with row 1 once a step, ms
+    a step beside the f32 step's in the same run.
+22. The minibatch step at M = 8192 (``bench.py --M 8192``: z ~ N(0, 1),
+    m = 0, A = I; B = 8192 from 10^6 points): above s_corr_max_m the build
+    takes ``chol_with_inv``, so row 4 runs once a step at M = 8192.  Step 1
+    at a non-trivial q in (a) the defaults (bf16 storage and the triangular
+    products on the card), (b) ``compute_dtype="float32"``, (c) f32 with
+    the dense products, and (b) with ``chol_mode="plain"`` (cuSOLVER): (b)
+    against (c) and the plain route, (a) against (b); then 10 Adam steps in
+    each of (a), (b), (c) with their launches, ms a step and peak memory.
+23. The twins of the ten examples (``examples/torch/``) at
+    ``scripts/run_examples.py``'s reduced sizes, their asserts live: each
+    one's seconds and its launches by row.
 
 The line before the last is one JSON object with each kernel's route,
-source, launches in the path runs of phases 4-20 (each run with the counts
+source, launches in the path runs of phases 4-23 (each run with the counts
 set to 0 just before it), error, times and bound (the least time the card
 could take for the work: operations over the peak rate of their unit or
-bytes over the memory rate, whichever is larger); the last line is
+bytes over the memory rate, whichever is larger), and row 4 once more at
+M = 8192 (``chol_inv@M=8192``: phase 3's numbers, phase 22's launches); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -271,6 +295,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import pathlib
 import socket
 import statistics
 import subprocess
@@ -574,6 +599,27 @@ N_LOO, LOO_NOISE, LOO_VALUE_RTOL32, LOO_GRAD_RTOL32 = 5000, 0.1, 1e-5, 5e-4
 # in another order); the stored band is the cross Gram K(X, X), built by another route than the
 # symmetric Gram (DP_DENSE_RTOL32; read 1.7e-4: Newton stops at a relative step of 1e-4)
 DP_RTOL32, DP_DENSE_RTOL32 = 1e-6, 1e-3
+# Phase 21, phase 5's cell under compute_dtype="bfloat16": step 1's value against the f32 step
+# (tests/test_svgp.py's gate) and its gradients, relative to each one's largest entry (read at
+# most 1.39e-1 on an NVIDIA H100 80GB HBM3, 700 W).  S's cotangent (K∘w)Kᵀ is stored in bf16
+# and comes back through the L⁻¹ sandwich of the whitened cache's pullback: the JAX package's
+# own bf16 gradient sits as far from its f32 one (dA 1.14e-1 in both packages on the CPU at
+# M = 2048, B = 2048; `PYTHONPATH=. python tests/test_torch_compute_dtype.py 2048 2048`).
+# The same step above s_corr_max_m, with no S-correction, is held to BF16_NO_S_GRAD_RTOL
+# (1.1e-2 in both packages on the CPU there)
+BF16_VALUE_RTOL, BF16_GRAD_RTOL, BF16_NO_S_GRAD_RTOL = 2e-2, 3e-1, 5e-2
+# Phase 22, the step at M = 8192 (bench.py --M 8192), 10 steps a setting; row 4 at that M in
+# phase 3.  f32 limits relative to each gradient's largest entry, each a few times the reading
+# on an NVIDIA H100 80GB HBM3, 700 W: the triangular and dense products are the same sums in
+# another order (LARGE_DENSE_RTOL32; read 1.1e-5), cuSOLVER's factor takes another route
+# (LARGE_PLAIN_RTOL32; read 1.9e-4), bf16 storage against f32 (LARGE_BF16_GRAD_RTOL; read
+# 3.7e-2)
+M_LARGE, LARGE_STEPS = 8192, 10
+LARGE_DENSE_RTOL32, LARGE_PLAIN_RTOL32, LARGE_BF16_GRAD_RTOL = 1e-4, 1e-3, 1e-1
+# row 4 at M = 8192: ||dL||_F/||L||_F and max|LJ − I| in f64 (host loop; read 4.5e-14 and
+# 6.9e-15) and f32 (panel steps; read 3.0e-5 against cuSOLVER's f32 factor, itself 3.0e-5 from
+# f64, 4.1e-6 against f64, and 1.7e-6)
+LARGE_F64_FRO, LARGE_F64_RES, LARGE_F32_FRO, LARGE_F32_RES = 1e-12, 1e-12, 1e-4, 2e-5
 # H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores, HBM;
 # special-function unit results (exp): 16 a clock an SM (Hopper white
 # paper) × 132 SMs × 1.98 GHz boost; TF32 on the tensor cores (dense)
@@ -793,6 +839,7 @@ def phase_parity(dev) -> dict:
         err = f32_factor_check(f"chol_inv f32 M={M} {name}", lambda: panel_chol.chol_inv(A32), L0)
         if name == "se":
             out["chol_inv"] = {"max_abs_err": err}
+    out["chol_inv@M=8192"] = parity_chol_inv_large(dev, rng, spd)
     A32 = spd(Z32, se)
     ms = cuda_ms(lambda: panel_chol.chol_inv(A32), 10)
     plain_ms = cuda_ms(lambda: panel_chol.chol_inv_plain(A32), 10)
@@ -839,6 +886,56 @@ def phase_parity(dev) -> dict:
         lambda: svgp_epilogue.svgp_data_epilogue_bwd_plain(*bargs32, se), 5))
     out["gram_matvec"] = parity_gram_matvec(dev, maps)
     return out
+
+
+def parity_chol_inv_large(dev, rng, spd) -> dict:
+    """Row 4 at phase 22's M = 8192 (the posterior build above s_corr_max_m
+    factors Kuu there): in f32 on the panel steps against the plain version
+    (cuSOLVER) in f32 and f64, and in f64 on the host loop against the f64
+    plain version, on the SE Gram of 8192 points N(0, 1) in D = 8 plus the
+    jitter and phase 3's small asymmetry; each f32 run twice (equal
+    bitwise); then the kernel and the plain version timed beside the
+    tensor-core and the SIMT bound (M³/3 FMAs).  Returns the numbers for
+    the kernels line."""
+    se = tk.SqExponentialKernel().kernel_map()
+    Z = torch.tensor(rng.standard_normal((M_LARGE, D)), device=dev)
+    A64 = spd(Z, se)
+    A32 = A64.float()
+    eye = torch.eye(M_LARGE, dtype=torch.float64, device=dev)
+    L64p, J64p = panel_chol.chol_inv_plain(A64)
+    L64, J64 = panel_chol.chol_inv(A64)
+    torch.cuda.synchronize()
+    fro64 = (torch.linalg.norm(L64 - L64p) / torch.linalg.norm(L64p)).item()
+    res64 = (L64 @ J64 - eye).abs().max().item()
+    check(fro64 <= LARGE_F64_FRO and res64 <= LARGE_F64_RES,
+          f"chol_inv f64 M={M_LARGE} (host loop) vs plain f64: ||dL||_F/||L||_F {fro64:.3e} <= "
+          f"{LARGE_F64_FRO:g}, max|LJ - I| {res64:.3e} <= {LARGE_F64_RES:g}")
+    del L64, J64
+    L32p, _ = panel_chol.chol_inv_plain(A32)
+    L, J = panel_chol.chol_inv(A32)
+    L2, J2 = panel_chol.chol_inv(A32)
+    torch.cuda.synchronize()
+    fro = (torch.linalg.norm(L.double() - L32p.double()) / torch.linalg.norm(L32p.double())).item()
+    fro_64 = (torch.linalg.norm(L.double() - L64p) / torch.linalg.norm(L64p)).item()
+    fro_p = (torch.linalg.norm(L32p.double() - L64p) / torch.linalg.norm(L64p)).item()
+    res = (L.double() @ J.double() - eye).abs().max().item()
+    same = torch.equal(L, L2) and torch.equal(J, J2)
+    upper = bool(torch.triu(L, 1).any() or torch.triu(J, 1).any())
+    check(fro <= LARGE_F32_FRO and fro_64 <= LARGE_F32_FRO and res <= LARGE_F32_RES and same
+          and not upper,
+          f"chol_inv f32 M={M_LARGE} (panel steps): ||dL||_F/||L||_F vs plain f32 {fro:.3e}, vs "
+          f"plain f64 {fro_64:.3e} (plain f32 vs f64 {fro_p:.3e}) <= {LARGE_F32_FRO:g}, "
+          f"max|LJ - I| {res:.3e} <= {LARGE_F32_RES:g}, two runs equal bitwise, zeros above both "
+          f"diagonals")
+    err = max_abs(L, L32p)
+    del L, J, L2, J2, L32p, L64p, J64p, A64
+    ms = cuda_ms(lambda: panel_chol.chol_inv(A32), 5)
+    plain_ms = cuda_ms(lambda: panel_chol.chol_inv_plain(A32), 5)
+    (b_ms, b_by), (s_ms, s_by) = gram_chol_bounds(m=M_LARGE, gram=False)
+    print(f"time chol_inv f32 M={M_LARGE}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}), SIMT bound {s_ms:.3f} ms ({s_by}) ({CARD})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_ms_simt": s_ms}
 
 
 # rows 2 and 3 in f32: (M, B, D) of the parity checks of both kernels of
@@ -1230,11 +1327,10 @@ def check_grads(what: str, v, g, v_ref, g_ref, limit: float) -> None:
           + f" <= {limit:g}")
 
 
-def phase_minibatch(dev) -> dict:
-    rng = np.random.default_rng(SEED + 2)
-    params = {"k": np.array(RAW_K), "z": rng.standard_normal((M, D)), "m": np.zeros(M),
-              "A": np.eye(M)}  # bench.py::_svgp_params
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+def headline_batches(dev, seed: int):
+    """Phase 5's data (10^6 points N(0, 1) in D = 8, y = sin(x_0) + 0.1·N(0, 1))
+    and a generator of fresh minibatches gathered on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((N_DATA, D), generator=gen, device=dev)
     y = torch.sin(x[:, 0]) + NOISE * torch.randn((N_DATA,), generator=gen, device=dev)
 
@@ -1242,6 +1338,15 @@ def phase_minibatch(dev) -> dict:
         for _ in range(n):
             idx = torch.randint(0, N_DATA, (BATCH,), generator=gen, device=dev)
             yield x[idx], y[idx]
+
+    return batches
+
+
+def phase_minibatch(dev) -> dict:
+    rng = np.random.default_rng(SEED + 2)
+    params = {"k": np.array(RAW_K), "z": rng.standard_normal((M, D)), "m": np.zeros(M),
+              "A": np.eye(M)}  # bench.py::_svgp_params
+    batches = headline_batches(dev, SEED + 3)
 
     # step 1's loss and gradients: the kernel path against the plain path
     # (f32) and an f64 plain reference, at the bench's parameters (where the
@@ -3642,6 +3747,177 @@ def dp_matrix_free(dev, mesh) -> dict:
     return launches
 
 
+def storage_errors(v, g, v_ref, g_ref) -> tuple[float, dict, bool]:
+    """(value's relative error, each gradient's relative error, every
+    gradient finite) of a bf16-storage step against the f32 one."""
+    ev = abs(v.double().item() - v_ref.double().item()) / abs(v_ref.double().item())
+    eg = {k: rel_err(g[k], g_ref[k]) for k in g}
+    return ev, eg, all(bool(torch.isfinite(t).all()) for t in g.values())
+
+
+def phase_bf16(dev) -> dict:
+    """Phase 21: phase 5's minibatch cell under ``compute_dtype="bfloat16"``
+    (``bench.py``'s bf16 headline row)."""
+    rng = np.random.default_rng(SEED + 2)
+    params = {"k": np.array(RAW_K), "z": rng.standard_normal((M, D)), "m": np.zeros(M),
+              "A": np.eye(M)}  # bench.py::_svgp_params
+    batches = headline_batches(dev, SEED + 3)
+    xb, yb = next(batches(1))
+    # the S-correction's route (the cell's), and the route above s_corr_max_m (A = Lk⁻¹Kuf and
+    # BᵀA stored in bf16, no S̄), which tells the S-correction's share of the gradients' gap
+    for what, ps, cfg, limit in (
+            ("bench q", params, {}, BF16_GRAD_RTOL),
+            ("non-trivial q", slice_params(), {}, BF16_GRAD_RTOL),
+            ("non-trivial q, no S-correction", slice_params(), {"s_corr_max_m": M // 2},
+             BF16_NO_S_GRAD_RTOL)):
+        with tgp.config_context(compute_dtype="float32", **cfg):
+            v, g = value_and_grad(minibatch_loss, leaf_params(ps, dev, torch.float32), xb, yb)
+        with tgp.config_context(compute_dtype="bfloat16", **cfg):
+            vb, gb = value_and_grad(minibatch_loss, leaf_params(ps, dev, torch.float32), xb, yb)
+        ev, eg, finite = storage_errors(vb, gb, v, g)
+        check(ev <= BF16_VALUE_RTOL and max(eg.values()) <= limit and finite,
+              f"bf16 minibatch step 1 ({what}) vs f32: rel err loss {ev:.3e} <= "
+              f"{BF16_VALUE_RTOL:g}, " + ", ".join(f"d{k} {e:.3e}" for k, e in eg.items())
+              + f" <= {limit:g}, all finite")
+
+    p = {k: t.detach() for k, t in leaf_params(params, dev, torch.float32).items()}
+    with tgp.config_context(compute_dtype="bfloat16"):
+        reset_counts()
+        p, losses = tgp.adam_fit(minibatch_loss, p, batches(STEPS), learning_rate=LR)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    print(f"bf16 minibatch launches over {STEPS} steps: {launches}")
+    check(launches == only(gram_chol_inv=STEPS), f"row 1 launched once a step ({STEPS} steps)")
+    losses = torch.stack(losses)
+    check(bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(t).all())
+                                                     for t in p.values()),
+          f"{STEPS} bf16 Adam steps: losses and parameters finite "
+          f"(loss {losses[0].item():.6g} -> {losses[-1].item():.6g})")
+
+    ms = {}
+    for mode in ("float32", "bfloat16", "float32", "bfloat16"):
+        with tgp.config_context(compute_dtype=mode):
+            q = {k: t.detach() for k, t in leaf_params(params, dev, torch.float32).items()}
+            reps = 10
+            ms.setdefault(mode, []).append(
+                cuda_ms(lambda: tgp.adam_fit(minibatch_loss, q, batches(reps), LR), 3) / reps)
+    print(f"time minibatch step M={M}: f32 (phase 5's cell) "
+          + ", ".join(f"{t:.3f}" for t in ms["float32"]) + " ms, bf16 storage "
+          + ", ".join(f"{t:.3f}" for t in ms["bfloat16"]) + f" ms a step ({CARD})")
+    return launches
+
+
+# phase 22's three settings of the M = 8192 step: the defaults on the card (bf16 storage and
+# the triangular products), f32, and f32 with the dense products
+LARGE_SETTINGS = (("a: defaults (bf16, triangular)", {}),
+                  ("b: compute_dtype=float32", {"compute_dtype": "float32"}),
+                  ("c: float32, dense products", {"compute_dtype": "float32",
+                                                  "tri_matmul_min_m": 2 * M_LARGE}))
+
+
+def large_params(nontrivial: bool) -> dict:
+    """``bench.py::_svgp_params`` at M = 8192 (k = (0.5, 0.5), z ~ N(0, 1),
+    m = 0, A = I), or with phase 4's kind of non-trivial q, which reaches
+    every term of the pullbacks."""
+    rng = np.random.default_rng(SEED + 22)
+    p = {"k": np.array(RAW_K), "z": rng.standard_normal((M_LARGE, D)), "m": np.zeros(M_LARGE),
+         "A": np.eye(M_LARGE)}
+    if nontrivial:
+        p["m"] = 0.3 * rng.standard_normal(M_LARGE)
+        p["A"] = 0.6 * np.eye(M_LARGE) + 0.01 * np.tril(rng.standard_normal((M_LARGE, M_LARGE)))
+    return p
+
+
+def phase_large_m(dev) -> dict:
+    """Phase 22: the minibatch step at M = 8192 (``bench.py --M 8192``).
+    Above s_corr_max_m the posterior build takes ``chol_with_inv``, so row 4
+    runs once a step; returns each setting's launches."""
+    batches = headline_batches(dev, SEED + 23)
+    xb, yb = next(batches(1))
+    ps = large_params(True)
+    step1 = {}
+    for label, cfg in LARGE_SETTINGS + (("plain: float32, chol_mode=plain",
+                                         {"compute_dtype": "float32", "chol_mode": "plain"}),):
+        with tgp.config_context(**cfg):
+            reset_counts()
+            step1[label[0]] = value_and_grad(minibatch_loss, leaf_params(ps, dev, torch.float32),
+                                             xb, yb)
+            torch.cuda.synchronize()
+            n = read_counts()["chol_inv"]
+        check(n == (0 if label.startswith("plain") else 1),
+              f"M={M_LARGE} step 1 ({label}): row 4 launched {n} times")
+    check_grads(f"M={M_LARGE} step 1 (b) vs (c), triangular vs dense products", *step1["b"],
+                *step1["c"], LARGE_DENSE_RTOL32)
+    check_grads(f"M={M_LARGE} step 1 (b) vs chol_mode=plain (cuSOLVER)", *step1["b"],
+                *step1["p"], LARGE_PLAIN_RTOL32)
+    ev, eg, finite = storage_errors(*step1["a"], *step1["b"])
+    check(ev <= BF16_VALUE_RTOL and max(eg.values()) <= LARGE_BF16_GRAD_RTOL and finite,
+          f"M={M_LARGE} step 1 (a) bf16 storage vs (b) f32: rel err loss {ev:.3e} <= "
+          f"{BF16_VALUE_RTOL:g}, " + ", ".join(f"d{k} {e:.3e}" for k, e in eg.items())
+          + f" <= {LARGE_BF16_GRAD_RTOL:g}, all finite")
+    del step1
+
+    launches = {}
+    for label, cfg in LARGE_SETTINGS:
+        with tgp.config_context(**cfg):
+            p = {k: t.detach() for k, t in leaf_params(large_params(False), dev,
+                                                       torch.float32).items()}
+            tgp.adam_fit(minibatch_loss, p, batches(1), learning_rate=LR)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            (p, losses), ms = timed(lambda: tgp.adam_fit(minibatch_loss, p, batches(LARGE_STEPS),
+                                                         learning_rate=LR))
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches[f"m8192_{label[0]}"] = counts
+        losses = torch.stack(losses)
+        check(counts == only(chol_inv=LARGE_STEPS)
+              and bool(torch.isfinite(losses).all())
+              and all(bool(torch.isfinite(t).all()) for t in p.values()),
+              f"M={M_LARGE} ({label}): row 4 launched once a step, {LARGE_STEPS} steps finite "
+              f"(loss {losses[0].item():.6g} -> {losses[-1].item():.6g})")
+        print(f"time M={M_LARGE} step ({label}): {ms / LARGE_STEPS:.3f} ms a step (Adam, "
+              f"B={BATCH}, {LARGE_STEPS} steps), peak memory {peak:.2f} GiB ({CARD})")
+        del p
+    return launches
+
+
+# the row of the kernels table each counter stands for (PERF.md §6)
+ROWS = {"gram_chol_inv": "1", "svgp_data_epilogue": "2", "svgp_data_epilogue_bwd": "3",
+        "chol_inv": "4", "gram_matvec": "5", "batched_chol_solve_band": "6",
+        "vecchia_band": "7/8/10", "vecchia_band_bwd": "9", "stationary_gram": "11"}
+
+
+def phase_examples(dev, full: bool = False) -> dict:
+    """Phase 23: each twin of ``examples/`` (``examples/torch/``) on the card,
+    its own asserts live, at ``scripts/run_examples.py``'s reduced sizes
+    (``full``: at its own defaults), each run with the counts set to 0 just
+    before it; prints each one's seconds and its launches by row.  With
+    ``full`` every twin runs and the failures are reported together."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "examples" / "torch"))
+    import run_twins
+
+    by_path, failed = {}, []
+    for name, (mod_name, _) in run_twins.RUNS.items():
+        reset_counts()
+        try:
+            sec = run_twins.run(name, full=full, device=dev, sync=torch.cuda.synchronize)
+        except AssertionError as e:
+            if not full:
+                check(False, f"example {name} ({mod_name}) failed its assert: {e!r}")
+            failed.append(name)
+            print(f"FAIL example {name} ({mod_name}){' full size' if full else ''}: {e!r}")
+            continue
+        counts = read_counts()
+        by_path[f"example_{name}"] = counts
+        rows = ", ".join(f"row {ROWS[k]} {n}" for k, n in counts.items() if n) or "none"
+        print(f"example {name} ({mod_name}){' full size' if full else ''}: {sec:.1f} s, "
+              f"launches: {rows} ({CARD})")
+    check(not failed, f"every example twin passed its asserts (failed: {failed})")
+    return by_path
+
+
 @contextlib.contextmanager
 def world_of_one(dev):
     """A ``torch.distributed`` world of this one process on a free port of
@@ -3667,6 +3943,8 @@ def _plain(fn, *args):
 
 
 def main() -> None:
+    if "--examples-full" in sys.argv[1:]:
+        return examples_full()
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -3692,6 +3970,9 @@ def main() -> None:
     by_path["online"] = phase_online(dev)
     by_path["loo"] = phase_loo(dev)
     by_path.update(phase_dp(dev))
+    by_path["bf16"] = phase_bf16(dev)
+    by_path.update(phase_large_m(dev))
+    by_path.update(phase_examples(dev))
     meta = {
         "gram_chol_inv": ("approximategps_tpu_torch/csrc/gram_chol_inv_mma.cu",
                           "approximategps_tpu/ops/panel_chol.py:405"),
@@ -3747,10 +4028,29 @@ def main() -> None:
                         **also.get(k, {}), "launches": sum(per_path.values()),
                         "launches_by_path": per_path, "library_ms": None,
                         **numbers[k]})
+    # row 4 again at phase 22's M = 8192 (phase 3's numbers there; its launches in phase 22)
+    large = {path: counts["chol_inv"] for path, counts in by_path.items()
+             if path.startswith("m8192_")}
+    src, rep = meta["chol_inv"]
+    kernels.append({"name": "chol_inv@M=8192", "route": "cuda", "source": src, "replaces": rep,
+                    **also["chol_inv"], "launches": sum(large.values()),
+                    "launches_by_path": large, "library_ms": None,
+                    **numbers["chol_inv@M=8192"]})
     check(all(k["launches"] > 0 for k in kernels), "every kernel launched by a path run")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
+
+
+def examples_full() -> int:
+    """``--examples-full``: phases 1 and 2, then phase 23 with every twin at
+    its own default sizes; the last line as in the default run."""
+    name = phase_device()
+    phase_build()
+    phase_examples(torch.device("cuda", 0), full=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 if __name__ == "__main__":

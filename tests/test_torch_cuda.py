@@ -204,6 +204,69 @@ def test_torch_cuda_chol_inv_f32_steps_match_plain(M, offset, cuda):
     assert torch.equal(L, L2) and torch.equal(J, J2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_cuda_chol_inv_at_m8192_matches_plain(dtype, cuda):
+    """Row 4 at M = 8192, the posterior build's shape above s_corr_max_m
+    (128 panel steps in f32, 128 panels of the host loop in f64), on the SE
+    Gram of 8192 points N(0, 1) in D = 8 plus jitter 1e-6, against the plain
+    version (cuSOLVER) in f64: ||dL||_F/||L||_F and max|LJ - I| within
+    chip_smoke.py's limits for that M (LARGE_F32_* or LARGE_F64_*), zeros above
+    both diagonals."""
+    import chip_smoke as cs
+
+    gen = torch.Generator(device=cuda).manual_seed(8192)
+    Z = torch.randn((8192, 8), generator=gen, device=cuda, dtype=torch.float64)
+    r2 = tk.pairwise_sq_dist(Z, Z, mode="broadcast")
+    A = 1.3 * torch.exp(-0.5 * r2) + 1e-6 * torch.eye(8192, dtype=torch.float64, device=cuda)
+    del r2
+    L0, _ = panel_chol.chol_inv_plain(A)
+    before = panel_chol.chol_inv.launches
+    L, J = panel_chol.chol_inv(A.to(dtype))
+    assert panel_chol.chol_inv.launches == before + 1
+    fro = (torch.linalg.norm(L.double() - L0) / torch.linalg.norm(L0)).item()
+    res = (L.double() @ J.double() - torch.eye(8192, dtype=torch.float64, device=cuda)).abs().max()
+    lim = (cs.LARGE_F32_FRO, cs.LARGE_F32_RES) if dtype == torch.float32 else \
+        (cs.LARGE_F64_FRO, cs.LARGE_F64_RES)
+    assert fro <= lim[0] and res.item() <= lim[1], (fro, res.item())
+    assert not torch.triu(L, 1).any() and not torch.triu(J, 1).any()
+
+
+@pytest.mark.parametrize("setting", ["defaults", "float32", "dense"])
+def test_torch_cuda_m8192_step_launches_row4_once(setting, cuda):
+    """Phase 22's step at M = 8192 (a smaller batch): the posterior build
+    above s_corr_max_m launches row 4 once and row 1 never, in each of the
+    three settings; under the defaults the projections are stored in bf16
+    (compute_dtype "auto" on the card at M >= bf16_storage_min_m) and the
+    value and gradients are finite."""
+    from approximategps_tpu_torch.models import svgp as tsvgp
+
+    cfg = {"defaults": {}, "float32": {"compute_dtype": "float32"},
+           "dense": {"compute_dtype": "float32", "tri_matmul_min_m": 1 << 14}}[setting]
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    M, B = 8192, 1024
+    z = torch.randn((M, 8), generator=gen, device=cuda).requires_grad_()
+    x = torch.randn((B, 8), generator=gen, device=cuda)
+    y = torch.sin(x[:, 0])
+    raw = torch.tensor([0.5, 0.5], device=cuda, requires_grad=True)
+    with tgp.config_context(**cfg):
+        f = tgp.GP(tgp.utils.softplus(raw[0]) * tgp.with_lengthscale(
+            tgp.SqExponentialKernel(), tgp.utils.softplus(raw[1])))
+        m = torch.zeros(M, device=cuda, requires_grad=True)
+        sva = tgp.SparseVariationalApproximation(
+            f(z, 1e-6), tgp.MultivariateNormal(m, torch.eye(M, device=cuda)))
+        before = (panel_chol.chol_inv.launches, panel_chol.gram_chol_inv.launches)
+        post = tgp.posterior(sva)
+        assert post.cache.S_corr is None
+        _, Kuf = post._A_and_Kuf(x)
+        assert Kuf.dtype == (torch.bfloat16 if setting == "defaults" else torch.float32)
+        assert tsvgp._tri_proj(M) == (setting != "dense")
+        e = tgp.elbo(sva, f(x, 0.1), y, num_data=10 ** 6)
+        grads = torch.autograd.grad(e, (raw, z, m))
+    assert panel_chol.chol_inv.launches == before[0] + 2  # the posterior above and the elbo's
+    assert panel_chol.gram_chol_inv.launches == before[1]
+    assert bool(torch.isfinite(e)) and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
 @pytest.mark.parametrize("cls", MAPS, ids=MAP_IDS)
 def test_torch_cuda_svgp_epilogue_bwd_matches_plain(cls, cuda):
     """Kernel 3: all four cotangents against the closed-form plain version,

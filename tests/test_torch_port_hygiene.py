@@ -1,5 +1,6 @@
-"""Properties of the PyTorch port as a whole: it (and ``chip_smoke.py``)
-never imports JAX or the JAX package, its kernel modules import without a
+"""Properties of the PyTorch port as a whole: it (and ``chip_smoke.py``,
+and the examples' twins under ``examples/torch/``) never imports JAX or
+the JAX package, its kernel modules import without a
 CUDA compiler, and ``chip_smoke.py`` refuses to report a result without a
 CUDA device."""
 
@@ -81,6 +82,29 @@ def test_torch_port_imports_no_jax():
             # does not import JAX; the port's own name is allowed
             assert not re.match(r"\s*(import|from)\s+approximategps_tpu(?!_torch)\b", line), \
                 (path, line)
+
+
+def test_torch_example_twins_import_no_jax():
+    """No file under examples/torch/ imports jax, optax or the JAX package,
+    and importing every twin in a fresh process loads none of them."""
+    twins = sorted((REPO / "examples" / "torch").glob("*.py"))
+    assert len([p for p in twins if not p.name.startswith(("_", "run_"))]) == 10
+    for path in twins:
+        for line in path.read_text().splitlines():
+            assert not re.match(r"\s*(import|from)\s+(jax|optax)\b", line), (path, line)
+            assert not re.match(r"\s*(import|from)\s+approximategps_tpu(?!_torch)\b", line), \
+                (path, line)
+    proc = _run(
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO / 'examples' / 'torch')!r})\n"
+        "import run_twins\n"
+        "for name in run_twins.RUNS:\n"
+        "    run_twins.load(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', "
+        "'approximategps_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_torch_kernel_modules_import_without_nvcc(tmp_path):
