@@ -46,6 +46,7 @@ from ..core.kernels import as_points
 from ..ops.gram_matvec import fused_stationary_matvec
 from ..parallel import _comm
 from ..parallel.data_parallel import shard_batch
+from ..utils.profiling import named_scope
 
 __all__ = [
     "cg_solve",
@@ -137,8 +138,8 @@ def pivoted_cholesky(kernel, x, rank: int) -> torch.Tensor:
     ``rank`` kernel rows are evaluated.  A column whose pivot is below the
     relative floor max(N, 100)·eps·max(diag K) is left zero.  Returns a
     constant (no autograd graph); its loop never syncs the host.  Its work
-    is one ``torch.profiler`` range, "pivoted_cholesky"."""
-    with torch.no_grad(), torch.profiler.record_function("pivoted_cholesky"):
+    is one span, "pivoted_cholesky" (``utils.profiling.named_scope``)."""
+    with torch.no_grad(), named_scope("pivoted_cholesky"):
         X = as_points(x)
         N = X.shape[0]
         d = kernel.diag(X)

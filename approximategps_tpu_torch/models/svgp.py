@@ -38,6 +38,7 @@ from ..core.likelihoods import GaussianLikelihood
 from ..core.quadrature import DefaultExpectationMethod, expected_loglikelihood
 from ..ops.panel_chol import gram_chol_inv, gram_chol_inv_supported
 from ..ops.svgp_epilogue import epilogue_part, svgp_data_epilogue
+from ..utils.profiling import named_scope
 from .api import approx_lml, posterior
 
 __all__ = [
@@ -232,21 +233,26 @@ class SVGPPosterior(AbstractGP):
         """(mean, var) over a large test set, ``block_size`` points at a
         time, each block through the fused epilogue kernel when it applies
         (the S-correction cache exists and the kernel unwraps) and through
-        :meth:`mean_and_var` otherwise.  The last block may be ragged."""
-        X = as_points(xs)
-        operands = _epilogue_operands(
-            self.prior, self.inducing_points(), self.cache.alpha, self.cache.S_corr, prefer=True
-        )
-        mus, variances = [], []
-        for start in range(0, X.shape[0], block_size):
-            block = X[start:start + block_size]
-            if operands is not None:
-                mu, var = _epilogue_mu_var(self.prior, block, operands)
-            else:
-                mu, var = self.mean_and_var(block)
-            mus.append(mu)
-            variances.append(var)
-        return torch.cat(mus), torch.cat(variances)
+        :meth:`mean_and_var` otherwise.  The last block may be ragged.
+        Under a profiler session the call is a ``predict_blocks`` span and
+        each block a ``predict.block`` span inside it."""
+        with named_scope("predict_blocks"):
+            X = as_points(xs)
+            operands = _epilogue_operands(
+                self.prior, self.inducing_points(), self.cache.alpha, self.cache.S_corr,
+                prefer=True
+            )
+            mus, variances = [], []
+            for start in range(0, X.shape[0], block_size):
+                with named_scope("predict.block"):
+                    block = X[start:start + block_size]
+                    if operands is not None:
+                        mu, var = _epilogue_mu_var(self.prior, block, operands)
+                    else:
+                        mu, var = self.mean_and_var(block)
+                    mus.append(mu)
+                    variances.append(var)
+            return torch.cat(mus), torch.cat(variances)
 
 
 def inducing_points(f_post: SVGPPosterior) -> torch.Tensor:

@@ -22,7 +22,7 @@ from .priors import (
     map_objective,
     normal_prior,
 )
-from .profiling import StepTimer, named_scope, time_fn, trace
+from .profiling import StepTimer, named_scope, reset_spans, spans, time_fn, trace
 from .training import (
     SVGPParams,
     adam_fit,

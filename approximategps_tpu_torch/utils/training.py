@@ -19,6 +19,7 @@ from ..core.kernels import SqExponentialKernel, with_lengthscale
 from ..core.linalg import _chol_bwd_from_inv, blocked_tril_inv, chol_with_inv, symmetrize
 from ..models.svgp import NonCentered, SparseVariationalApproximation
 from .bijectors import cholesky_parameter, flat_from_tril, invsoftplus, softplus
+from .profiling import named_scope
 
 __all__ = [
     "SVGPParams",
@@ -93,7 +94,12 @@ def adam_fit(loss_fn: Callable, params, data_iter, learning_rate: float = 1e-2,
     optimiser's own).  ``torch.optim.Adam``'s defaults (β = 0.9, 0.999;
     ε = 1e-8 outside the square root) are ``optax.adam``'s.  ``optimizer``,
     if given, maps the list of leaves to another ``torch.optim`` optimiser.
-    Returns ``(params, losses)``, the losses as 0-dim tensors."""
+    Returns ``(params, losses)``, the losses as 0-dim tensors.
+
+    Under a profiler session each step is an ``adam_fit.step`` span: the
+    gradients' reset (no launch), then ``adam_fit.forward`` (``loss_fn``),
+    ``adam_fit.backward`` and ``adam_fit.update`` (the optimiser's step and
+    the loss kept); fetching the next batch lies outside them."""
     leaves = _leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -102,11 +108,15 @@ def adam_fit(loss_fn: Callable, params, data_iter, learning_rate: float = 1e-2,
     for i, batch in enumerate(data_iter):
         if num_steps is not None and i >= num_steps:
             break
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, *batch)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
+        with named_scope("adam_fit.step"):
+            opt.zero_grad(set_to_none=True)
+            with named_scope("adam_fit.forward"):
+                loss = loss_fn(params, *batch)
+            with named_scope("adam_fit.backward"):
+                loss.backward()
+            with named_scope("adam_fit.update"):
+                opt.step()
+                losses.append(loss.detach())
     return params, losses
 
 

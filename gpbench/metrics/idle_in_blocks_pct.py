@@ -1,0 +1,11 @@
+"""idle_in_blocks_pct.<part>: the device's idle time while the main thread
+was inside the program's ``predict.block`` spans, as a percentage of the
+traced window."""
+
+from gpbench.harness import spans
+
+
+def read(view):
+    j = spans.join(view)
+    inside = j.named("predict.block") if j else []
+    return j.idle_pct(inside) if inside else None

@@ -16,7 +16,7 @@ device's busy share of the wall time.  ``laplace`` builds phase 15's
 probes, 30 Lanczos steps, rank 512, blocks of 8192), times the rank-512
 factor apart, runs one value-and-gradient call to warm up and profiles the
 next: the device time by kernel, the pivoted Cholesky's share (the kernels
-inside its profiler range), the CG and Newton host syncs, and the idle time by the host operation begun
+launched inside its span), the CG and Newton host syncs, and the idle time by the host operation begun
 inside each gap.  ``lengthscale`` (not in the default) measures row 5's
 θ-cotangent of s = Σ a∘(K b) (K the Laplace rows' 1.5·SE(ℓ = 1.2) Gram,
 the points of phase 15 at N = 2·10⁴ and 10⁵, a and b fixed normals of R = 1
@@ -49,6 +49,7 @@ from approximategps_tpu_torch import convert  # noqa: E402
 from approximategps_tpu_torch.core.kernels import unwrap_stationary  # noqa: E402
 from approximategps_tpu_torch.models import iterative  # noqa: E402
 from approximategps_tpu_torch.ops import gram_matvec  # noqa: E402
+from approximategps_tpu_torch.utils import profiling  # noqa: E402
 
 PARTS = ("gp", "laplace", "lengthscale")
 DEFAULT_PARTS = ("gp", "laplace")
@@ -209,6 +210,7 @@ def laplace(dev) -> None:
               f"{1e3 * (time.perf_counter() - t0):.3f} ms")
     cs.lap_lml(theta, x, y, probes, True, **kw)
     iterative.reset_stats()
+    profiling.reset_spans()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -217,23 +219,26 @@ def laplace(dev) -> None:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     dev_ev = device_events(prof)
-    # the factor's "pivoted_cholesky" range (iterative.pivoted_cholesky): its
-    # calls on the host, and its span of kernels on the device where the
-    # profiler records one (else the host ranges)
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    host = [(e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.name == "pivoted_cholesky" and e.device_type == cpu]
-    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
-              if e.name == "pivoted_cholesky" and e.device_type == cuda] or host
+    # the factor's "pivoted_cholesky" span (iterative.pivoted_cholesky): its
+    # calls on the host, and on the device the operations whose runtime
+    # call (the same correlation id) began inside a span, from first to last
+    host_ns = [(s, e) for name, _, s, e in profiling.spans() if name == "pivoted_cholesky"]
+    cuda = torch.autograd.DeviceType.CUDA
+    kineto = list(prof.profiler.kineto_results.events())
+    launched = {ev.correlation_id() for ev in kineto if ev.device_type() != cuda
+                and ev.name().startswith("cuda")
+                and any(s <= ev.start_ns() < e for s, e in host_ns)}
+    in_factor_ev = [ev for ev in kineto if ev.device_type() == cuda
+                    and not ev.is_user_annotation() and ev.correlation_id() in launched]
+    in_factor = sum(ev.duration_ns() for ev in in_factor_ev) / 1e6
+    host = [(s / 1e3, e / 1e3) for s, e in host_ns]
+    ranges = ([(min(ev.start_ns() for ev in in_factor_ev) / 1e3,
+                max(ev.end_ns() for ev in in_factor_ev) / 1e3)] if in_factor_ev else [])
     by_name: dict[str, list] = {}
-    in_factor = 0.0
     for e in dev_ev:
         row = by_name.setdefault(e.name, [0.0, 0])
-        ms = e.time_range.elapsed_us() / 1e3
-        row[0] += ms
+        row[0] += e.time_range.elapsed_us() / 1e3
         row[1] += 1
-        if any(lo <= e.time_range.start < hi for lo, hi in ranges):
-            in_factor += ms
     busy = sum(ms for ms, _ in by_name.values())
     print(f"one laplace_cg_lml value and θ-gradient, N = {cs.N_LAP}: wall {wall:.3f} ms, device "
           f"busy {busy:.3f} ms ({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} %)")
@@ -241,8 +246,8 @@ def laplace(dev) -> None:
         print(f"  {ms:10.3f} ms  {calls:6d} calls  {name[:90]}")
     print(f"  pivoted Cholesky (rank {cs.LAP_RANK}): {len(host)} calls, host "
           + ", ".join(f"{(hi - lo) / 1e3:.3f}" for lo, hi in host) + " ms, device "
-          + ", ".join(f"{(hi - lo) / 1e3:.3f}" for lo, hi in ranges) + f" ms spans, device busy "
-          f"{in_factor:.3f} ms inside them")
+          + ", ".join(f"{(hi - lo) / 1e3:.3f}" for lo, hi in ranges) + " ms from first to last, "
+          f"device busy {in_factor:.3f} ms in its operations")
     st = iterative.stats
     print(f"  CG: {st['cg_solves']} solves, {st['cg_iterations']} iterations, "
           f"{st['cg_host_syncs']} host syncs (one an iteration; Newton adds one a step); matvecs "
