@@ -7,27 +7,36 @@ never formed.  The posterior cache comes from ``chol_with_inv`` (the (L, L⁻¹)
 kernel of a given matrix on the card) and the S-correction
 ``S = Lk⁻ᵀ(BBᵀ−I)Lk⁻¹``, formed once outside the loop.  Each block goes
 through the fused epilogue ``ops.svgp_epilogue.svgp_data_epilogue``, whose
-backward kernel rebuilds K0 on the card, where it serves (``prefer=remat``),
-and otherwise through the plain Gram and ``diag_quad_sym`` under
-``torch.utils.checkpoint``, which recomputes the block's (M, B) Gram in the
-backward instead of keeping it (the port of ``jax.checkpoint``); there S
-and the Gram are stored in bf16 under ``config.compute_dtype`` as in the
-minibatch ELBO.  The epilogue's blocks are f32 whatever the setting: the
-JAX package's epilogue stores bf16 only under its TPU-pass knob
-``matmul_precision``, which the port does not have.
+backward kernel rebuilds K0 on the card, where it serves (``prefer=remat``);
+on the card one epilogue call takes as many consecutive blocks as
+:func:`_blocks_per_call` allows, so the host issues each call's work once
+for them all.  Otherwise the block goes through the plain Gram and
+``diag_quad_sym`` under ``torch.utils.checkpoint``, which recomputes the
+block's (M, B) Gram in the backward instead of keeping it (the port of
+``jax.checkpoint``); there S and the Gram are stored in bf16 under
+``config.compute_dtype`` as in the minibatch ELBO.  The epilogue's blocks
+are f32 whatever the setting: the JAX package's epilogue stores bf16 only
+under its TPU-pass knob ``matmul_precision``, which the port does not
+have.
 :func:`dp_streaming_elbo` splits the points over the ranks of a data mesh.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Callable
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..config import kernel_device
 from ..core import linalg
 from ..core.kernels import as_points
 from ..core.quadrature import DefaultExpectationMethod, expected_loglikelihood
+from ..ops.svgp_epilogue import epilogue_bwd_scratch
 from ..parallel import _comm
 from ..parallel.data_parallel import shard_batch
+from ..utils.profiling import named_scope
 from .svgp import (
     Centered,
     SparseVariationalApproximation,
@@ -49,6 +58,37 @@ def _pad_leading(a: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
 
 
+def _blocks_fitting(n_blocks: int, block_size: int, budget: int,
+                    scratch: Callable[[int], int]) -> int:
+    """The most consecutive blocks, at least 1 and at most ``n_blocks``, such
+    that ``scratch(j·block_size) <= budget`` for every j up to it (a group
+    of fewer blocks, the tail's, fits too)."""
+    k = 1
+    while k < n_blocks and scratch((k + 1) * block_size) <= budget:
+        k += 1
+    return k
+
+
+@functools.lru_cache(maxsize=64)
+def _fused_blocks_per_call(n_blocks: int, block_size: int, M: int, D: int,
+                           dtype: torch.dtype, device: torch.device) -> int:
+    return _blocks_fitting(n_blocks, block_size, M * block_size,
+                           lambda b: epilogue_bwd_scratch(b, M, D, dtype, device))
+
+
+def _blocks_per_call(operands, like: torch.Tensor, n_blocks: int, block_size: int, M: int,
+                     D: int) -> int:
+    """Blocks of ``block_size`` points a data-term call takes.  On the
+    kernel device through the fused epilogue: as many as keep the
+    pullback's scratch within the (M, block_size) Gram that the plain route
+    forms a block, in the call's dtype.  Elsewhere 1: the checkpointed plain
+    route forms that Gram, and the epilogue's CPU version forms K0 in
+    full."""
+    if operands is None or not kernel_device(like):
+        return 1
+    return _fused_blocks_per_call(n_blocks, block_size, M, D, like.dtype, like.device)
+
+
 def streaming_data_term(sva: SparseVariationalApproximation, lik, x: torch.Tensor,
                         y: torch.Tensor, block_size: int = 8192, quadrature=None,
                         remat: bool = True, mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -57,7 +97,14 @@ def streaming_data_term(sva: SparseVariationalApproximation, lik, x: torch.Tenso
 
     N need not be a multiple of ``block_size``: the tail block is padded
     with copies of the first point and masked out of the sum.  ``mask``
-    (optional, (N,), 0/1 or bool) weights the points further."""
+    (optional, (N,), 0/1 or bool) weights the points further.
+
+    ``block_size`` bounds the memory a call takes to O(M·block_size): on
+    the checkpointed plain route a call is one block and its (M, B) Gram;
+    through the fused epilogue on the card a call takes consecutive blocks
+    while the pullback's scratch stays within that Gram's size
+    (:func:`_blocks_per_call`).  Under a profiler session each call is a
+    ``streaming.chunk`` span."""
     if quadrature is None:
         quadrature = DefaultExpectationMethod()
     fz = sva.fz
@@ -101,14 +148,18 @@ def streaming_data_term(sva: SparseVariationalApproximation, lik, x: torch.Tenso
         ell = expected_loglikelihood(quadrature, lik, mu, var, yi)
         return torch.sum(ell * wi)
 
+    n_blocks = (n + pad) // block_size
+    step = block_size * _blocks_per_call(operands, S_corr, n_blocks, block_size, m.shape[-1],
+                                         x.shape[1])
     total = torch.zeros((), dtype=m.dtype, device=y.device)
-    for start in range(0, n + pad, block_size):
-        args = (x[start:start + block_size], y[start:start + block_size],
-                w[start:start + block_size], alpha, S_corr)
-        if remat and operands is None:
-            total = total + checkpoint(block_ell, *args, use_reentrant=False)
-        else:
-            total = total + block_ell(*args)
+    for start in range(0, n + pad, step):
+        args = (x[start:start + step], y[start:start + step], w[start:start + step], alpha,
+                S_corr)
+        with named_scope("streaming.chunk"):
+            if remat and operands is None:
+                total = total + checkpoint(block_ell, *args, use_reentrant=False)
+            else:
+                total = total + block_ell(*args)
     return total
 
 
@@ -117,7 +168,8 @@ def streaming_elbo(sva: SparseVariationalApproximation, lik, x: torch.Tensor, y:
                    remat: bool = True) -> torch.Tensor:
     """ELBO over the full data set, summed in blocks of ``block_size``: the
     same value as ``elbo(sva, lfx, y, num_data=...)`` with O(M·block)
-    memory instead of O(M·N)."""
+    memory instead of O(M·N) (how a call reads ``block_size``:
+    :func:`streaming_data_term`)."""
     total_ell = streaming_data_term(sva, lik, x, y, block_size=block_size,
                                     quadrature=quadrature, remat=remat)
     n = y.shape[0]

@@ -38,6 +38,7 @@ __all__ = [
     "svgp_data_epilogue_bwd",
     "svgp_data_epilogue_bwd_plain",
     "epilogue_block_b",
+    "epilogue_bwd_scratch",
     "epilogue_part",
 ]
 
@@ -187,6 +188,27 @@ def svgp_data_epilogue_bwd_plain(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap):
     return Xs_bar, Zs_bar, Se_bar, ae_bar
 
 
+def _bwd_entry(part: str, dtype: torch.dtype):
+    """The pullback kernel of ``part`` in ``dtype`` and its scratch query."""
+    lib = _build.load_library()
+    if part == "mma":
+        return lib.agp_svgp_epilogue_bwd_mma_f32, lib.agp_svgp_epilogue_bwd_mma_scratch_f32
+    if dtype == torch.float32:
+        return lib.agp_svgp_epilogue_bwd_f32, lib.agp_svgp_epilogue_bwd_scratch_f32
+    return lib.agp_svgp_epilogue_bwd_f64, lib.agp_svgp_epilogue_bwd_scratch_f64
+
+
+def epilogue_bwd_scratch(B: int, M: int, D: int, dtype: torch.dtype,
+                         device: torch.device) -> int:
+    """Elements of scratch that :func:`svgp_data_epilogue_bwd` allocates for
+    a call at (B, M, D) in ``dtype`` on ``device`` with its default part.
+    The layout depends on the card's SM count and occupancy, so this asks
+    the card."""
+    _, n_fn = _bwd_entry("mma" if _mma_takes(D, dtype) else "simt", dtype)
+    with torch.cuda.device(device):
+        return int(n_fn(B, M, D))
+
+
 def svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap,
                            part: str | None = None):
     """(X̄s, Z̄s, S̄e, āe): the pullback of :func:`svgp_data_epilogue` for
@@ -208,14 +230,7 @@ def svgp_data_epilogue_bwd(Xs, Zs, Se, ae, dmu, dvar, kmap: KernelMap,
                          f"got {dtype}, D={D}")
     part = _part("svgp_data_epilogue_bwd", part, "mma" if _mma_takes(D, dtype) else "simt", D,
                  dtype)
-    lib = _build.load_library()
-    f32 = dtype == torch.float32
-    if part == "mma":
-        fn, n_fn = lib.agp_svgp_epilogue_bwd_mma_f32, lib.agp_svgp_epilogue_bwd_mma_scratch_f32
-    elif f32:
-        fn, n_fn = lib.agp_svgp_epilogue_bwd_f32, lib.agp_svgp_epilogue_bwd_scratch_f32
-    else:
-        fn, n_fn = lib.agp_svgp_epilogue_bwd_f64, lib.agp_svgp_epilogue_bwd_scratch_f64
+    fn, n_fn = _bwd_entry(part, dtype)
     Xc, Zc = _centre(Xs, Zs)
     ins = [t.contiguous() for t in (Xc, Zc, Se, ae, dmu, dvar)]
     like = dict(dtype=dtype, device=Xs.device)

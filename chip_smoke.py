@@ -71,9 +71,10 @@ Phases (a failing phase raises, and the script exits non-zero):
    M = 2048, blocks of 16384, y = sin(x_0), Gaussian likelihood 0.1), with
    phase 4's non-trivial q (the bench's m = 0, A = I make S = 0 and α = 0,
    and with them the W term of kernel 3).  Asserts the exact launch counts
-   (kernel 4 once, the epilogue forward and backward once a block) and that
-   the gradients agree with the plain path (checkpointed Gram blocks); prints
-   the ms a value-and-gradient of both paths.
+   (kernel 4 once, the epilogue forward and backward once a call, each
+   call as many blocks as ``streaming_data_term`` groups: ``stream_calls``)
+   and that the gradients agree with the plain path (checkpointed Gram
+   blocks); prints the ms a value-and-gradient of both paths.
 7. The matrix-free exact GP (``bench.py::laplace_cg_lml``'s sizes with a
    Gaussian likelihood): N = 10^5 points in [0, 10]², y = sin(x_0) +
    0.1·N(0, 1), SE kernel from raw θ = softplus⁻¹(1.5, 1.2, 0.1); 5 steps of
@@ -255,14 +256,14 @@ Phases (a failing phase raises, and the script exits non-zero):
     on phase 5's minibatch cell, 30 Adam steps over the same batches as
     ``adam_fit`` from the same start (row 1 once a step); (c)
     ``dp_streaming_elbo`` at phase 6's 2^20 points (row 4 once, rows 2 and
-    3 64 times); (d) the matrix-free tier on row bands: ``logpdf_slq``'s
-    value and θ-gradient at phase 7's exact GP, a ``posterior_cg`` serve,
-    ``newton_inner_loop_cg`` at 10^5 (chunked, the cross pass) and at
-    2·10^4 (``storage="dense"``: the rank's 1.6 GB band of K stored), and
-    ``laplace_lml_cg``'s θ-gradient at 2·10^4 against the f64 run on the
-    band route and the single-card one (row 5's cross pass at R = 1 and
-    16, the general pullback's transposed pass and the lengthscale's
-    r²·g′ pass), row 5's launches counted by pass.
+    3 once a call of phase 6's grouped blocks); (d) the matrix-free tier on
+    row bands: ``logpdf_slq``'s value and θ-gradient at phase 7's exact GP,
+    a ``posterior_cg`` serve, ``newton_inner_loop_cg`` at 10^5 (chunked,
+    the cross pass) and at 2·10^4 (``storage="dense"``: the rank's 1.6 GB
+    band of K stored), and ``laplace_lml_cg``'s θ-gradient at 2·10^4
+    against the f64 run on the band route and the single-card one (row 5's
+    cross pass at R = 1 and 16, the general pullback's transposed pass and
+    the lengthscale's r²·g′ pass), row 5's launches counted by pass.
 21. Phase 5's minibatch cell under ``compute_dtype="bfloat16"`` (the (M, B)
     projection intermediates stored in bf16, sums in f32): step 1's value
     within 2e-2 of the f32 step and its gradients against it (the bench's q
@@ -309,7 +310,8 @@ import torch
 import approximategps_tpu_torch as tgp
 from approximategps_tpu_torch import convert
 from approximategps_tpu_torch.core import kernels as tk
-from approximategps_tpu_torch.models import iterative, laplace_cg, sampling, vecchia
+from approximategps_tpu_torch.models import iterative, laplace_cg, sampling, svgp_streaming, \
+    vecchia
 from approximategps_tpu_torch.ops import _build, batched_chol, gram, gram_matvec, knn, \
     panel_chol, svgp_epilogue
 from approximategps_tpu_torch.utils.bijectors import softplus
@@ -1389,6 +1391,15 @@ def phase_minibatch(dev) -> dict:
     return launches
 
 
+def stream_calls(dev) -> int:
+    """Fused-epilogue calls of phase 6's data term: its blocks of 16384, as
+    many a call as ``streaming_data_term`` groups at (M, D) in f32 on this
+    card (the pullback's scratch decides)."""
+    n_blocks = N_STREAM // BLOCK
+    k = svgp_streaming._fused_blocks_per_call(n_blocks, BLOCK, M, D, torch.float32, dev)
+    return -(-n_blocks // k)
+
+
 def phase_streaming(dev) -> dict:
     params = slice_params()
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -1400,15 +1411,16 @@ def phase_streaming(dev) -> dict:
         sva, _ = bench_sva(p)
         return -tgp.streaming_elbo(sva, lik, x, y, block_size=BLOCK)
 
-    n_blocks = N_STREAM // BLOCK
+    n_blocks, calls = N_STREAM // BLOCK, stream_calls(dev)
     reset_counts()
     v, g = value_and_grad(loss_fn, leaf_params(params, dev, torch.float32))
     torch.cuda.synchronize()
     launches = read_counts()
     print(f"streaming launches: {launches}")
-    check(launches == only(svgp_data_epilogue=n_blocks, svgp_data_epilogue_bwd=n_blocks,
+    check(launches == only(svgp_data_epilogue=calls, svgp_data_epilogue_bwd=calls,
                            chol_inv=1),
-          f"kernel 4 launched once, the epilogue forward and backward {n_blocks} times each")
+          f"kernel 4 launched once, the epilogue forward and backward {calls} times each "
+          f"(one call a group of the {n_blocks} blocks)")
     check(bool(torch.isfinite(v)) and all(bool(torch.isfinite(t).all()) for t in g.values()),
           "streaming value and gradients finite")
     with tgp.config_context(use_kernels=False):
@@ -3619,16 +3631,16 @@ def dp_streaming(dev, mesh) -> dict:
         sva, _ = bench_sva(p)
         return -tgp.streaming_elbo(sva, lik, x, y, block_size=BLOCK)
 
-    n_blocks = N_STREAM // BLOCK
+    calls = stream_calls(dev)
     reset_counts()
     v, g = value_and_grad(loss_dp, leaf_params(params, dev, torch.float32))
     torch.cuda.synchronize()
     launches = read_counts()
     v0, g0 = value_and_grad(loss_one, leaf_params(params, dev, torch.float32))
     e = max([rel_err(v, v0)] + [rel_err(g[k], g0[k]) for k in g])
-    check(launches == only(svgp_data_epilogue=n_blocks, svgp_data_epilogue_bwd=n_blocks,
+    check(launches == only(svgp_data_epilogue=calls, svgp_data_epilogue_bwd=calls,
                            chol_inv=1) and e <= DP_RTOL32,
-          f"dp_streaming_elbo N={N_STREAM}: row 4 once, rows 2 and 3 {n_blocks} times each "
+          f"dp_streaming_elbo N={N_STREAM}: row 4 once, rows 2 and 3 {calls} times each "
           f"({launches}); against streaming_elbo: value {same(v, v0)}, gradients "
           + ", ".join(f"d{k} {same(g[k], g0[k])}" for k in g) + f" (<= {DP_RTOL32:g})")
     q = leaf_params(params, dev, torch.float32)

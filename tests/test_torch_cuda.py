@@ -406,6 +406,92 @@ def test_torch_cuda_epilogue_parts_raise_on_what_they_do_not_take(cuda):
         svgp_epilogue.svgp_data_epilogue(*f32[:4], kmap)  # the mma default serves
 
 
+@pytest.mark.parametrize("case", ["mma", "simt f64", "mma mask"])
+def test_torch_cuda_streaming_takes_several_blocks_a_call(case, cuda):
+    """The full-data data term with several blocks a fused-epilogue call:
+    N = 50,000 in blocks of 4096 (13 blocks, the last ragged), M = 256,
+    D = 8, ARD SE, a non-trivial q; f32 on the tensor-core kernels, f64 on
+    the SIMT ones, and f32 with a 0/1 mask.  The value and every leaf's
+    gradient against the same sum built here one ``svgp_data_epilogue``
+    call a block (the tail unpadded), and against ``use_kernels=False``
+    (the checkpointed Gram blocks): relative to the largest entry, 1e-3 in
+    f32 (the f32 streaming check's limit), 1e-9 in f64.  Each kernel
+    launches once a group, ceil(13 / k) times, where k > 1 blocks fit
+    the (M, block) Gram's size."""
+    from approximategps_tpu_torch.core.quadrature import (DefaultExpectationMethod,
+                                                          expected_loglikelihood)
+    from approximategps_tpu_torch.models import svgp as msvgp
+    from approximategps_tpu_torch.models import svgp_streaming
+    from approximategps_tpu_torch.utils.bijectors import softplus
+
+    dtype = torch.float64 if case == "simt f64" else torch.float32
+    limit = 1e-9 if dtype == torch.float64 else 1e-3
+    N, M, D, block = 50_000, 256, 8, 4096
+    n_blocks = -(-N // block)
+    rng = np.random.default_rng(21)
+    x = _t(rng.standard_normal((N, D)), cuda, dtype)
+    y = torch.sin(x[:, 0]) + 0.1 * _t(rng.standard_normal(N), cuda, dtype)
+    w = _t(rng.random(N) < 0.7, cuda, dtype) if case == "mma mask" else None
+    leaves = {"k": np.r_[0.5, np.full(D, 1.0)], "z": rng.standard_normal((M, D)),
+              "m": 0.3 * rng.standard_normal(M),
+              "A": 0.6 * np.eye(M) + 0.02 * np.tril(rng.standard_normal((M, M)))}
+    lik = tgp.GaussianLikelihood(0.1)
+
+    def sva_of(p):
+        kern = softplus(p["k"][0]) * tgp.with_lengthscale(tgp.SqExponentialKernel(),
+                                                          softplus(p["k"][1:]))
+        q = tgp.MultivariateNormal(p["m"], torch.tril(p["A"]))
+        return tgp.SparseVariationalApproximation(tgp.GP(kern)(p["z"], 1e-6), q)
+
+    def streamed(p):
+        sva = sva_of(p)
+        if w is None:
+            return tgp.streaming_elbo(sva, lik, x, y, block_size=block)
+        return (svgp_streaming.streaming_data_term(sva, lik, x, y, block_size=block, mask=w)
+                - msvgp.prior_kl(sva))
+
+    def per_block(p):
+        sva = sva_of(p)
+        prior = sva.fz.f
+        _, Lk_inv = tlinalg.chol_with_inv(sva.fz.cov())
+        B = sva.q.scale_tril
+        eye = torch.eye(M, dtype=dtype, device=cuda)
+        S = tlinalg.symmetrize(Lk_inv.T @ ((B @ B.T - eye) @ Lk_inv))
+        operands = msvgp._epilogue_operands(prior, sva.fz.x, Lk_inv.T @ sva.q.mean, S,
+                                            prefer=True)
+        total = 0.0
+        for s in range(0, N, block):
+            mu, var = msvgp._epilogue_mu_var(prior, x[s:s + block], operands)
+            ell = expected_loglikelihood(DefaultExpectationMethod(), lik, mu, var,
+                                         y[s:s + block])
+            total = total + torch.sum(ell if w is None else ell * w[s:s + block])
+        return total - msvgp.prior_kl(sva)
+
+    def value_and_grad(fn):
+        p = {k: _t(v, cuda, dtype).requires_grad_() for k, v in leaves.items()}
+        v = fn(p)
+        return v, dict(zip(p, torch.autograd.grad(v, list(p.values()))))
+
+    k = svgp_streaming._fused_blocks_per_call(n_blocks, block, M, D, dtype, cuda)
+    assert 1 < k < n_blocks
+    groups = -(-n_blocks // k)
+    runs = []
+    for fn in (streamed, per_block):
+        c0 = svgp_epilogue.svgp_data_epilogue.launches
+        c1 = svgp_epilogue.svgp_data_epilogue_bwd.launches
+        runs.append(value_and_grad(fn))
+        assert (svgp_epilogue.svgp_data_epilogue.launches - c0,
+                svgp_epilogue.svgp_data_epilogue_bwd.launches - c1) == \
+            ((groups, groups) if fn is streamed else (n_blocks, n_blocks))
+    with tgp.config_context(use_kernels=False):
+        runs.append(value_and_grad(streamed))
+    (v, g), *refs = runs
+    for name, (v0, g0) in zip(("per block", "plain"), refs):
+        assert _rel(v, v0) <= limit, name
+        for leaf in leaves:
+            assert _rel(g[leaf], g0[leaf]) <= limit, (name, leaf)
+
+
 def test_torch_cuda_centered_posterior_runs_through_chol_inv(cuda):
     """Centered needs the (L, L⁻¹) kernel of a given matrix: one launch of
     chol_inv, and the same posterior as the plain route."""

@@ -21,7 +21,9 @@ from approximategps_tpu.core import kernels as jk
 from approximategps_tpu.models.svgp_streaming import streaming_elbo as jax_streaming_elbo
 from approximategps_tpu.utils.bijectors import softplus as jsoftplus
 from approximategps_tpu_torch.core import kernels as tk
+from approximategps_tpu_torch.models import svgp_streaming
 from approximategps_tpu_torch.ops import panel_chol, svgp_epilogue
+from approximategps_tpu_torch.utils import profiling
 from approximategps_tpu_torch.utils.bijectors import softplus as tsoftplus
 
 torch.set_num_threads(1)
@@ -134,3 +136,100 @@ def test_torch_streaming_data_term_mask():
                   mask=torch.from_numpy(keep))
     kept = term(sva, lik, torch.from_numpy(x[keep]), torch.from_numpy(y[keep]), block_size=BLOCK)
     np.testing.assert_allclose(masked.item(), kept.item(), rtol=1e-12)
+
+
+# -- blocks a call: several blocks through one epilogue call on the card ------
+
+CELL_BUDGET = 1000 * 16384  # the (M, block) Gram at M = 1000, blocks of 16384
+
+
+@pytest.mark.parametrize("scratch, n_blocks, want", [
+    (lambda b: 87 * b + 5_700_000, 43, 7),  # the pullback's layout at the full-data cell
+    (lambda b: 87 * b + 5_700_000, 5, 5),  # capped at the blocks there are
+    (lambda b: 87 * b + 5_700_000, 1, 1),
+    (lambda b: 0, 43, 43),
+    (lambda b: CELL_BUDGET + 1, 43, 1),  # not even one block fits: still one a call
+    (lambda b: 2 * CELL_BUDGET if b > 3 * 16384 else 0, 43, 3),
+], ids=["cell", "capped", "one block", "no scratch", "over budget", "step"])
+def test_torch_streaming_blocks_a_call_fit_the_budget(scratch, n_blocks, want):
+    asked = []
+
+    def probe(b):
+        asked.append(b)
+        return scratch(b)
+
+    k = svgp_streaming._blocks_fitting(n_blocks, 16384, CELL_BUDGET, probe)
+    assert k == want
+    assert 1 <= k <= n_blocks
+    assert k == 1 or all(scratch(j * 16384) <= CELL_BUDGET for j in range(1, k + 1))
+    assert k == n_blocks or scratch((k + 1) * 16384) > CELL_BUDGET
+    assert max(asked, default=0) <= n_blocks * 16384
+
+
+def _chunks(run):
+    profiling.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = run()
+    n = sum(1 for name, *_ in profiling.spans() if name == "streaming.chunk")
+    profiling.reset_spans()
+    return out, n
+
+
+@pytest.mark.parametrize("mode", ["auto", "plain"])
+def test_torch_streaming_takes_one_block_a_call_off_the_card(mode, monkeypatch):
+    """On CPU tensors (the epilogue's CPU version forms K0 in full) and on
+    the checkpointed plain route a call takes one block, one
+    ``streaming.chunk`` span each, and the card is never asked."""
+    params = _params()
+    x, y = _data()
+    picked = []
+    pick = svgp_streaming._blocks_per_call
+    monkeypatch.setattr(svgp_streaming, "_blocks_per_call",
+                        lambda *a: picked.append(pick(*a)) or picked[-1])
+    monkeypatch.setattr(svgp_streaming, "epilogue_bwd_scratch", None)
+    with tgp.config_context(data_term_mode=mode):
+        _, n = _chunks(lambda: _torch_value_and_grad(tk.SqExponentialKernel, params, x, y,
+                                                     num_data=5000))
+    assert picked == [1]
+    assert n == -(-N // BLOCK)
+
+
+@pytest.mark.parametrize("per_call", [2, 3, 4])
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_torch_streaming_grouped_blocks_match_jax(kernel, per_call, monkeypatch):
+    """The loop with several blocks a call, as it runs on the card, held on
+    the CPU (fused epilogue, closed-form pullback) against the JAX package:
+    the tail group is short and its last block padded; one epilogue call
+    and one ``streaming.chunk`` span a group.  rtol 1e-8."""
+    jcls, tcls = KERNELS[kernel]
+    params = _params()
+    x, y = _data()
+    vj, gj = _jax_reference(jcls, params, x, y, num_data=5000)
+    monkeypatch.setattr(svgp_streaming, "_blocks_per_call", lambda *a: per_call)
+    fwd = _probe(monkeypatch, svgp_epilogue, "svgp_data_epilogue_plain")
+    bwd = _probe(monkeypatch, svgp_epilogue, "svgp_data_epilogue_bwd_plain")
+    (vt, gt), n = _chunks(lambda: _torch_value_and_grad(tcls, params, x, y, num_data=5000))
+    groups = -(-(-(-N // BLOCK)) // per_call)
+    assert (len(fwd), len(bwd), n) == (groups, groups, groups)
+    np.testing.assert_allclose(vt.item(), float(vj), rtol=1e-8)
+    for k in params:
+        np.testing.assert_allclose(gt[k].numpy(), np.asarray(gj[k]), rtol=1e-8, atol=1e-10,
+                                   err_msg=k)
+
+
+def test_torch_streaming_grouped_mask():
+    """A 0/1 mask drops points from the sum exactly with several blocks a
+    call, as with one."""
+    params = _params(4)
+    x, y = _data(5)
+    keep = torch.from_numpy(np.random.default_rng(6).random(N) < 0.6)
+    tp = {k: torch.tensor(v) for k, v in params.items()}
+    sva = _sva(tp, tgp, tsoftplus, torch.tril, tk.SqExponentialKernel)
+    lik = tgp.GaussianLikelihood(0.1)
+    term = svgp_streaming.streaming_data_term
+    one = term(sva, lik, torch.from_numpy(x), torch.from_numpy(y), block_size=BLOCK, mask=keep)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(svgp_streaming, "_blocks_per_call", lambda *a: 3)
+        grouped = term(sva, lik, torch.from_numpy(x), torch.from_numpy(y), block_size=BLOCK,
+                       mask=keep)
+    np.testing.assert_allclose(grouped.item(), one.item(), rtol=1e-12)
