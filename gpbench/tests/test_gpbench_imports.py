@@ -55,8 +55,8 @@ from tiny import TINY
 from gpbench.harness import runner, spec
 from gpbench import calibrate
 b = spec.load_spec()
-for w in b["workloads"]:
-    spec.reference_module(spec.config(b, w["config"])["model"])
+for c in b["configs"]:
+    spec.reference_module(spec.config(b, c["name"])["model"])
 for m in b["per_layer"]:
     spec.reader(m["name"])
 cell = "svgp_airline.fullbatch"
@@ -67,11 +67,15 @@ print(json.dumps(runner.forbidden_modules()))
     assert _python(code) == []
 
 
-def test_gpbench_reference_alone_loads_nothing_of_the_program():
+REFERENCES = sorted(p.stem for p in (BENCH / "reference").glob("*.py") if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("model", REFERENCES)
+def test_gpbench_reference_alone_loads_nothing_of_the_program(model):
     code = f"""
 import sys, json
 sys.path.insert(0, {str(ROOT)!r})
-import gpbench.reference.svgp
+import gpbench.reference.{model}
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("approximategps_tpu_torch", "jax",
                                                "approximategps_tpu"))))

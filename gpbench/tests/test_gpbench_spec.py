@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's contract: keys, names, units,
-the files each entry names, the cells' metrics and the check's time."""
+the files each entry names (with each cell's CPU size and its loop's
+calibration), the cells' metrics and the check's time."""
 
 import json
 import re
@@ -8,6 +9,7 @@ import pytest
 
 from tiny import ROOT
 
+from gpbench import calibrate
 from gpbench.harness import spec
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -66,6 +68,19 @@ def test_gpbench_workload_entry_and_its_files(wl):
     layer = spec.per_layer(BSPEC, wl["name"])
     assert layer
     assert all(m["moves"] in e2e for m in layer)
+
+
+@pytest.mark.parametrize("wl", BSPEC["workloads"], ids=lambda w: w["name"])
+def test_gpbench_cell_has_its_cpu_size_and_its_loop_its_calibration(wl):
+    tiny = ROOT / "gpbench" / "tests" / "tiny" / f"{wl['name']}.json"
+    assert tiny.exists(), f"no {tiny.relative_to(ROOT)}"
+    assert set(json.loads(tiny.read_text())) <= {"config", "traffic"}
+    loop = spec.traffic(wl["traffic"])["loop"]
+    cal = ROOT / "gpbench" / "calibration" / f"{loop}.py"
+    assert cal.exists(), f"no {cal.relative_to(ROOT)}"
+    module = calibrate.calibration_module(loop)
+    assert isinstance(module.WINDOW, bool)
+    assert all(callable(getattr(module, f)) for f in ("faults", "as_outputs", "numbers"))
 
 
 def test_gpbench_cells_are_unique_pairs():

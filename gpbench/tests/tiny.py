@@ -1,8 +1,11 @@
-"""Each cell cut to a size a CPU test run holds: the overrides the tests
-merge over the configuration and traffic files (widths cut too: these
-sizes test the harness's plumbing and the comparison, not the program's
-speed)."""
+"""Each cell cut to a size a CPU test run holds: ``tiny/<cell>.json``, the
+overrides (``{"config": {...}, "traffic": {...}}``) the tests merge over
+the configuration and traffic files (widths cut too: these sizes test the
+harness's plumbing and the comparison, not the program's speed).  A new
+cell brings its own file; ``TINY[cell]`` for a cell without one raises a
+KeyError that names the file to add."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -10,12 +13,15 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-TINY = {
-    "svgp_airline.predict": {"config": {"num_data": 4000, "num_inducing": 64},
-                             "traffic": {"min_points": 64, "max_points": 4096, "block_size": 512,
-                                         "cycle": 16, "pool_points": 8192, "sample_every": 4,
-                                         "sample_points": 65536}},
-    "svgp_airline.fullbatch": {"config": {"num_data": 3000, "num_inducing": 64},
-                               "traffic": {"block_size": 512}},
-}
+SIZES = Path(__file__).resolve().parent / "tiny"
+
+
+class _Sizes(dict):
+    def __missing__(self, cell):
+        raise KeyError(f"cell {cell!r} has no CPU size: add "
+                       f"{(SIZES / f'{cell}.json').relative_to(ROOT)}")
+
+
+TINY = _Sizes({p.name[:-len(".json")]: json.loads(p.read_text())
+               for p in sorted(SIZES.glob("*.json"))})
 SECONDS = 0.5
